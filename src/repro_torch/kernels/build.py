@@ -1,0 +1,119 @@
+"""Build the CUDA kernels of `csrc/` and load them with ctypes.
+
+A `csrc/<stem>.cu` source is compiled by `nvcc` into a shared library with
+a plain C interface, at first use, into `_build/` beside this file (a
+directory that git ignores).  The packed lookup tables the kernels index are
+generated from `core.tables` into `_build/sfc_tables.h` first, so no table is
+typed by hand.  A library is named after the hash of its source, the
+generated header and the flags, so an edit rebuilds and an unchanged tree
+reuses the earlier build.
+
+This module imports nothing CUDA-specific: `nvcc` is looked up, and a
+library loaded, only when a kernel is first needed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+from ..core.tables import MAXLEVEL, get_tables
+
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "packed_tables", "table_header",
+           "build", "library"]
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def packed_tables(d: int) -> tuple[list[int], list[int]]:
+    """The packed transition tables the kernels index, one byte per entry:
+    enc[b * 2^d + cid] = local index | parent type << 3 and
+    dec[b * 2^d + iloc] = cube id | child type << 3 (the TPU kernels'
+    `_packed_tables`, without the face-neighbor table this slice does not
+    use)."""
+    t = get_tables(d)
+    nc, nt = t.num_children, t.num_types
+    enc = [0] * (nt * nc)
+    dec = [0] * (nt * nc)
+    for b in range(nt):
+        for cid in range(nc):
+            enc[b * nc + cid] = int(t.local_index[cid, b]) | (int(t.parent_type[cid, b]) << 3)
+        for iloc in range(nc):
+            dec[b * nc + iloc] = (int(t.cube_id_of_local[b, iloc])
+                                  | (int(t.type_of_local[b, iloc]) << 3))
+    return enc, dec
+
+
+def table_header() -> str:
+    """Text of the generated `sfc_tables.h`."""
+    lines = ["// Generated by repro_torch/kernels/build.py from core/tables.py.",
+             "#pragma once"]
+    for d in (2, 3):
+        lines.append(f"#define SFC_MAXLEVEL_{d} {MAXLEVEL[d]}")
+        enc, dec = packed_tables(d)
+        for name, vals in (("enc", enc), ("dec", dec)):
+            body = ", ".join(str(v) for v in vals)
+            lines.append(f"__constant__ unsigned char sfc_{name}_{d}[{len(vals)}] = {{{body}}};")
+    return "\n".join(lines) + "\n"
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if not found:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+    return found
+
+
+def _target(src: Path, header: str) -> Path:
+    h = hashlib.sha256()
+    h.update(src.read_bytes())
+    h.update(header.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build(stem: str = "sfc") -> Path:
+    """Compile `csrc/<stem>.cu` unless an up-to-date library exists, and
+    return the library's path.  The compiler's output, register counts
+    included, goes to `_build/<stem>.log`.  Raises RuntimeError if `nvcc`
+    is missing or the build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    header = table_header()
+    hpath = BUILD_DIR / "sfc_tables.h"
+    if not hpath.exists() or hpath.read_text() != header:
+        tmp = hpath.with_suffix(f".h.{os.getpid()}")
+        tmp.write_text(header)
+        os.replace(tmp, hpath)
+    src = CSRC_DIR / f"{stem}.cu"
+    lib = _target(src, header)
+    if lib.exists():
+        return lib
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    log = BUILD_DIR / f"{stem}.log"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", str(tmp), str(src)]
+    with log.open("w") as out:
+        rc = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT).returncode
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel build failed: {src.name} (nvcc exit {rc}, see {log})")
+    os.replace(tmp, lib)
+    return lib
+
+
+def library(stem: str) -> ctypes.CDLL:
+    """The loaded library built from `csrc/<stem>.cu`, building it first if
+    needed."""
+    lib = _LIBS.get(stem)
+    if lib is None:
+        lib = _LIBS[stem] = ctypes.CDLL(str(build(stem)))
+    return lib

@@ -1,0 +1,204 @@
+"""The port's four SFC kernels (encode, decode, parent, children), held
+against the JAX package, exactly.  (The Pallas parity of encode and
+decode lives in `test_torch_pallas_encode.py` and
+`test_torch_pallas_decode.py`, which reuse the helpers here.)
+
+On this CPU the wrappers in `repro_torch.kernels.ops` run the plain PyTorch
+versions (`kernels.ref`), which must equal the JAX Pallas kernels (run in
+interpret mode, as `tests/kernels/test_sfc_kernels.py` runs them) and the
+JAX element ops.  Inputs come from a numpy seed and cover level 0 (where
+`parent` is still called, by the family scan) and level L (where `children`
+has a zero offset).  The CUDA kernels themselves are held against these
+plain versions on the card by `tests/test_torch_cuda.py` and
+`chip_smoke.py`."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import u64 as u64m
+from repro.core.ops import get_ops as jget_ops
+from repro.core.types import Simplex as JSimplex
+from repro.kernels import ops as jkops
+from repro.kernels import sfc as jsfc
+from repro_torch.core.keys import to_pair
+from repro_torch.core.tables import MAXLEVEL
+from repro_torch.kernels import build, ops as kops, ref as kref
+
+KERNELS = ["morton_key", "decode", "parent", "children"]
+
+
+def _inputs(d, n, seed):
+    """(key uint64 with garbage below each level, level, anchor, stype) as
+    numpy; the elements are the keys decoded by the JAX element ops.  The
+    first two elements sit at level 0 and level L."""
+    L = MAXLEVEL[d]
+    rng = np.random.default_rng(seed)
+    level = rng.integers(0, L + 1, n).astype(np.int32)
+    level[:2] = (0, L)[: n]
+    key = rng.integers(0, 1 << (d * L), n, dtype=np.uint64)
+    s = jget_ops(d).decode_key(u64m.from_int(key), jnp.asarray(level))
+    return key, level, np.array(s.anchor), np.array(s.stype)
+
+
+def _port(d, name, key, level, anchor, stype):
+    """The port's wrapper outputs for one kernel, as numpy (keys as uint64)."""
+    t = {k: torch.from_numpy(np.array(v)) for k, v in
+         (("level", level), ("anchor", anchor), ("stype", stype))}
+    if name == "morton_key":
+        return (kops.morton_key(t["anchor"], t["stype"]).numpy().astype(np.uint64),)
+    if name == "decode":
+        k = torch.from_numpy(key.astype(np.int64))
+        return tuple(x.numpy() for x in kops.decode(d, k, t["level"]))
+    fn = kops.parent if name == "parent" else kops.children
+    return tuple(x.numpy() for x in fn(t["anchor"], t["level"], t["stype"]))
+
+
+def _jax_kernel(d, name, key, level, anchor, stype):
+    """The JAX package's Pallas kernel outputs (interpret mode), as numpy."""
+    s = JSimplex(jnp.asarray(anchor), jnp.asarray(level), jnp.asarray(stype))
+    if name == "morton_key":
+        return (u64m.to_np(jkops.morton_key(d, s)),)
+    if name == "decode":
+        out = jkops.decode(d, u64m.from_int(key), jnp.asarray(level))
+        return np.asarray(out.anchor), np.asarray(out.stype)
+    if name == "parent":
+        p, iloc = jkops.parent_and_local_index(d, s)
+        return np.asarray(p.anchor), np.asarray(p.level), np.asarray(p.stype), np.asarray(iloc)
+    kids = jkops.children(d, s)
+    return np.asarray(kids.anchor), np.asarray(kids.level), np.asarray(kids.stype)
+
+
+def _jax_ops(d, name, key, level, anchor, stype):
+    """The JAX element ops (`repro.core.ops`) for the same function."""
+    o = jget_ops(d)
+    s = JSimplex(jnp.asarray(anchor), jnp.asarray(level), jnp.asarray(stype))
+    if name == "morton_key":
+        return (u64m.to_np(o.morton_key(s)),)
+    if name == "decode":
+        out = o.decode_key(u64m.from_int(key), jnp.asarray(level))
+        return np.asarray(out.anchor), np.asarray(out.stype)
+    if name == "parent":
+        p = o.parent(s)
+        return np.asarray(p.anchor), np.asarray(p.level), np.asarray(p.stype), np.asarray(
+            o.local_index(s))
+    kids = o.children_tm(s)
+    return np.asarray(kids.anchor), np.asarray(kids.level), np.asarray(kids.stype)
+
+
+def _assert_same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def check_against_pallas(name, d, n):
+    """The port's wrapper for kernel `name` on the CPU equals the JAX Pallas
+    kernel in interpret mode.  Encode and decode, whose interpret-mode
+    compiles are the slowest, are run from their own test files."""
+    args = _inputs(d, n, seed=n + d)
+    _assert_same(_port(d, name, *args), _jax_kernel(d, name, *args))
+
+
+@pytest.mark.parametrize("name", ["parent", "children"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n", [7, 250])
+def test_plain_kernel_matches_pallas_kernel(name, d, n):
+    check_against_pallas(name, d, n)
+
+
+@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("d", [2, 3])
+def test_plain_kernel_matches_element_ops_all_levels(name, d):
+    args = _inputs(d, 4096, seed=100 + d)
+    assert len(np.unique(args[1])) == MAXLEVEL[d] + 1
+    _assert_same(_port(d, name, *args), _jax_ops(d, name, *args))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_packed_tables_match_pallas_tables(d):
+    enc, dec, _ = jsfc._packed_tables(d)
+    assert build.packed_tables(d) == (list(enc), list(dec))
+    text = build.table_header()
+    assert f"sfc_enc_{d}[{len(enc)}] = {{{', '.join(map(str, enc))}}};" in text
+    assert f"sfc_dec_{d}[{len(dec)}] = {{{', '.join(map(str, dec))}}};" in text
+    assert f"#define SFC_MAXLEVEL_{d} {MAXLEVEL[d]}" in text
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """A CPU tensor goes to the plain version (its counter moves), never to
+    a kernel (the launch counters stay put)."""
+    key, level, anchor, stype = (torch.from_numpy(np.ascontiguousarray(x).astype(
+        np.int64 if i == 0 else np.int32)) for i, x in enumerate(_inputs(3, 16, seed=1)))
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    kops.morton_key(anchor, stype)
+    kops.decode(3, key, level)
+    kops.parent(anchor, level, stype)
+    kops.children(anchor, level, stype)
+    kops.morton_key(anchor[:0], stype[:0])
+    assert kref.call_counts == {"morton_key": 2, "decode": 1, "parent": 1, "children": 1}
+    assert not any(kops.launch_counts.values())
+
+
+def test_wrappers_reject_bad_inputs():
+    a = torch.zeros((4, 3), dtype=torch.int32)
+    b = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        kops.morton_key(a.long(), b)
+    with pytest.raises(ValueError):
+        kops.parent(a, b[:3], b)
+    with pytest.raises(ValueError):
+        kops.children(torch.zeros((4, 6), dtype=torch.int32)[:, ::2], b, b)
+    with pytest.raises(ValueError):
+        kops.decode(4, b.long(), b)
+    with pytest.raises(ValueError):   # no kernel and no plain version off CPU/CUDA
+        kops.morton_key(a.to("meta"), b.to("meta"))
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    """Where no nvcc is found the build fails loudly, naming nvcc."""
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.build()
+    assert (tmp_path / "sfc_tables.h").read_text() == build.table_header()
+
+
+def test_key_pairs_match_pallas_words():
+    """The int64 key of the encode path equals the Pallas kernel's
+    (hi, lo) uint32 words."""
+    key, level, anchor, stype = _inputs(3, 250, seed=9)
+    k = kops.morton_key(torch.from_numpy(np.array(anchor)), torch.from_numpy(stype))
+    want = jkops.morton_key(3, JSimplex(jnp.asarray(anchor), jnp.asarray(level), jnp.asarray(stype)))
+    hi, lo = to_pair(k)
+    np.testing.assert_array_equal(hi, np.asarray(want.hi))
+    np.testing.assert_array_equal(lo, np.asarray(want.lo))
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_batched_ops_match_reference_batched_ops(d):
+    """The port's `BatchedOps` (what the forest calls) against the JAX
+    package's, op for op: host uint64 keys, decode, parent with local
+    index, children."""
+    from repro.core.batch import get_batch_ops as jget_bops
+    from repro_torch.core.batch import get_batch_ops
+    from repro_torch.core.types import Simplex
+
+    key, level, anchor, stype = _inputs(d, 250, seed=20 + d)
+    jb = jget_bops(d, "reference")
+    tb = get_batch_ops(d)
+    js = JSimplex(jnp.asarray(anchor), jnp.asarray(level), jnp.asarray(stype))
+    ts = Simplex(*(torch.from_numpy(np.array(x)) for x in (anchor, level, stype)))
+    np.testing.assert_array_equal(tb.morton_key_np(ts), jb.morton_key_np(js))
+    got = tb.decode(torch.from_numpy(key.astype(np.int64)), ts.level)
+    want = jb.decode(u64m.from_int(key), jnp.asarray(level))
+    _assert_same([x.numpy() for x in got], [np.asarray(x) for x in want])
+    (p, il), (jp, jil) = tb.parent_and_local_index(ts), jb.parent_and_local_index(js)
+    _assert_same([x.numpy() for x in (*p, il)], [np.asarray(x) for x in (*jp, jil)])
+    _assert_same([x.numpy() for x in tb.parent(ts)], [np.asarray(x) for x in jb.parent(js)])
+    _assert_same([x.numpy() for x in tb.children(ts)], [np.asarray(x) for x in jb.children(js)])
