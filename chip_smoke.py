@@ -4,16 +4,22 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
-Partition path at full size on the card, and checks the card against the
-CPU.  Phases, in order; any failure exits nonzero:
+Partition -> Balance -> Ghost -> validate path at full size on the card,
+and checks the card against the CPU.  Phases, in order; any failure exits
+nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
      versions, the kernels' build from an empty build directory;
-  2. kernel vs plain: each of the four kernels against its plain version on
-     N = 2^22 random elements (every level 0..L, every type, every one of
-     the d*L key bits set somewhere), d = 2 and 3, exact equality; kernel
-     and plain times, and the byte bound (bytes moved / 3.35 TB/s, the H100
-     SXM's device memory rate);
+  2. kernel vs plain: each of the seven kernels against its plain version
+     on N = 2^22 random elements (every level 0..L, every type, every one
+     of the d*L key bits set somewhere; for face_sweep and inside_root half
+     the elements anywhere in the root cube, outside the root simplex; for
+     eval_route P = 4 markers with an empty rank), d = 2 and 3, exact
+     equality; kernel and plain times by CUDA events around a loop of
+     calls, the kernel's device time per launch by CUDA events around
+     launches queued behind a spinning kernel (no host time), and the
+     byte bound (bytes moved / 3.35 TB/s, the H100 SXM's device memory
+     rate);
   3. main path at full size: d = 3, 8 trees on SimComm(4) (all four ranks
      on the card): New at level 6 (2,097,152 tets), recursive Adapt with
      the paper's Fig. 12 fractal callback to level 8 (26,575,872 tets),
@@ -21,10 +27,14 @@ CPU.  Phases, in order; any failure exits nonzero:
      ranks 0-1 holding 3.8 times what ranks 2-3 hold), Partition (per-rank
      counts within 1, about 9.09 M tets migrating), and a repartition with
      weights 1 + (level == 8); stored order and volume coverage are checked
-     after each partition;
+     after each partition; then Balance, Ghost and validate(forests,
+     ghosts), which must hold;
+  3b. the kernels timed (both ways, as in phase 2) at the
+     sizes phase 3 launched them with (the smallest, two between and the
+     largest, per kernel);
   4. card vs CPU: the same pipeline at small size (d = 3 and d = 2, 8
-     trees, level 1 -> 3) on both devices, every field and every per-phase
-     byte count identical;
+     trees, level 1 -> 3) on both devices, every forest and ghost field and
+     every per-phase byte count identical;
   5. launch counts: every kernel launched in phase 3, no plain version
      called there.
 
@@ -57,6 +67,9 @@ REPLACES = {
     "decode": "src/repro/kernels/sfc.py:573",
     "parent": "src/repro/kernels/sfc.py:627",
     "children": "src/repro/kernels/sfc.py:644",
+    "face_sweep": "src/repro/kernels/sfc.py:604",
+    "eval_route": "src/repro/kernels/sfc.py:715",
+    "inside_root": "src/repro/kernels/sfc.py:662",
 }
 SOURCE = "src/repro_torch/kernels/csrc/sfc.cu"
 WIRE_TRIPLE_BYTES = 13
@@ -87,6 +100,34 @@ def cuda_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int = 20) -> float:
+    """Mean device time of one call of `fn`, by CUDA events around `reps`
+    calls queued behind a spinning kernel: the host enqueues every call
+    while the card still spins, so the card runs them back to back and the
+    events see no host time (the plain loop of `cuda_ms` also counts the
+    wrapper's host time, which bounds it below at about 0.02 ms a call).
+    The spin grows fourfold until the queue provably outlasts the
+    enqueueing."""
+    fn()
+    sync()
+    cycles = 20_000_000                      # about 10 ms at the H100's clock
+    for _ in range(6):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        still_spinning = not t0.query()
+        t1.synchronize()
+        if still_spinning:
+            return t0.elapsed_time(t1) / reps
+        cycles *= 4
+    raise AssertionError(f"the host did not enqueue {reps} calls within a spin of "
+                         f"{cycles // 4} cycles")
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -107,15 +148,67 @@ def random_inputs(d: int, n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return key, level
 
 
-def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5) -> list[dict]:
-    """Phase 2 for one dimension: every kernel against its plain version on
-    the same tensors, exact; returns one timing row per kernel."""
+def route_markers(d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """P = 4 lex-sorted partition markers over trees 0..3 with rank 1 empty
+    (its marker repeats rank 2's), as the marker table gives them."""
+    from repro_torch.core.tables import MAXLEVEL
+
+    q = 1 << (d * MAXLEVEL[d] - 2)
+    mt = torch.tensor([0, 1, 1, 2], dtype=torch.int32, device=device)
+    mk = torch.tensor([0, q, q, 3 * q], dtype=torch.int64, device=device)
+    return mt, mk
+
+
+def kernel_cases(d: int, n: int, device) -> dict:
+    """{kernel: (inputs, kernel call, plain call)} on n random elements."""
     from repro_torch.core.tables import MAXLEVEL
     from repro_torch.kernels import ops as kops, ref as kref
 
     L = MAXLEVEL[d]
     key, level = random_inputs(d, n, device)
     anchor, stype = kref.decode(d, key, level)        # valid elements, plain decode
+    # half the elements anywhere in the root cube, outside the root simplex
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 10 * d)
+    h = torch.bitwise_left_shift(torch.ones_like(level, dtype=torch.int64), L - level.long())
+    cube = torch.randint(0, 1 << L, (n, d), generator=gen, device=device) // h[:, None] * h[:, None]
+    odd = (torch.arange(n, device=device) & 1).bool()
+    c_anchor = torch.where(odd[:, None], cube.to(torch.int32), anchor).contiguous()
+    c_stype = torch.where(odd, torch.randint(0, 2 if d == 2 else 6, (n,), generator=gen,
+                                             device=device, dtype=torch.int32), stype)
+    _a, _b, _du, _in, nkey = kref.face_sweep(c_anchor, level, c_stype)
+    tgt = torch.randint(0, 4, nkey.shape, generator=gen, device=device, dtype=torch.int32)
+    mt, mk = route_markers(d, device)
+    return {
+        "morton_key": ((anchor, stype), lambda: kops.morton_key(anchor, stype),
+                       lambda: kref.morton_key(anchor, stype)),
+        "decode": ((key, level), lambda: kops.decode(d, key, level),
+                   lambda: kref.decode(d, key, level)),
+        "parent": ((anchor, level, stype), lambda: kops.parent(anchor, level, stype),
+                   lambda: kref.parent(anchor, level, stype)),
+        "children": ((anchor, level, stype), lambda: kops.children(anchor, level, stype),
+                     lambda: kref.children(anchor, level, stype)),
+        "face_sweep": ((c_anchor, level, c_stype),
+                       lambda: kops.face_sweep(c_anchor, level, c_stype),
+                       lambda: kref.face_sweep(c_anchor, level, c_stype)),
+        "eval_route": ((tgt, nkey, level, mt, mk),
+                       lambda: kops.eval_route(d, tgt, nkey, level, mt, mk),
+                       lambda: kref.eval_route(d, tgt, nkey, level, mt, mk)),
+        "inside_root": ((c_anchor, level, c_stype),
+                        lambda: kops.inside_root(c_anchor, level, c_stype),
+                        lambda: kref.inside_root(c_anchor, level, c_stype)),
+    }
+
+
+def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5) -> list[dict]:
+    """Phase 2 for one dimension: every kernel against its plain version on
+    the same tensors, exact; returns one timing row per kernel."""
+    from repro_torch.core.tables import MAXLEVEL
+
+    L = MAXLEVEL[d]
+    cases = kernel_cases(d, n, device)
+    key, level = cases["decode"][0]
+    _anchor, stype = cases["morton_key"][0]
     levels = torch.unique(level).numel()
     types = torch.unique(stype).numel()
     nt = 2 if d == 2 else 6
@@ -125,16 +218,6 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
     if unset:
         raise AssertionError(f"d={d}: key bits {unset} not as wanted (all of 0..{d * L - 1})")
 
-    cases = {
-        "morton_key": ((anchor, stype), lambda: kops.morton_key(anchor, stype),
-                       lambda: kref.morton_key(anchor, stype)),
-        "decode": ((key, level), lambda: kops.decode(d, key, level),
-                   lambda: kref.decode(d, key, level)),
-        "parent": ((anchor, level, stype), lambda: kops.parent(anchor, level, stype),
-                   lambda: kref.parent(anchor, level, stype)),
-        "children": ((anchor, level, stype), lambda: kops.children(anchor, level, stype),
-                     lambda: kref.children(anchor, level, stype)),
-    }
     rows = []
     for name, (inputs, kernel, plain) in cases.items():
         got, want = kernel(), plain()
@@ -148,18 +231,80 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
             err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
         if err:
             raise AssertionError(f"{name} d={d}: kernel differs from plain, max |err| {err}")
+        cover = ""
+        if name in ("face_sweep", "inside_root"):
+            inside = want[3] if name == "face_sweep" else want[0]
+            share = float(inside.float().mean())
+            if not 0 < share < 1:
+                raise AssertionError(f"{name} d={d}: inside share {share}, want some of each")
+            cover = f"; inside share {share:.3f}"
+        elif name == "eval_route":
+            owners = torch.unique(torch.cat([want[1].flatten(), want[2].flatten()])).tolist()
+            if owners != [0, 2, 3]:
+                raise AssertionError(f"eval_route d={d}: owners {owners}, want [0, 2, 3]")
+            cover = f"; owners {owners} (rank 1 empty)"
         ms = cuda_ms(kernel, reps)
+        dev_ms = device_ms(kernel)
         plain_ms = cuda_ms(plain, plain_reps)
         moved = nbytes(*inputs) + nbytes(*got)
         bound_ms = moved / MEM_BYTES_PER_S * 1e3
         rows.append({"name": name, "d": d, "n": n, "max_abs_err": float(err), "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": moved})
-        print(f"  {name:10s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({moved} B, "
-              f"{moved // n} B/element), bound/kernel {bound_ms / ms:.1%}", flush=True)
-    del key, level, anchor, stype, cases
+                     "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bytes": moved})
+        print(f"  {name:11s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({moved} B, {moved // n} B/element), bound/kernel {bound_ms / ms:.1%} "
+              f"(device {bound_ms / dev_ms:.1%}){cover}", flush=True)
+    del cases
     torch.cuda.empty_cache()
     return rows
+
+
+def record_launch_sizes(kops) -> tuple[dict, dict]:
+    """Wrap every kernel wrapper of `kops` to record the element count of
+    each call that launches; returns (sizes, originals) — restore with
+    `setattr(kops, name, fn)` for each original."""
+    sizes = {k: [] for k in REPLACES}
+    originals = {k: getattr(kops, k) for k in REPLACES}
+
+    def wrap(name, fn):
+        def call(*args):
+            t = args[1] if name == "decode" else args[3] if name == "eval_route" else args[0]
+            if t.shape[0]:
+                sizes[name].append(int(t.shape[0]))
+            return fn(*args)
+        return call
+
+    for k, fn in originals.items():
+        setattr(kops, k, wrap(k, fn))
+    return sizes, originals
+
+
+def time_at_launch_sizes(sizes: dict, d: int = 3, reps: int = 20) -> dict:
+    """Phase 3b: each kernel timed at up to four of the sizes phase 3
+    launched it with (smallest, two between, largest), on fresh random
+    inputs of that size, against the byte bound of those inputs."""
+    out = {}
+    for name, ns in sizes.items():
+        uniq = sorted(set(ns))
+        pick = sorted({uniq[0], uniq[len(uniq) // 3], uniq[2 * len(uniq) // 3], uniq[-1]})
+        out[name] = []
+        for n in pick:
+            inputs, kernel, _plain = kernel_cases(d, n, torch.device("cuda"))[name]
+            got = kernel()
+            got = got if isinstance(got, tuple) else (got,)
+            ms = cuda_ms(kernel, reps)
+            dev_ms = device_ms(kernel)
+            moved = nbytes(*inputs) + nbytes(*got)
+            bound_ms = moved / MEM_BYTES_PER_S * 1e3
+            out[name].append({"n": n, "launches_at_n": ns.count(n), "ms": ms,
+                              "device_ms": dev_ms, "bound_ms": bound_ms})
+            print(f"  {name:11s} n={n:>9,} ({ns.count(n)} of {len(ns)} launches): "
+                  f"{ms:.4f} ms (device {dev_ms:.4f} ms), bound {bound_ms:.4f} ms, "
+                  f"bound/kernel {bound_ms / ms:.1%} (device {bound_ms / dev_ms:.1%})",
+                  flush=True)
+        torch.cuda.empty_cache()
+    return out
 
 
 # ------------------------------------------------------ 3 and 4: the path
@@ -241,25 +386,25 @@ def migrated(before: list[int], after: list[int]) -> int:
 
 
 def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
-             report: bool = False) -> tuple[list, object, dict]:
+             report: bool = False) -> tuple[list, list, object, dict]:
     """New -> fractal Adapt -> coarsening Adapt (trees num_trees/2 and up)
-    -> Partition -> weighted repartition on SimComm(P).  Returns (forests,
-    comm, facts)."""
+    -> Partition -> weighted repartition -> Balance -> Ghost -> validate on
+    SimComm(P).  Returns (forests, ghosts, comm, facts)."""
     from repro_torch.core import forest as F
 
     comm = F.SimComm(P)
     facts = {"per_rank": {}, "wall_s": {}}
     t = time.perf_counter()
 
-    def step(name, fs):
+    def step(name, fs, what="elements", counts=None):
         nonlocal t
         if device.type == "cuda":
             sync()
         facts["wall_s"][name] = time.perf_counter() - t
-        facts["per_rank"][name] = [f.num_local for f in fs]
+        facts["per_rank"][name] = counts if counts is not None else [f.num_local for f in fs]
         if report:
             print(f"  {name:22s} {facts['wall_s'][name]:8.3f} s  "
-                  f"{sum(facts['per_rank'][name]):>12,} elements  "
+                  f"{sum(facts['per_rank'][name]):>12,} {what}  "
                   f"per rank {facts['per_rank'][name]}", flush=True)
         t = time.perf_counter()
         return fs
@@ -284,8 +429,18 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
     facts["weighted_imbalance_after"] = F.load_imbalance(
         fs, comm, weights=level_weights(fs, max_level))
     check_order_and_cover(fs, d, num_trees)
+    t = time.perf_counter()
+    fs = step("balance", F.balance(fs, comm))
+    gh = F.ghost(fs, comm)
+    step("ghost", fs, "ghosts", [int(g["level"].shape[0]) for g in gh])
+    ok = F.validate(fs, gh)
+    step("validate", fs)
+    if not ok:
+        raise AssertionError("validate(forests, ghosts) is False after Balance and Ghost")
+    check_order_and_cover(fs, d, num_trees)
+    facts["balance_evals"] = comm.counters["balance"]["allgather_calls"] - 1
     facts["bytes"] = {k: comm.bytes_for(k) for k in comm.counters}
-    return fs, comm, facts
+    return fs, gh, comm, facts
 
 
 def main_path() -> dict:
@@ -300,8 +455,8 @@ def main_path() -> dict:
             "adapt coarsen": half * per_tree_fine + half * per_tree_coarse}
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    fs, comm, facts = run_path(d, trees, level, max_level, P, torch.device("cuda"),
-                               report=True)
+    fs, gh, comm, facts = run_path(d, trees, level, max_level, P, torch.device("cuda"),
+                                   report=True)
     wall = time.perf_counter() - t0
     for k, v in want.items():
         if sum(facts["per_rank"][k]) != v:
@@ -319,6 +474,11 @@ def main_path() -> dict:
     if facts["weighted_imbalance_after"] > 1.001:
         raise AssertionError(f"weighted imbalance {facts['weighted_imbalance_after']} "
                              "after repartition")
+    before, after = (sum(facts["per_rank"][k]) for k in ("repartition weighted", "balance"))
+    if after <= before or facts["balance_evals"] < 2:
+        raise AssertionError(f"balance refined nothing: {before} -> {after} elements")
+    if not all(facts["per_rank"]["ghost"]) or not comm.bytes_for("ghost"):
+        raise AssertionError(f"an empty ghost layer: {facts['per_rank']['ghost']}")
     peak = torch.cuda.max_memory_allocated()
     print(f"  counts {want['new_uniform']:,} -> {want['adapt fractal']:,} -> "
           f"{want['adapt coarsen']:,} as the transfer matrix of the port's tables says; "
@@ -328,9 +488,16 @@ def main_path() -> dict:
           f"{facts['imbalance_after']}; weighted (1 + (level == {max_level})) "
           f"{facts['weighted_imbalance_before']} -> {facts['weighted_imbalance_after']}",
           flush=True)
-    print(f"  bytes_for per phase {facts['bytes']}; wall {wall:.3f} s; peak device memory "
-          f"{peak:,} B ({peak / 2**30:.3f} GiB)", flush=True)
-    del fs
+    print(f"  balance: {before:,} -> {after:,} tets, per rank {facts['per_rank']['balance']}, "
+          f"{facts['balance_evals']} evaluation rounds ({facts['balance_evals'] - 1} refining); "
+          f"bytes_for balance {comm.bytes_for('balance'):,} B, ghost "
+          f"{comm.bytes_for('ghost'):,} B; ghosts per rank {facts['per_rank']['ghost']}; "
+          f"validate(forests, ghosts) True", flush=True)
+    print(f"  bytes_for per phase {facts['bytes']}; counters {comm.counters}", flush=True)
+    print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
+          flush=True)
+    facts["peak_bytes"] = peak
+    del fs, gh
     torch.cuda.empty_cache()
     return facts
 
@@ -339,8 +506,8 @@ def card_vs_cpu() -> None:
     """Phase 4: the same pipeline at small size on both devices."""
     for d in (3, 2):
         trees, level, max_level, P = 8, 1, 3, 4
-        (fg, cg, ng), (fc, cc, nc) = [run_path(d, trees, level, max_level, P, torch.device(dev))
-                                      for dev in ("cuda", "cpu")]
+        (fg, gg, cg, ng), (fc, gc, cc, nc) = [
+            run_path(d, trees, level, max_level, P, torch.device(dev)) for dev in ("cuda", "cpu")]
         if ng["per_rank"] != nc["per_rank"]:
             raise AssertionError(f"d={d}: counts differ, card {ng['per_rank']} vs CPU "
                                  f"{nc['per_rank']}")
@@ -349,13 +516,20 @@ def card_vs_cpu() -> None:
                 x, y = getattr(a, name), getattr(b, name)
                 if x.device.type != "cuda" or x.dtype != y.dtype or not torch.equal(x.cpu(), y):
                     raise AssertionError(f"d={d} rank {a.rank}: {name} differs card vs CPU")
+        for r, (a, b) in enumerate(zip(gg, gc, strict=True)):
+            for name in ("anchor", "level", "stype", "tree", "owner"):
+                x, y = a[name], b[name]
+                if x.device.type != "cuda" or x.dtype != y.dtype or not torch.equal(x.cpu(), y):
+                    raise AssertionError(f"d={d} rank {r}: ghost {name} differs card vs CPU")
         if cg.counters != cc.counters or ng["bytes"] != nc["bytes"]:
             raise AssertionError(f"d={d}: byte counters differ: {cg.counters} vs {cc.counters}")
-        if not ng["bytes"].get("partition"):
-            raise AssertionError(f"d={d}: the small partition moved nothing")
+        for phase in ("partition", "balance", "ghost"):
+            if not ng["bytes"].get(phase):
+                raise AssertionError(f"d={d}: the small {phase} moved nothing")
         print(f"  d={d}: {sum(ng['per_rank']['adapt fractal'])} -> "
-              f"{sum(ng['per_rank']['adapt coarsen'])} elements on SimComm({P}); card == CPU "
-              f"field for field; bytes_for {ng['bytes']} equal", flush=True)
+              f"{sum(ng['per_rank']['adapt coarsen'])} -> {sum(ng['per_rank']['balance'])} "
+              f"elements, ghosts {ng['per_rank']['ghost']} on SimComm({P}); card == CPU "
+              f"forest and ghost field for field; bytes_for {ng['bytes']} equal", flush=True)
 
 
 def main() -> int:
@@ -386,11 +560,17 @@ def main() -> int:
     rows = {d: kernel_vs_plain(d, N_KERNEL, torch.device("cuda")) for d in (3, 2)}
 
     print("== 3. main path at full size", flush=True)
+    sizes, originals = record_launch_sizes(kops)
     kops.reset_launch_counts()
     kref.reset_call_counts()
     main_path()
     launches = dict(kops.launch_counts)
     plain_calls = dict(kref.call_counts)
+    for name, fn in originals.items():
+        setattr(kops, name, fn)
+
+    print(f"== 3b. kernels at the sizes phase 3 launched (card {smi})", flush=True)
+    time_at_launch_sizes(sizes)
 
     print("== 4. card vs CPU", flush=True)
     card_vs_cpu()
@@ -402,13 +582,15 @@ def main() -> int:
     if any(plain_calls.values()):
         raise AssertionError(f"plain versions ran on the main path: {plain_calls}")
     kernels = []
-    for r in rows[3]:
+    for i, r in enumerate(rows[3]):
         kernels.append({
             "name": f"{r['name']}_kernel", "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "d": 3, "n": r["n"]})
+            "d": 3, "n": r["n"], "ms_d2": rows[2][i]["ms"],
+            "device_ms_d2": rows[2][i]["device_ms"], "bound_ms_d2": rows[2][i]["bound_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

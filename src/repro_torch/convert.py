@@ -7,6 +7,9 @@ on a device (int64 keys).  `forest_from_reference` and
 `forest_to_reference` convert a dict of those fields — d, num_trees, rank,
 num_ranks, anchor, level, stype, tree, keys — in either direction, so a
 forest built by one package can be carried into the other and go on there.
+A ghost layer is a dict of element fields — anchor, level, stype, tree,
+owner — host numpy in the JAX package, tensors here;
+`ghost_from_reference` and `ghost_to_reference` carry it across.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ from .core.forest import Forest, resolve_device
 from .core.keys import from_u64, to_u64
 from .core.types import ECLASS_SIMPLEX, to_numpy
 
-__all__ = ["FIELDS", "forest_from_reference", "forest_to_reference"]
+__all__ = ["FIELDS", "GHOST_FIELDS", "forest_from_reference", "forest_to_reference",
+           "ghost_from_reference", "ghost_to_reference"]
 
 FIELDS = ("d", "num_trees", "rank", "num_ranks", "anchor", "level", "stype", "tree", "keys")
+GHOST_FIELDS = ("anchor", "level", "stype", "tree", "owner")
 
 
 def forest_from_reference(arrays: dict, device=None) -> Forest:
@@ -60,3 +65,26 @@ def forest_to_reference(f: Forest) -> dict:
         "tree": to_numpy(f.tree).astype(np.int32),
         "keys": to_u64(f.keys),
     }
+
+
+def ghost_from_reference(ghost: dict, device=None) -> dict:
+    """A ghost layer of the JAX package (`ghost` output: host int32 arrays)
+    as the port's: int32 tensors on `device` (the card by default)."""
+    dev = resolve_device(device)
+    n = len(ghost["level"])
+    anchor = np.asarray(ghost["anchor"])
+    d = anchor.shape[1] if anchor.ndim == 2 else -1
+    out = {}
+    for name in GHOST_FIELDS:
+        a = np.asarray(ghost[name])
+        want = (n, d) if name == "anchor" else (n,)
+        if a.shape != want:
+            raise ValueError(f"{name}: expected shape {want}, got {a.shape}")
+        out[name] = torch.from_numpy(a.astype(np.int32)).to(dev)
+    return out
+
+
+def ghost_to_reference(ghost: dict) -> dict:
+    """The port's ghost layer as the JAX package holds it: host int32
+    arrays."""
+    return {name: to_numpy(ghost[name]).astype(np.int32) for name in GHOST_FIELDS}

@@ -1,10 +1,11 @@
-"""Forest-of-trees AMR on the tetrahedral SFC (paper Section 5): New, Adapt
-and Partition, on PyTorch tensors.
+"""Forest-of-trees AMR on the tetrahedral SFC (paper Section 5): New, Adapt,
+Partition, Balance, Ghost and validate, on PyTorch tensors.
 
-The counterpart of the JAX package's `repro.core.forest` for the path the
-paper demonstrates: New (Alg. 5.1) -> Adapt (refine / coarsen by callback,
-optionally recursive) -> Partition (weighted SFC repartition with element
-migration).  A forest is a coarse mesh of K root simplices ("trees"), each
+The counterpart of the JAX package's `repro.core.forest`: New (Alg. 5.1) ->
+Adapt (refine / coarsen by callback, optionally recursive) -> Partition
+(weighted SFC repartition with element migration) -> Balance (2:1 across
+faces, the message-based ripple) -> Ghost (the face-ghost layer) ->
+validate (the forest invariants).  A forest is a coarse mesh of K root simplices ("trees"), each
 adaptively refined, with leaves totally ordered by (tree, TM-index) and
 split across P ranks by contiguous SFC ranges.
 
@@ -14,12 +15,17 @@ and cross-rank data moves through `core.comm`.  A forest's element fields
 live as tensors on its device (keys int64, everything else int32), and the
 element math goes through `core.batch` — CUDA kernels on the card, their
 plain versions on the CPU.  What travels between ranks (weight totals,
-packed wire triples) and the float64 partition prefix sums stay host numpy,
-so the byte counts and the rank boundaries equal the reference's.
+packed wire triples and quads, marker tables) and the float64 partition
+prefix sums stay host numpy, so the byte counts and the rank boundaries
+equal the reference's.  Balance and Ghost keep the reference's protocol
+and collectives; their per-element and per-query host loops are tensor code
+on the forest's device (lex binary searches, range maxima, batched plane
+tests), with only compacted rows crossing to the host.
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
-a card they raise.  `adapt` and `partition` follow the forest's device.
-Coarse meshes (`cmesh`) and the hex element class are not ported yet.
+a card they raise.  Everything else follows the forests' device.  Coarse
+meshes (`cmesh`), the hex element class, `iterate` and the global-table
+oracles are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .batch import BatchedOps, get_batch_ops
+from .batch import BatchedOps, count_dispatch, get_batch_ops, lex_search
 from .comm import Comm, CommHandle, LocalComm, SimComm
 from .errors import not_ported
+from .keys import span_exponent, span_mask
 from .ops import ElementOps, get_ops
-from .placement import target_ranks_np
+from .placement import owner_rank, target_ranks_np
 from .types import ECLASS_SIMPLEX, Simplex, pack_wire, to_numpy, unpack_wire
 
 __all__ = [
@@ -52,6 +59,17 @@ __all__ = [
     "load_imbalance",
     "partition_markers",
     "count_global",
+    "balance",
+    "BalanceNonConvergence",
+    "ghost",
+    "validate",
+    "face_kind",
+    "face_kinds",
+    "face_sweep_layer",
+    "FaceSweepLayer",
+    "FACE_INTERIOR",
+    "FACE_INTER_TREE",
+    "FACE_DOMAIN_BOUNDARY",
 ]
 
 def resolve_device(device=None) -> torch.device:
@@ -457,3 +475,654 @@ def count_global(forests: list[Forest], comm: Comm | None = None) -> int:
     if comm is None:
         return int(sum(f.num_local for f in forests))
     return int(sum(comm.allgather([int(f.num_local) for f in forests])))
+
+
+# ------------------------------------------------------------ host helpers
+def _unique_rows(*cols: np.ndarray) -> np.ndarray:
+    """The distinct rows of int64 columns, sorted lex by the columns in the
+    order given, as an (m, len(cols)) int64 array — the sorted contents of
+    the set of tuples the JAX package builds (keys never negative, so int64
+    order is its uint64 order)."""
+    a = np.stack([np.asarray(c, np.int64).reshape(-1) for c in cols], axis=1)
+    if len(a) == 0:
+        return a
+    a = a[np.lexsort(a.T[::-1])]
+    keep = np.ones(len(a), bool)
+    keep[1:] = (a[1:] != a[:-1]).any(axis=1)
+    return a[keep]
+
+
+def _pack_triples(tree, key, level) -> np.ndarray:
+    """(tree, key, level) columns -> deterministic 13-byte/entry wire
+    buffer: the distinct triples in lex (tree, key, level) order, so the
+    bytes depend only on the set's contents (the JAX package's
+    `_pack_triples` of a set of tuples)."""
+    rows = _unique_rows(tree, key, level)
+    if len(rows) == 0:
+        return np.zeros(0, np.uint8)
+    return pack_wire(rows[:, 0], rows[:, 1], rows[:, 2])
+
+
+def _split_by_rank(first: np.ndarray, last: np.ndarray, cols, P: int, skip: int = -1) -> dict:
+    """Host rows with a rank range [first, last] -> {rank q: the columns of
+    the rows whose range holds q}, for every q but `skip` (a loop over the
+    P ranks, vectorised over the rows; first == last groups rows by one
+    rank column)."""
+    dest = {}
+    for q in range(P):
+        if q == skip:
+            continue
+        m = (first <= q) & (q <= last)
+        if m.any():
+            dest[q] = tuple(c[m] for c in cols)
+    return dest
+
+
+def _expand_ranges(lo: torch.Tensor, hi: torch.Tensor):
+    """Ranges [lo[i], hi[i]) -> every (i, position) pair, in order, as two
+    flat tensors."""
+    cnt = hi - lo
+    which = torch.repeat_interleave(torch.arange(cnt.numel(), device=cnt.device), cnt)
+    start = torch.cumsum(cnt, 0) - cnt
+    return which, lo[which] + torch.arange(which.numel(), device=cnt.device) - start[which]
+
+
+# ------------------------------------------------------- face sweep layer
+FACE_INTERIOR = 0          # neighbor in the same tree
+FACE_INTER_TREE = 1        # neighbor across a glued tree face (coarse mesh)
+FACE_DOMAIN_BOUNDARY = 2   # no neighbor: true domain boundary
+
+
+@dataclasses.dataclass
+class FaceSweepLayer:
+    """Result of ONE fused `face_sweep` over an element layer: for every
+    face of every element, where its neighbor region lives.  Tensors on the
+    layer's device with a leading face axis of length nf = d+1; `level` is
+    shared (same-level neighbors).
+
+      tgt     (nf, n) tree whose leaf table holds the neighbor region
+      nkey    (nf, n) int64 neighbor key (that of a neighbor outside the
+              root where ~valid — never read it there)
+      valid   (nf, n) False at the domain boundary
+      anchor  (nf, n, d) / stype (nf, n): the same-level neighbor
+      dual    (nf, n) neighbor's face index back to us
+      kind    (nf, n) FACE_INTERIOR / FACE_DOMAIN_BOUNDARY (without a coarse
+              mesh no face crosses into another tree)
+    """
+
+    tgt: torch.Tensor
+    nkey: torch.Tensor
+    valid: torch.Tensor
+    anchor: torch.Tensor
+    level: torch.Tensor
+    stype: torch.Tensor
+    dual: torch.Tensor
+    kind: torch.Tensor
+
+    def face(self, f: int):
+        """The (tgt, nkey, valid, neighbor, dual, kind) view of one face."""
+        nb = Simplex(self.anchor[f], self.level, self.stype[f])
+        return (self.tgt[f], self.nkey[f], self.valid[f], nb, self.dual[f], self.kind[f])
+
+
+def face_sweep_layer(f: Forest, tree_ids: torch.Tensor, s: Simplex) -> FaceSweepLayer:
+    """Neighbor lookup for ALL faces of the elements in `s` (any subset of
+    local elements; `tree_ids` their trees) in one `face_sweep` launch.
+    Without a coarse mesh every face that leaves the root is domain
+    boundary; following faces into other trees comes with the coarse-mesh
+    slice."""
+    if f.cmesh is not None:
+        raise not_ported("face sweeps across tree faces (cmesh)", "cmesh")
+    sw = f.bops.face_sweep(s)
+    nf = sw.key.shape[0]
+    tgt = tree_ids.to(torch.int32).expand(nf, -1).contiguous()
+    kind = torch.where(sw.inside, FACE_INTERIOR, FACE_DOMAIN_BOUNDARY).to(torch.int32)
+    return FaceSweepLayer(tgt, sw.key, sw.inside.clone(), sw.neighbor.anchor, s.level,
+                          sw.neighbor.stype, sw.dual, kind)
+
+
+def face_kinds(f: Forest, s: Simplex) -> torch.Tensor:
+    """Classify every face of every element in one fused sweep: (nf, n)
+    FACE_INTERIOR (0) / FACE_INTER_TREE (1) / FACE_DOMAIN_BOUNDARY (2)."""
+    return face_sweep_layer(f, f.tree, s).kind
+
+
+def face_kind(f: Forest, s: Simplex, face: int) -> torch.Tensor:
+    """One face's row of `face_kinds` (each call sweeps all faces: call
+    `face_kinds` once instead of looping this)."""
+    return face_kinds(f, s)[face]
+
+
+# ------------------------------------------------------------------ balance
+class BalanceNonConvergence(RuntimeError):
+    """Balance hit `max_rounds` before reaching the 2:1 fixpoint.
+
+    Carries `rounds` (how many refine/exchange rounds ran) and
+    `dirty_per_rank` (per rank, how many local elements still violated the
+    2:1 condition when the budget ran out)."""
+
+    def __init__(self, rounds: int, dirty_per_rank):
+        self.rounds = rounds
+        self.dirty_per_rank = [int(c) for c in dirty_per_rank]
+        super().__init__(
+            f"balance did not converge after {rounds} rounds; per-rank "
+            f"still-dirty element counts: {self.dirty_per_rank}")
+
+
+def _resident_sweep(f: Forest, bops: BatchedOps):
+    """The resident face sweep of ALL of a rank's elements, memoized on the
+    Forest object (its element tensors are never changed in place, so a
+    Balance round over an unchanged rank, and a Ghost after a Balance, reuse
+    it).  A reuse charges one `face_sweep` dispatch, as the JAX meter does."""
+    if f.num_local == 0:
+        return None
+    if f.cmesh is not None:
+        raise not_ported("face sweeps across tree faces (cmesh)", "cmesh")
+    h = f.__dict__.get("_sweep")
+    if h is not None:
+        count_dispatch("face_sweep")
+        return h
+    h = f.__dict__["_sweep"] = bops.sweep_full(f.simplices(), f.tree)
+    return h
+
+
+def _leaf_table(f: Forest, bops: BatchedOps):
+    """The rank's lex-sorted local leaf table (None when empty), memoized
+    on the Forest like the resident sweep."""
+    if f.num_local == 0:
+        return None
+    t = f.__dict__.get("_leaf_table")
+    if t is None:
+        t = f.__dict__["_leaf_table"] = bops.upload_table(f.tree, f.keys, f.level)
+    return t
+
+
+class _Registry:
+    """Answering side of Balance: every (tree, level, k0, source rank) query
+    a rank has received, as sorted distinct host rows, and a device copy for
+    the lookups of the newly refined children."""
+
+    def __init__(self, d: int, L: int):
+        self.d, self.L = d, L
+        self.rows = np.zeros((0, 4), np.int64)   # (level, tree, k0, src)
+        self._dev = None
+
+    def add(self, tree, key, level, src) -> None:
+        self.rows = _unique_rows(np.concatenate([self.rows[:, 0], level]),
+                                 np.concatenate([self.rows[:, 1], tree]),
+                                 np.concatenate([self.rows[:, 2], key]),
+                                 np.concatenate([self.rows[:, 3], src]))
+        self._dev = None
+
+    def notify(self, ct: torch.Tensor, ck: torch.Tensor, cl: torch.Tensor) -> np.ndarray:
+        """New leaves (ct, ck, cl) -> host rows (src, tree, key, level), one
+        per registered query whose interval holds the leaf and whose querier
+        it can make refine (leaf level > query level + 1)."""
+        if len(self.rows) == 0 or ct.numel() == 0:
+            return np.zeros((0, 4), np.int64)
+        if self._dev is None:
+            self._dev = torch.as_tensor(self.rows, device=ct.device)
+        reg = self._dev
+        levels, starts = np.unique(self.rows[:, 0], return_index=True)
+        ends = np.append(starts[1:], len(self.rows))
+        out = []
+        for lq, a, b in zip(levels.tolist(), starts.tolist(), ends.tolist()):
+            sel = torch.nonzero(cl > lq + 1).squeeze(1)
+            if sel.numel() == 0:
+                continue
+            se = int(span_exponent(self.d, self.L, torch.tensor(lq)))
+            t, k = ct[sel], ck[sel]
+            k0 = (k >> se) << se
+            which, pos = _expand_ranges(
+                lex_search(reg[a:b, 1], reg[a:b, 2], t, k0),
+                lex_search(reg[a:b, 1], reg[a:b, 2], t, k0, right=True))
+            out.append(torch.stack([reg[a:b, 3][pos], t[which], k[which], cl[sel][which]], 1))
+        if not out:
+            return np.zeros((0, 4), np.int64)
+        return torch.cat(out).cpu().numpy()
+
+
+def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
+            overlap: bool = True) -> list[Forest]:
+    """2:1 balance across faces: the ripple algorithm of the JAX package's
+    `balance`, message based, on the forests' device.
+
+    A leaf is refined when some face neighbor's key interval holds a leaf
+    more than one level finer.  No rank builds the global leaf table:
+    routing uses the allgathered P partition markers and the `eval_route`
+    kernel's owner ranges, and the wire carries key-range queries (packed
+    (tree, key, level) triples, each element's once, when it is created),
+    witness replies, and boundary-layer notifications (new leaves, pushed
+    to the ranks whose registered query intervals they fall into).  Each
+    round's refine decision is local: the resident face sweep against the
+    local leaf table (`eval_2to1`) and against the cache of remote leaves
+    learned from replies and notifications (`eval_cache`).
+
+    The protocol, its messages and the per-round order of the collectives
+    are the JAX package's, so `bytes_for("balance")` equals its; its
+    per-query host loops are tensor code here (queries answered with
+    one lex search and one range maximum; the registry as sorted rows; new
+    children located with one search).  `overlap=False` completes every
+    collective where it is posted (same result, same bytes).  Raises
+    `BalanceNonConvergence` when `max_rounds` run out.  Returns NEW forests
+    on the same device."""
+    if max_rounds < 1:
+        raise ValueError("max_rounds must be >= 1")
+    d = forests[0].d
+    o = get_ops(d)
+    L, nc = o.L, o.nc
+    bops = get_batch_ops(d)
+    P = comm.size
+    nloc = len(forests)
+    forests = list(forests)
+    dev = forests[0].device
+
+    def post(h: CommHandle) -> CommHandle:
+        return h if overlap else CommHandle.ready(h.wait())
+
+    with comm.phase("balance"):
+        K = forests[0].num_trees
+        h_mk = post(comm.iallgather(_marker_pairs(forests)))
+        mt = mk = None
+        registries = [_Registry(d, L) for _ in range(nloc)]
+        # remote leaves learned from replies and notifications: distinct
+        # (tree, key, level) host rows, uploaded as a LeafTable every round
+        caches = [np.zeros((0, 3), np.int64) for _ in range(nloc)]
+        cache_tables: list = [None] * nloc
+
+        def fold(i: int, bufs: list) -> None:
+            cols = [unpack_wire(b) for b in bufs if len(b)]
+            if cols:
+                c = caches[i]
+                caches[i] = _unique_rows(
+                    np.concatenate([c[:, 0]] + [x[0] for x in cols]),
+                    np.concatenate([c[:, 1]] + [x[1].astype(np.int64) for x in cols]),
+                    np.concatenate([c[:, 2]] + [x[2] for x in cols]))
+
+        def recompile_cache(i: int) -> None:
+            c = caches[i]
+            cache_tables[i] = bops.upload_table(c[:, 0], c[:, 1], c[:, 2], device=dev)
+
+        def sweep_handle(i: int, sel: torch.Tensor | None = None):
+            f = forests[i]
+            if sel is None:
+                return _resident_sweep(f, bops)
+            if sel.numel() == 0:
+                return None
+            s = Simplex(f.anchor[sel], f.level[sel], f.stype[sel])
+            return bops.sweep_full(s, f.tree[sel])
+
+        def route_to_dests(i: int, rp) -> dict:
+            """RoutePairs rows -> {dest rank: (tree, key, level) columns}."""
+            return _split_by_rank(rp.first, rp.last, (rp.tree, rp.key, rp.level), P,
+                                  skip=comm.local_ranks[i])
+
+        def build_queries(i: int, sel: torch.Tensor) -> dict:
+            h = sweep_handle(i, sel)
+            if h is None:
+                return {}
+            return route_to_dests(i, bops.eval_route(h, mt, mk, comm.local_ranks[i]))
+
+        def answer(i: int, table, srcs: list, bufs: list) -> dict:
+            """Register rank i's received queries and answer them from its
+            sorted leaves: for each query whose interval holds a leaf finer
+            than the querier tolerates, the first leaf of the interval's
+            finest level as a witness.  Returns {src: (tree, key, level)}."""
+            cols = [unpack_wire(b) for b in bufs]
+            qt = np.concatenate([c[0] for c in cols]).astype(np.int64)
+            qk = np.concatenate([c[1] for c in cols]).astype(np.int64)
+            ql = np.concatenate([c[2] for c in cols]).astype(np.int64)
+            src = np.repeat(np.asarray(srcs, np.int64), [len(c[0]) for c in cols])
+            registries[i].add(qt, qk, ql, src)
+            if table is None:
+                return {}
+            qt_d, qk_d, ql_d = (torch.as_tensor(x, device=dev) for x in (qt, qk, ql))
+            starts = lex_search(table.tree, table.key, qt_d, qk_d)
+            ends = lex_search(table.tree, table.key, qt_d,
+                              qk_d | span_mask(d, L, ql_d), right=True)
+            mx = table.levmax.query(starts, ends)
+            w = torch.nonzero(mx > ql_d + 1).squeeze(1)
+            j = table.levmax.first_at_least(starts[w], ends[w], mx[w])
+            rows = torch.stack([torch.as_tensor(src, device=dev)[w], qt_d[w],
+                                table.key[j], mx[w].long()], 1).cpu().numpy()
+            return _split_by_rank(rows[:, 0], rows[:, 0], (rows[:, 1], rows[:, 2], rows[:, 3]), P)
+
+        def post_exchange(dests: list, notifs: list | None) -> CommHandle:
+            send = []
+            for i in range(nloc):
+                row = []
+                for q in range(P):
+                    nt = notifs[i].get(q) if notifs is not None else None
+                    qs = dests[i].get(q)
+                    row.append((_pack_triples(*nt) if nt else np.zeros(0, np.uint8),
+                                _pack_triples(*qs) if qs else np.zeros(0, np.uint8)))
+                send.append(row)
+            return comm.ialltoallv(send)
+
+        def eval_round(pending: CommHandle, pre=None) -> list:
+            """One double-buffered round: sweeps and leaf tables first (they
+            hide the in-flight queries and notifications), then merge 1
+            (answer queries, post replies), the interior 2:1 eval against
+            the local leaves (hides the replies), merge 2 (fold replies,
+            recompile the caches), and the boundary eval against them."""
+            if pre is None:
+                handles = [sweep_handle(i) for i in range(nloc)]
+                tables = [_leaf_table(f, bops) for f in forests]
+            else:
+                handles, tables = pre
+            recv = pending.wait()
+            reply_rows, notif_bufs = [], []
+            for i in range(nloc):
+                g = comm.local_ranks[i]
+                row = [np.zeros(0, np.uint8)] * P
+                nbufs, srcs, qbufs = [], [], []
+                for p in range(P):
+                    if p == g or recv[i][p] is None:
+                        continue
+                    nbuf, qbuf = recv[i][p]
+                    if len(nbuf):
+                        nbufs.append(nbuf)
+                    if len(qbuf):
+                        srcs.append(p)
+                        qbufs.append(qbuf)
+                if qbufs:
+                    for p, cols in answer(i, tables[i], srcs, qbufs).items():
+                        row[p] = _pack_triples(*cols)
+                reply_rows.append(row)
+                notif_bufs.append(nbufs)
+            hr = post(comm.ialltoallv(reply_rows))
+            for i in range(nloc):
+                fold(i, notif_bufs[i])
+            needs = []
+            for i in range(nloc):
+                if handles[i] is None:
+                    needs.append(np.zeros(forests[i].num_local, bool))
+                else:
+                    nd, _bm = bops.eval_2to1(handles[i], tables[i], mt, mk, comm.local_ranks[i])
+                    needs.append(nd)
+            rrecv = hr.wait()
+            for i in range(nloc):
+                g = comm.local_ranks[i]
+                fold(i, [rrecv[i][p] for p in range(P)
+                         if p != g and rrecv[i][p] is not None])
+                recompile_cache(i)
+            for i in range(nloc):
+                if handles[i] is not None and cache_tables[i] is not None:
+                    needs[i] |= bops.eval_cache(handles[i], cache_tables[i], mt, mk,
+                                                comm.local_ranks[i])
+            return needs
+
+        def refine_and_build(needs: list):
+            """Refine this round's violators and build the next round's
+            queries (from the new children) and notifications (to the
+            ranks whose registered intervals the children fall into)."""
+            new_dests: list = [{} for _ in range(nloc)]
+            new_notifs: list = [{} for _ in range(nloc)]
+            for i in range(nloc):
+                nd = needs[i]
+                if not nd.any():
+                    continue
+                f = forests[i]
+                idx = torch.as_tensor(np.nonzero(nd)[0], device=dev)
+                lv = f.level[idx].long()
+                shift = (d * (L - lv - 1)).clamp(min=0)
+                j = torch.arange(nc, device=dev, dtype=torch.int64)
+                ck = (f.keys[idx][:, None]
+                      + torch.bitwise_left_shift(j[None, :], shift[:, None])).reshape(-1)
+                ct = f.tree[idx].long().repeat_interleave(nc)
+                cl = (lv + 1).repeat_interleave(nc)
+                flags = torch.as_tensor(nd.astype(np.int32), device=dev)
+                f2 = adapt(f, lambda tree, elems, fl=flags: fl, recursive=False)
+                forests[i] = f2
+                sel = torch.sort(lex_search(f2.tree, f2.keys, ct, ck)).values
+                new_dests[i] = build_queries(i, sel)
+                rows = registries[i].notify(ct, ck, cl)
+                if len(rows):
+                    new_notifs[i] = _split_by_rank(rows[:, 0], rows[:, 0],
+                                                   (rows[:, 1], rows[:, 2], rows[:, 3]), P)
+            return new_dests, new_notifs
+
+        handles0 = [sweep_handle(i) for i in range(nloc)]
+        tables0 = [_leaf_table(f, bops) for f in forests]
+        mt, mk = _markers_from_pairs(K, P, h_mk.wait())
+        pending = post(post_exchange(
+            [route_to_dests(i, bops.eval_route(handles0[i], mt, mk, comm.local_ranks[i]))
+             if handles0[i] is not None else {}
+             for i in range(nloc)], None))
+        needs = eval_round(pending, (handles0, tables0))
+        for _ in range(max_rounds):
+            h_conv = post(comm.iallgather([int(nd.any()) for nd in needs]))
+            new_dests, new_notifs = refine_and_build(needs)
+            if not any(h_conv.wait()):
+                return forests
+            pending = post(post_exchange(new_dests, new_notifs))
+            needs = eval_round(pending)
+        counts = comm.allgather([int(nd.sum()) for nd in needs])
+        if not any(counts):
+            return forests
+    raise BalanceNonConvergence(max_rounds, counts)
+
+
+# -------------------------------------------------------------------- ghost
+def _empty_ghost(d: int, device) -> dict:
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    return {"anchor": z(0, d), "level": z(0), "stype": z(0), "tree": z(0), "owner": z(0)}
+
+
+def _ghost_from_candidates(d: int, rows: np.ndarray, device) -> dict:
+    """Distinct (tree, key, level, owner) host rows, sorted -> the ghost
+    layer's tensors on `device` (anchors and types recovered by one batched
+    decode, Remark 20)."""
+    if len(rows) == 0:
+        return _empty_ghost(d, device)
+    t, k, l, p = (torch.as_tensor(np.ascontiguousarray(rows[:, c]), device=device)
+                  for c in range(4))
+    gs = get_batch_ops(d).decode(k, l.to(torch.int32))
+    return {"anchor": gs.anchor, "level": gs.level, "stype": gs.stype,
+            "tree": t.to(torch.int32), "owner": p.to(torch.int32)}
+
+
+def _face_planes(V: torch.Tensor):
+    """Batched `tables.face_plane`: (m, d, d) points -> the primitive
+    integer plane through each d-tuple, (normal (m, d), offset (m,)), int64."""
+    V = V.to(torch.int64)
+    if V.shape[-1] == 2:
+        e = V[:, 1] - V[:, 0]
+        n = torch.stack([-e[:, 1], e[:, 0]], dim=1)
+        g = torch.gcd(n[:, 0].abs(), n[:, 1].abs())
+    else:
+        n = torch.linalg.cross(V[:, 1] - V[:, 0], V[:, 2] - V[:, 0], dim=1)
+        g = torch.gcd(torch.gcd(n[:, 0].abs(), n[:, 1].abs()), n[:, 2].abs())
+    n = torch.div(n, g.clamp(min=1)[:, None], rounding_mode="floor")
+    return n, (n * V[:, 0]).sum(dim=1)
+
+
+def ghost(forests: list[Forest], comm: Comm, overlap: bool = True) -> list[dict]:
+    """Face-ghost layer: for each rank, the remote leaves touching its
+    elements across faces.  Returns per local rank a dict of tensors on the
+    forests' device — anchor (m, d), level, stype, tree, owner (int32) — in
+    (tree, key, level, owner) order.
+
+    Message based, as in the JAX package: each element's neighbor key
+    interval goes, by the allgathered partition markers and the
+    `eval_route` kernel's owner ranges, to its remote owner ranks as a
+    14-byte (tree, key, level, dual face) quad; owners answer from their
+    sorted leaves — same-or-finer leaves that touch the shared face (a whole
+    facet of their corners on the plane of the neighbor's dual facet, the
+    neighbor decoded from the query key), or the coarser leaf that contains
+    the interval, by the owner of its first key only — and reply with leaf
+    triples.  The answering is tensor code: one lex search per bound, the
+    plane test batched over every (query, leaf) pair.  `overlap=False`
+    completes every collective where it is posted (same bytes, same
+    layers)."""
+    d = forests[0].d
+    dev = forests[0].device
+    return [_ghost_from_candidates(d, c, dev) for c in _ghost_impl(forests, comm, overlap)]
+
+
+def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool) -> list:
+    """The ghost exchange; returns per local rank the distinct candidate
+    rows (tree, key, level, owner), sorted, as an (m, 4) int64 host array."""
+    d = forests[0].d
+    o = get_ops(d)
+    L = o.L
+    bops = get_batch_ops(d)
+    dev = forests[0].device
+    fci = torch.as_tensor(o.face_corner_indices, dtype=torch.int64, device=dev)
+    cpf = fci.shape[1]
+    P = comm.size
+    nloc = len(forests)
+
+    def post(h: CommHandle) -> CommHandle:
+        return h if overlap else CommHandle.ready(h.wait())
+
+    with comm.phase("ghost"):
+        K = forests[0].num_trees
+        h_mk = post(comm.iallgather(_marker_pairs(forests)))
+        handles = [_resident_sweep(f, bops) for f in forests]
+        mt, mk = _markers_from_pairs(K, P, h_mk.wait())
+        mt_d = torch.as_tensor(mt, device=dev)
+        mk_d = torch.as_tensor(mk.astype(np.int64), device=dev)
+
+        # ---- route queries: one eval_route per rank, quads per destination
+        send = []
+        for i in range(nloc):
+            g = comm.local_ranks[i]
+            row = [np.zeros(0, np.uint8)] * P
+            if handles[i] is not None:
+                rp = bops.eval_route(handles[i], mt, mk, g)
+                for q, cols in _split_by_rank(rp.first, rp.last,
+                                              (rp.tree, rp.key, rp.level, rp.dual), P,
+                                              skip=g).items():
+                    r = _unique_rows(*cols)
+                    row[q] = pack_wire(r[:, 0], r[:, 1], r[:, 2], extra=r[:, 3])
+            send.append(row)
+        h_q = post(comm.ialltoallv(send))
+        # the local leaf tables upload while the queries fly
+        tables = [_leaf_table(f, bops) for f in forests]
+        recv = h_q.wait()
+
+        # ---- answer from the local sorted leaves
+        reply_rows = []
+        for i, f in enumerate(forests):
+            g = comm.local_ranks[i]
+            row = [np.zeros(0, np.uint8)] * P
+            cols, srcs = [], []
+            for p in range(P):
+                buf = recv[i][p]
+                if p == g or buf is None or not len(buf):
+                    continue
+                cols.append(unpack_wire(buf, with_extra=True))
+                srcs.append(p)
+            tb = tables[i]
+            if cols and tb is not None:
+                src = torch.as_tensor(np.repeat(srcs, [len(c[0]) for c in cols]), device=dev)
+                t, k0, lq, du = (torch.as_tensor(np.concatenate([c[x] for c in cols])
+                                                 .astype(np.int64), device=dev)
+                                 for x in range(4))
+                starts = lex_search(tb.tree, tb.key, t, k0)
+                ends = lex_search(tb.tree, tb.key, t, k0 | span_mask(d, L, lq), right=True)
+                tree_start = torch.searchsorted(tb.tree, t)
+                # same-or-finer leaves in the interval must TOUCH the face
+                pe = torch.nonzero(ends > starts).squeeze(1)
+                pos, leaf = _expand_ranges(starts[pe], ends[pe])
+                hits = [torch.zeros(0, dtype=torch.int64, device=dev)] * 2
+                if pe.numel():
+                    nb = bops.decode(k0[pe], lq[pe].to(torch.int32))
+                    corners = o.coordinates(nb).to(torch.int64)          # (m, d+1, d)
+                    facet = fci[du[pe]][:, :d]                            # (m, d)
+                    nrm, rhs = _face_planes(torch.gather(
+                        corners, 1, facet[:, :, None].expand(-1, -1, d)))
+                    leaves = Simplex(f.anchor[leaf], f.level[leaf], f.stype[leaf])
+                    lc = o.coordinates(leaves).to(torch.int64)           # (np, d+1, d)
+                    on = ((lc * nrm[pos][:, None, :]).sum(-1) == rhs[pos][:, None]).sum(-1)
+                    ok = on == cpf
+                    hits = [pe[pos[ok]], leaf[ok]]
+                # a coarser leaf containing the interval: the interval is
+                # empty globally, and only the owner of its first key answers
+                jj = (starts - 1).clamp(min=0)
+                own = owner_rank(t, k0, mt_d, mk_d)
+                pred = ((ends == starts) & (starts > tree_start) & (own == g)
+                        & (((k0 - tb.key[jj]) >> span_exponent(d, L, tb.level[jj])) == 0))
+                pi = torch.nonzero(pred).squeeze(1)
+                ent = torch.cat([hits[0], pi])
+                lf = torch.cat([hits[1], jj[pi]])
+                rows = torch.stack([src[ent], tb.tree[lf], tb.key[lf],
+                                    tb.level[lf].long()], 1).cpu().numpy()
+                for p, c in _split_by_rank(rows[:, 0], rows[:, 0],
+                                           (rows[:, 1], rows[:, 2], rows[:, 3]), P).items():
+                    row[p] = _pack_triples(*c)
+            reply_rows.append(row)
+        rrecv = post(comm.ialltoallv(reply_rows)).wait()
+
+        # ---- candidates: replies from rank p are leaves owned by p
+        out = []
+        for i in range(nloc):
+            g = comm.local_ranks[i]
+            parts = []
+            for p in range(P):
+                buf = rrecv[i][p]
+                if p == g or buf is None or not len(buf):
+                    continue
+                t_, k_, l_ = unpack_wire(buf)
+                parts.append((t_, k_.astype(np.int64), l_, np.full(len(t_), p)))
+            out.append(_unique_rows(*(np.concatenate(c) for c in zip(*parts)))
+                       if parts else np.zeros((0, 4), np.int64))
+        return out
+
+
+# ----------------------------------------------------------------- validate
+def validate(forests: list[Forest], ghosts: list[dict] | None = None) -> bool:
+    """Forest invariants: globally ascending (tree, key) leaf order in
+    stored rank-major order, leaves pairwise non-overlapping, all inside
+    their root, complete volume coverage of the trees — and, with `ghosts`,
+    every ghost entry an actual leaf of its claimed owner rank, never the
+    rank itself.  All on the forests' device; the owner check is one sorted
+    lookup of the ghosts in the global leaf order."""
+    d = forests[0].d
+    o = get_ops(d)
+    bops = get_batch_ops(d)
+    t = torch.cat([f.tree for f in forests]).long()
+    k = torch.cat([f.keys for f in forests])
+    lv = torch.cat([f.level for f in forests])
+    n = t.shape[0]
+    if n and (int(lv.min()) < 0 or int(lv.max()) > o.L):
+        return False
+    if n > 1:
+        same = t[1:] == t[:-1]
+        if not bool((t[1:] >= t[:-1]).all()):
+            return False
+        if not bool((k[1:] > k[:-1])[same].all()):
+            return False
+        # non-overlap: the next key lies at least one span further
+        gap = (k[1:] - k[:-1]) >> span_exponent(d, o.L, lv[:-1])
+        if not bool((gap != 0)[same].all()):
+            return False
+    for f in forests:
+        if f.num_local and not bool(bops.is_inside_root(f.simplices()).all()):
+            return False
+    counts = torch.bincount(lv.long(), minlength=o.L + 1).tolist()
+    vol = sum(c / float(1 << (d * l)) for l, c in enumerate(counts))
+    K = forests[0].num_trees
+    if not abs(vol - K) < 1e-9 * max(K, 1):
+        return False
+    if ghosts is not None:
+        rank = torch.repeat_interleave(
+            torch.arange(len(forests), device=t.device),
+            torch.as_tensor([f.num_local for f in forests], device=t.device))
+        for p, gh in enumerate(ghosts):
+            m = len(gh["level"])
+            if m == 0:
+                continue
+            if n == 0:
+                return False
+            gk = bops.morton_key(Simplex(gh["anchor"], gh["level"], gh["stype"]))
+            owner = gh["owner"].long()
+            pos = lex_search(t, k, gh["tree"], gk).clamp(max=n - 1)
+            found = ((t[pos] == gh["tree"]) & (k[pos] == gk) & (lv[pos] == gh["level"])
+                     & (rank[pos] == owner) & (owner != p))
+            if not bool(found.all()):
+                return False
+    return True

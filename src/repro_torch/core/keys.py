@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["to_u64", "from_u64", "to_pair", "from_pair"]
+__all__ = ["to_u64", "from_u64", "to_pair", "from_pair", "span_exponent", "span_mask"]
 
 _LO_MASK = np.uint64(0xFFFFFFFF)
 
@@ -41,3 +41,19 @@ def from_pair(hi, lo, device) -> torch.Tensor:
     """(hi, lo) uint32 words -> int64 key tensor on `device`."""
     k = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
     return from_u64(k, device)
+
+
+def span_exponent(d: int, L: int, level: torch.Tensor) -> torch.Tensor:
+    """d*(L - level): the base-2 width of an element's key interval, int64,
+    clamped to [0, 63].  The width itself, 2^63 at d = 3 and level 0, does
+    not fit an int64; compare `(b - a) >> exponent` rather than a + width."""
+    return (d * (L - level.to(torch.int64))).clamp(0, 63)
+
+
+def span_mask(d: int, L: int, level: torch.Tensor) -> torch.Tensor:
+    """2^(d*(L - level)) - 1 as int64: the offset of the last key of an
+    element's key interval (keys are span aligned, so the interval of key k
+    is [k, k | span_mask]).  Callers bound intervals by their last key and
+    never compute k + span."""
+    sb = span_exponent(d, L, level)
+    return torch.bitwise_right_shift(torch.full_like(sb, (1 << 63) - 1), 63 - sb)

@@ -9,6 +9,10 @@ what the New -> Adapt -> Partition path calls:
   local_index   paper Table 6
   morton_key    level-padded consecutive index (Algorithm 4.7)
   decode_key    Algorithm 4.8 from a level-padded key
+  coordinates   Algorithm 4.1, in the root frame
+  face_neighbor Algorithm 4.6
+  is_ancestor   Proposition 23
+  is_inside_root  Section 4.4
 
 Every method works on the tensors' own device: the lookup tables are copied
 to each device once.  Keys are int64 (see `core.keys`).  These are the plain
@@ -18,6 +22,7 @@ against.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .errors import not_ported
@@ -87,6 +92,10 @@ class SimplexOps(ElementOps):
         self.L = MAXLEVEL[d]
         self.nt = self.t.num_types          # d!
         self.nc = self.t.num_children       # 2^d
+        self.nf = d + 1                     # faces per simplex
+        # face f is the face opposite corner f
+        self.face_corner_indices = np.asarray(
+            [[a for a in range(d + 1) if a != f] for f in range(d + 1)], np.int32)
         self._dev_tables: dict = {}
 
     def _tab(self, name: str, device) -> torch.Tensor:
@@ -107,6 +116,13 @@ class SimplexOps(ElementOps):
         """(..., d) 0/1 anchor offsets of a cube-id."""
         return torch.stack([(cid >> k) & 1 for k in range(self.d)], dim=-1)
 
+    def coordinates(self, s: Simplex) -> torch.Tensor:
+        """Algorithm 4.1: (..., d+1, d) int32 corner nodes.  Elements of the
+        root frame only: the vertices of an element inside the root fit
+        int32 (the cross-tree vertex wrap comes with the coarse mesh)."""
+        verts = self._tab("ref_verts", s.device)[s.stype.long()].to(torch.int32)
+        return s.anchor[..., None, :] + self.h(s.level)[..., None, None] * verts
+
     # ------------------------------------------------------------- hierarchy
     def parent(self, s: Simplex) -> Simplex:
         """Algorithm 4.3."""
@@ -126,6 +142,56 @@ class SimplexOps(ElementOps):
     def local_index(self, s: Simplex) -> torch.Tensor:
         """Paper Table 6: the TM child index of s within its parent."""
         return self._lookup("local_index", self.cube_id(s), s.stype)
+
+    # ------------------------------------------------------------- neighbors
+    def face_neighbor(self, s: Simplex, f: int):
+        """Algorithm 4.6: (same-level neighbor across face f, dual face).
+        The neighbor may lie outside the root simplex (`is_inside_root`)."""
+        dev = s.device
+        fi = torch.full_like(s.stype, f)
+        off = self._tab("neighbor_offset", dev)[s.stype.long(), f].to(torch.int32)
+        anchor = s.anchor + self.h(s.level)[..., None] * off
+        return (Simplex(anchor, s.level, self._lookup("neighbor_type", s.stype, fi)),
+                self._lookup("neighbor_face", s.stype, fi))
+
+    # ------------------------------------------------- ancestors / containment
+    def is_ancestor(self, t: Simplex, n: Simplex) -> torch.Tensor:
+        """Proposition 23 (constant time): True where t is an ancestor of n
+        (t == n included).  Shapes must broadcast."""
+        dev = n.device
+        ht = self.h(t.level)
+        rel = n.anchor - t.anchor
+        p = self._tab("outside_perm", dev)[t.stype.long()]          # (..., d)
+        rel, p = torch.broadcast_tensors(rel, p)
+        a = torch.gather(rel, -1, p)
+        ai, aj = a[..., 0], a[..., 1]
+        same = (t.level == n.level) & (ai == 0) & (aj == 0)
+        if self.d == 3:
+            same = same & (a[..., 2] == 0)
+        same = same & (t.stype == n.stype)
+        deeper = n.level > t.level
+
+        def ok(name):
+            return self._lookup(name, t.stype, n.stype) == 0
+
+        if self.d == 2:
+            inside = (aj >= 0) & (ai < ht) & (aj <= ai)
+            inside = inside & ((aj != ai) | ok("outside_types_kj"))
+        else:
+            ak = a[..., 2]
+            inside = (aj >= 0) & (ai < ht) & (ak <= ai) & (aj <= ak)
+            eq_ik, eq_kj = ak == ai, aj == ak
+            good = torch.where(eq_ik & eq_kj, ok("outside_types_diag"),
+                               torch.where(eq_ik, ok("outside_types_ik"),
+                                           torch.where(eq_kj, ok("outside_types_kj"), True)))
+            inside = inside & good
+        return same | (deeper & inside)
+
+    def is_inside_root(self, s: Simplex) -> torch.Tensor:
+        """Section 4.4: does s lie inside the root simplex T_d^0?"""
+        root = Simplex(torch.zeros_like(s.anchor), torch.zeros_like(s.level),
+                       torch.zeros_like(s.stype))
+        return self.is_ancestor(root, s) & (s.level >= 0)
 
     # ------------------------------------------------------------ linear ids
     def morton_key(self, s: Simplex) -> torch.Tensor:

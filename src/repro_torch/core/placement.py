@@ -1,16 +1,19 @@
-"""The paper's weighted Partition rule (Sec. 5) in its host numpy form.
+"""The paper's weighted Partition rule (Sec. 5) in its host numpy form, and
+the owner rank of a key against the partition markers.
 
 Counterpart of `target_ranks_np` in the JAX package's `repro.core.placement`.
 Prefix sums stay float64 on the host, in numpy's sequential order: a parallel
 cumulative sum on the card rounds differently and would move rank
-boundaries.
+boundaries.  `owner_rank` is the marker compare-and-count of the JAX
+package's `owner_rank_lex` (`repro.core.batch`), on tensors.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["target_ranks_np"]
+__all__ = ["target_ranks_np", "owner_rank"]
 
 
 def target_ranks_np(cum_mid: np.ndarray, num_ranks: int,
@@ -29,3 +32,14 @@ def target_ranks_np(cum_mid: np.ndarray, num_ranks: int,
                    num_ranks - 1)
     t = np.maximum(t, 0)
     return np.maximum.accumulate(t)
+
+
+def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
+               marker_key: torch.Tensor) -> torch.Tensor:
+    """The rank whose partition range [marker_r, marker_{r+1}) holds each
+    lex (tree, key): the number of the P markers lex-<= it, less one,
+    clamped to 0 (keys before the first marker go to rank 0).  int32, the
+    shape of `tree`; all tensors on one device."""
+    t, k = tree.reshape(-1, 1), key.reshape(-1, 1)
+    le = (marker_tree < t) | ((marker_tree == t) & (marker_key <= k))
+    return (le.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0).reshape(tree.shape)

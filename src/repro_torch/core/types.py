@@ -3,9 +3,9 @@
 A `Simplex` is the paper's `Tet` data type (Remark 20) in structure-of-arrays
 form: anchor coordinates `(..., d)` int32, refinement level and type int32,
 all on one device.  The at-rest blobs (`pack`/`unpack`, 10 bytes per triangle
-and 14 per tetrahedron) and the 13-byte wire triples (`pack_wire`/
-`unpack_wire`) are host numpy buffers, byte-identical to the JAX package's
-for simplices.
+and 14 per tetrahedron) and the 13-byte wire triples and 14-byte quads
+(`pack_wire`/`unpack_wire`) are host numpy buffers, byte-identical to the
+JAX package's for simplices.
 """
 
 from __future__ import annotations
@@ -78,31 +78,43 @@ def unpack(blob: dict, device) -> Simplex:
 # ----------------------------------------------------------- wire encoding
 # An element reference on the wire is the Remark-20 low-memory encoding: the
 # level-padded key plus the level determine the element (Algorithm 4.8
-# recovers anchor and type), so a (tree, key, level) triple is 13 bytes.  The
-# element class rides in bits 6-7 of the level byte (levels fit in six bits):
-# 0 for the simplices of this port.  Unknown class bits are rejected like any
-# other out-of-domain field; hex entries (class 1) wait for the hex slice.
+# recovers anchor and type), so a (tree, key, level) triple is 13 bytes.  An
+# optional extra byte rides along as a 14-byte quad (Ghost ships the dual
+# face index in it).  The element class rides in bits 6-7 of the level byte
+# (levels fit in six bits): 0 for the simplices of this port.  Unknown class
+# bits are rejected like any other out-of-domain field; hex entries (class 1)
+# wait for the hex slice.
 WIRE_TRIPLE_BYTES = 13  # uint64 key + int32 tree + uint8 (eclass<<6 | level)
+WIRE_QUAD_BYTES = 14    # ... + uint8 extra
 WIRE_LEVEL_MASK = 0x3F
 WIRE_ECLASS_SHIFT = 6
-_WIRE_DTYPE = np.dtype([("key", "<u8"), ("tree", "<i4"), ("level", "u1")])
 
 
-def pack_wire(tree, key, level) -> np.ndarray:
-    """Pack (tree, key, level) columns of simplices — tensors or arrays;
-    keys int64 or uint64, never negative — into a flat uint8 wire buffer of
-    13-byte little-endian triples, byte-identical to the JAX package's."""
+def _wire_dtype(with_extra: bool) -> np.dtype:
+    fields = [("key", "<u8"), ("tree", "<i4"), ("level", "u1")]
+    if with_extra:
+        fields.append(("extra", "u1"))
+    return np.dtype(fields)
+
+
+def pack_wire(tree, key, level, extra=None) -> np.ndarray:
+    """Pack (tree, key, level[, extra]) columns of simplices — tensors or
+    arrays; keys int64 or uint64, never negative — into a flat uint8 wire
+    buffer of 13-byte little-endian triples (14-byte quads with `extra`),
+    byte-identical to the JAX package's."""
     tree = to_numpy(tree).astype(np.int32)
     key = to_numpy(key).astype(np.uint64)
-    rec = np.empty(len(key), _WIRE_DTYPE)
+    rec = np.empty(len(key), _wire_dtype(extra is not None))
     rec["key"], rec["tree"] = key, tree
     rec["level"] = to_numpy(level).astype(np.uint8)   # class bits 0: simplex
+    if extra is not None:
+        rec["extra"] = to_numpy(extra).astype(np.uint8)
     return rec.view(np.uint8).reshape(-1)
 
 
-def unpack_wire(buf: np.ndarray):
+def unpack_wire(buf: np.ndarray, with_extra: bool = False):
     """Inverse of `pack_wire`: host numpy columns (tree int32, key uint64,
-    level int32).
+    level int32[, extra int32]).
 
     A buffer that is not a whole number of entries, a non-byte buffer, or
     entries with a negative tree or an unknown element class raise
@@ -111,11 +123,12 @@ def unpack_wire(buf: np.ndarray):
         buf = np.asarray(buf, np.uint8).reshape(-1)
     except (ValueError, TypeError) as e:
         raise WireFormatError(f"wire buffer is not a byte array: {e}") from e
-    if buf.size % WIRE_TRIPLE_BYTES != 0:
+    dt = _wire_dtype(with_extra)
+    if buf.size % dt.itemsize != 0:
         raise WireFormatError(
             f"wire buffer of {buf.size} byte(s) is not a whole number of "
-            f"{WIRE_TRIPLE_BYTES}-byte entries")
-    rec = buf.view(_WIRE_DTYPE)
+            f"{dt.itemsize}-byte entries")
+    rec = buf.view(dt)
     tree = rec["tree"].astype(np.int32)
     lv_byte = rec["level"].astype(np.int32)
     ec = lv_byte >> WIRE_ECLASS_SHIFT
@@ -129,4 +142,7 @@ def unpack_wire(buf: np.ndarray):
                 f"(max {int(ec.max())} >= {NUM_ECLASSES})")
         if (ec == ECLASS_HEX).any():
             raise not_ported("hex wire entries", "hex")
-    return tree, rec["key"].astype(np.uint64), lv_byte & WIRE_LEVEL_MASK
+    out = (tree, rec["key"].astype(np.uint64), lv_byte & WIRE_LEVEL_MASK)
+    if with_extra:
+        out = out + (rec["extra"].astype(np.int32),)
+    return out

@@ -2,11 +2,12 @@
 
 A `csrc/<stem>.cu` source is compiled by `nvcc` into a shared library with
 a plain C interface, at first use, into `_build/` beside this file (a
-directory that git ignores).  The packed lookup tables the kernels index are
-generated from `core.tables` into `_build/sfc_tables.h` first, so no table is
-typed by hand.  A library is named after the hash of its source, the
-generated header and the flags, so an edit rebuilds and an unchanged tree
-reuses the earlier build.
+directory that git ignores).  The packed lookup tables the kernels index,
+and the root simplex's containment constants, are generated from
+`core.tables` into `_build/sfc_tables.h` first, so no table is typed by
+hand.  A library is named after the hash of its source, the generated
+header and the flags, so an edit rebuilds and an unchanged tree reuses the
+earlier build.
 
 This module imports nothing CUDA-specific: `nvcc` is looked up, and a
 library loaded, only when a kernel is first needed.
@@ -23,8 +24,8 @@ from pathlib import Path
 
 from ..core.tables import MAXLEVEL, get_tables
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "packed_tables", "table_header",
-           "build", "library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "packed_tables", "neighbor_table",
+           "root_containment", "table_header", "build", "library"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -38,8 +39,7 @@ def packed_tables(d: int) -> tuple[list[int], list[int]]:
     """The packed transition tables the kernels index, one byte per entry:
     enc[b * 2^d + cid] = local index | parent type << 3 and
     dec[b * 2^d + iloc] = cube id | child type << 3 (the TPU kernels'
-    `_packed_tables`, without the face-neighbor table this slice does not
-    use)."""
+    `_packed_tables`; the face-neighbor table is `neighbor_table`)."""
     t = get_tables(d)
     nc, nt = t.num_children, t.num_types
     enc = [0] * (nt * nc)
@@ -53,6 +53,34 @@ def packed_tables(d: int) -> tuple[list[int], list[int]]:
     return enc, dec
 
 
+def neighbor_table(d: int) -> list[int]:
+    """The packed face-neighbor table (Algorithm 4.6), 16 bits per entry:
+    nei[b * (d+1) + f] = neighbor type | dual face << 3
+    | (offset_k + 1) << (6 + 2k) for each axis k — the third of the TPU
+    kernels' `_packed_tables`."""
+    t = get_tables(d)
+    nei = [0] * (t.num_types * (d + 1))
+    for b in range(t.num_types):
+        for f in range(d + 1):
+            v = int(t.neighbor_type[b, f]) | (int(t.neighbor_face[b, f]) << 3)
+            for k in range(d):
+                v |= (int(t.neighbor_offset[b, f, k]) + 1) << (6 + 2 * k)
+            nei[b * (d + 1) + f] = v
+    return nei
+
+
+def root_containment(d: int) -> tuple[list[int], dict[str, int]]:
+    """The Proposition-23 constants of the root simplex (type 0): its axis
+    permutation, and for each boundary case (ik, kj, diag) the bit mask of
+    the element types that lie outside the root on that boundary."""
+    t = get_tables(d)
+    masks = {}
+    for name in ("ik", "kj", "diag"):
+        row = getattr(t, f"outside_types_{name}")[0]
+        masks[name] = sum(1 << b for b in range(t.num_types) if int(row[b]))
+    return [int(v) for v in t.outside_perm[0]], masks
+
+
 def table_header() -> str:
     """Text of the generated `sfc_tables.h`."""
     lines = ["// Generated by repro_torch/kernels/build.py from core/tables.py.",
@@ -63,6 +91,14 @@ def table_header() -> str:
         for name, vals in (("enc", enc), ("dec", dec)):
             body = ", ".join(str(v) for v in vals)
             lines.append(f"__constant__ unsigned char sfc_{name}_{d}[{len(vals)}] = {{{body}}};")
+        nei = neighbor_table(d)
+        body = ", ".join(str(v) for v in nei)
+        lines.append(f"__constant__ unsigned short sfc_nei_{d}[{len(nei)}] = {{{body}}};")
+        perm, masks = root_containment(d)
+        for k, v in enumerate(perm):
+            lines.append(f"#define SFC_ROOT_PERM_{d}_{k} {v}")
+        for name, v in masks.items():
+            lines.append(f"#define SFC_ROOT_OUT_{name.upper()}_{d} {v}")
     return "\n".join(lines) + "\n"
 
 

@@ -1,4 +1,6 @@
-"""Wrappers around the CUDA kernels of `csrc/sfc.cu`.
+"""Wrappers around the CUDA kernels of `csrc/sfc.cu`: encode, decode,
+parent and children (New -> Adapt -> Partition) and the face sweep, routing
+eval and inside-root test (Balance -> Ghost -> validate).
 
 Each wrapper checks dtype, shape and contiguity, then dispatches by device:
 a CPU tensor goes to its plain version in `kernels.ref`; a CUDA tensor goes
@@ -17,10 +19,15 @@ import torch
 from . import ref
 from .build import library
 
-__all__ = ["morton_key", "decode", "parent", "children", "launch_counts",
-           "reset_launch_counts"]
+__all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
+           "inside_root", "launch_counts", "reset_launch_counts", "MAX_MARKERS"]
 
-launch_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0}
+launch_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
+                                 "face_sweep": 0, "eval_route": 0, "inside_root": 0}
+
+# eval_route keeps the partition markers in 48 KB of shared memory
+# (kMaxMarkers in csrc/sfc.cu).
+MAX_MARKERS = 4096
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -29,6 +36,9 @@ _ARGTYPES = {
     "sfc_decode": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
     "sfc_parent": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _N, _P],
     "sfc_children": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_face_sweep": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_eval_route": [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _N, _P],
+    "sfc_inside_root": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
 }
 _FNS: dict = {}
 
@@ -148,3 +158,66 @@ def children(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
     if n:
         _launch("children", "sfc_children", d, anchor, level, stype, *outs, n)
     return outs
+
+
+def face_sweep(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+    """For all d+1 faces of (n,) elements: the same-level neighbor's anchor
+    (nf, n, d) int32, type and dual face (nf, n) int32, inside-root mask
+    (nf, n) bool and key (nf, n) int64, face-major."""
+    d, n = _dim(anchor), anchor.shape[0]
+    _check(anchor, "anchor", torch.int32, (n, d))
+    _check(level, "level", torch.int32, (n,))
+    _check(stype, "stype", torch.int32, (n,))
+    if _on_cpu(anchor, level, stype):
+        return ref.face_sweep(anchor, level, stype)
+    nf, dev = d + 1, anchor.device
+    outs = (torch.empty((nf, n, d), dtype=torch.int32, device=dev),
+            torch.empty((nf, n), dtype=torch.int32, device=dev),
+            torch.empty((nf, n), dtype=torch.int32, device=dev),
+            torch.empty((nf, n), dtype=torch.bool, device=dev),
+            torch.empty((nf, n), dtype=torch.int64, device=dev))
+    if n:
+        _launch("face_sweep", "sfc_face_sweep", d, anchor, level, stype, *outs, n)
+    return outs
+
+
+def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor,
+               marker_tree: torch.Tensor, marker_key: torch.Tensor):
+    """Over the pairs of a face-major (d+1, n) sweep — target tree int32 and
+    neighbor key int64 per pair, level int32 per element — against P
+    partition markers (tree int32, key int64): the interval end key (int64)
+    and first and last owner rank (int32), each (d+1, n)."""
+    if d not in (2, 3):
+        raise ValueError(f"d must be 2 or 3, got {d}")
+    n, P = level.shape[0], marker_tree.shape[0]
+    _check(tgt, "tgt", torch.int32, (d + 1, n))
+    _check(key, "key", torch.int64, (d + 1, n))
+    _check(level, "level", torch.int32, (n,))
+    _check(marker_tree, "marker_tree", torch.int32, (P,))
+    _check(marker_key, "marker_key", torch.int64, (P,))
+    if not 1 <= P <= MAX_MARKERS:
+        raise ValueError(f"need 1 to {MAX_MARKERS} partition markers, got {P}")
+    if _on_cpu(tgt, key, level, marker_tree, marker_key):
+        return ref.eval_route(d, tgt, key, level, marker_tree, marker_key)
+    dev = key.device
+    kend = torch.empty((d + 1, n), dtype=torch.int64, device=dev)
+    first = torch.empty((d + 1, n), dtype=torch.int32, device=dev)
+    last = torch.empty((d + 1, n), dtype=torch.int32, device=dev)
+    if n:
+        _launch("eval_route", "sfc_eval_route", d, tgt, key, level, marker_tree, marker_key,
+                P, kend, first, last, n)
+    return kend, first, last
+
+
+def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor) -> torch.Tensor:
+    """Section 4.4 inside-root test of (n,) elements -> (n,) bool."""
+    d, n = _dim(anchor), anchor.shape[0]
+    _check(anchor, "anchor", torch.int32, (n, d))
+    _check(level, "level", torch.int32, (n,))
+    _check(stype, "stype", torch.int32, (n,))
+    if _on_cpu(anchor, level, stype):
+        return ref.inside_root(anchor, level, stype)
+    inside = torch.empty(n, dtype=torch.bool, device=anchor.device)
+    if n:
+        _launch("inside_root", "sfc_inside_root", d, anchor, level, stype, inside, n)
+    return inside

@@ -140,7 +140,12 @@ def test_cpu_tensors_take_the_plain_version():
     kops.parent(anchor, level, stype)
     kops.children(anchor, level, stype)
     kops.morton_key(anchor[:0], stype[:0])
-    assert kref.call_counts == {"morton_key": 2, "decode": 1, "parent": 1, "children": 1}
+    kops.face_sweep(anchor, level, stype)
+    kops.inside_root(anchor, level, stype)
+    tgt = torch.zeros((4, 16), dtype=torch.int32)
+    kops.eval_route(3, tgt, tgt.long(), level, tgt[0, :1], tgt[0, :1].long())
+    assert kref.call_counts == {"morton_key": 2, "decode": 1, "parent": 1, "children": 1,
+                                "face_sweep": 1, "eval_route": 1, "inside_root": 1}
     assert not any(kops.launch_counts.values())
 
 
