@@ -5,47 +5,71 @@
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
 Partition -> Balance -> Ghost -> validate path at full size on the card,
-and checks the card against the CPU.  Phases, in order; any failure exits
-nonzero:
+without and with a coarse mesh, and checks the card against the CPU.
+Phases, in order; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
      versions, the kernels' build from an empty build directory;
-  2. kernel vs plain: each of the seven kernels against its plain version
+  2. kernel vs plain: each of the eight kernels against its plain version
      on N = 2^22 random elements (every level 0..L, every type, every one
-     of the d*L key bits set somewhere; for face_sweep and inside_root half
-     the elements anywhere in the root cube, outside the root simplex; for
-     eval_route P = 4 markers with an empty rank), d = 2 and 3, exact
-     equality; kernel and plain times by CUDA events around a loop of
-     calls, the kernel's device time per launch by CUDA events around
-     launches queued behind a spinning kernel (no host time), and the
-     byte bound (bytes moved / 3.35 TB/s, the H100 SXM's device memory
+     of the d*L key bits set somewhere; for face_sweep, inside_root and
+     tree_transform half the elements anywhere in the root cube, outside
+     the root simplex; for eval_route P = 4 markers with an empty rank, and
+     again P = 8192, past the 4096 the kernel keeps in shared memory; for
+     tree_transform a face neighbor of each element, just outside the root,
+     across every glued face of a periodic brick, and sigma = -1
+     crossings, with anchor words that wrap past 2^31 - 1 at d = 2), d = 2
+     and 3, exact equality; kernel and plain times by CUDA events around a
+     loop of calls, the kernel's device time per launch by CUDA events
+     around launches queued behind a spinning kernel (no host time), and
+     the byte bound (bytes moved / 3.35 TB/s, the H100 SXM's device memory
      rate);
-  3. main path at full size: d = 3, 8 trees on SimComm(4) (all four ranks
-     on the card): New at level 6 (2,097,152 tets), recursive Adapt with
-     the paper's Fig. 12 fractal callback to level 8 (26,575,872 tets),
-     Adapt coarsening every level-8 family of trees 4-7 (16,784,384 tets,
-     ranks 0-1 holding 3.8 times what ranks 2-3 hold), Partition (per-rank
-     counts within 1, about 9.09 M tets migrating), and a repartition with
-     weights 1 + (level == 8); stored order and volume coverage are checked
-     after each partition; then Balance, Ghost and validate(forests,
-     ghosts), which must hold;
-  3b. the kernels timed (both ways, as in phase 2) at the
-     sizes phase 3 launched them with (the smallest, two between and the
-     largest, per kernel);
-  4. card vs CPU: the same pipeline at small size (d = 3 and d = 2, 8
-     trees, level 1 -> 3) on both devices, every forest and ghost field and
-     every per-phase byte count identical;
-  5. launch counts: every kernel launched in phase 3, no plain version
-     called there.
+  3. main path at full size, no coarse mesh: d = 3, 8 trees on SimComm(4)
+     (all four ranks on the card): New at level 6 (2,097,152 tets),
+     recursive Adapt with the paper's Fig. 12 fractal callback to level 8
+     (26,575,872 tets), Adapt coarsening every level-8 family of trees 4-7
+     (16,784,384 tets, ranks 0-1 holding 3.8 times what ranks 2-3 hold),
+     Partition (per-rank counts within 1, about 9.09 M tets migrating), and
+     a repartition with weights 1 + (level == 8); stored order and volume
+     coverage are checked after each partition; then Balance, Ghost and
+     validate(forests, ghosts), which must hold;
+  3c. the coarse-mesh path at full size: the 48 trees of
+     cmesh_brick(3, (2, 2, 2), periodic=(True, True, False)) (176 of 192
+     tree faces glued) on SimComm(4): New at level 5 (1,572,864 tets), the
+     fractal to level 7 (19,958,784), coarsening trees 24-47 (12,604,416),
+     Partition (more than 6 M tets migrating), the weighted repartition,
+     every element of tree 0 with a face on its root boundary refined to
+     level 9 (so that all of tree 0's faces hold level-9 leaves against
+     leaves of level 5-7 across them: tree 0's root faces tiled by
+     4 * 4^9 faces of level-9 leaves), Balance, Ghost and validate; element
+     faces whose neighbor region holds a leaf more than one level finer are
+     counted before and after Balance, split into interior and inter-tree
+     faces (at least 10,000 inter-tree ones before, none of either after);
+  3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3
+     and 3c launched them with (the smallest, two between and the largest,
+     per kernel);
+  4. card vs CPU: the same pipelines at small size (level 1 -> 3) on both
+     devices — d = 3 and d = 2 on 8 trees, and over the 48-tree brick, a
+     periodic 2 x 2 brick of triangles and the rotated pair, with tree 0's
+     faces refined to level 4 (d = 3) or 5 (d = 2) — every forest and ghost
+     field and every per-phase byte count identical;
+  5. launch counts: every kernel launched in phase 3 (tree_transform
+     aside: that path has no tree faces) and in phase 3c, no plain version
+     called in either.
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
-name/power-limit line; the last line is the JSON result.  Without a card,
+name/power-limit line; the last line is the JSON result.  In the `kernels`
+line, `launches_phase3` and `launches_phase3c` are each kernel's launches
+on the two paths, and `launches` is those of the first path that runs it:
+phase 3 for the seven kernels of the cmesh-free path (its meaning before
+the coarse mesh came), phase 3c for `tree_transform`.  Without a card,
 or without the repository beside it, the script exits nonzero and prints no
 result.  It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import shutil
 import subprocess
@@ -59,6 +83,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 N_KERNEL = 1 << 22
 SEED = 12
+EVAL_ROUTE_MANY = "eval_route P=8192"   # phase 2's eval_route past 4096 markers
 # Device memory rate of one H100 SXM at its full 700 W limit (NVIDIA's H100
 # data sheet).  The bound of every kernel here is bytes over this rate.
 MEM_BYTES_PER_S = 3.35e12
@@ -70,9 +95,15 @@ REPLACES = {
     "face_sweep": "src/repro/kernels/sfc.py:604",
     "eval_route": "src/repro/kernels/sfc.py:715",
     "inside_root": "src/repro/kernels/sfc.py:662",
+    "tree_transform": "src/repro/kernels/sfc.py:678",
 }
 SOURCE = "src/repro_torch/kernels/csrc/sfc.cu"
 WIRE_TRIPLE_BYTES = 13
+# Phase 3c: inter-tree faces with a leaf more than one level finer across
+# them before Balance, at least (tree 0's faces at level 9 against leaves
+# of level 5-7 in the trees they are glued to).
+MIN_INTER_TREE_JUMPS = 10_000
+TREE_FACES_LEVEL = 9   # phase 3c: tree 0's faces refined to this level
 
 
 def nvidia_smi_line() -> str:
@@ -159,6 +190,56 @@ def route_markers(d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return mt, mk
 
 
+def many_markers(d: int, P: int, device) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """P lex-sorted markers over trees 0..3, more than eval_route keeps in
+    shared memory, with one empty rank (its marker repeats the next
+    rank's) and a trailing (4, 0) sentinel; returns (tree, key, the empty
+    rank)."""
+    from repro_torch.core.tables import MAXLEVEL
+
+    rng = np.random.default_rng(SEED + 100 * d)
+    mt = rng.integers(0, 4, P).astype(np.int32)
+    mk = rng.integers(0, 1 << (d * MAXLEVEL[d]), P, dtype=np.uint64).astype(np.int64)
+    order = np.lexsort((mk, mt))
+    mt, mk = mt[order], mk[order]
+    empty = P // 2
+    mt[empty], mk[empty] = mt[empty + 1], mk[empty + 1]
+    mt[-1], mk[-1] = 4, 0
+    return torch.from_numpy(mt).to(device), torch.from_numpy(mk).to(device), empty
+
+
+@functools.lru_cache(maxsize=None)
+def transform_connections(d: int, device):
+    """The connections phase 2 crosses: every glued face of a periodic
+    brick, of the rotated pair (sigma = -1) at d = 2, and at d = 3, whose
+    meshes here glue with sigma = +1 only, two reflected rows made by
+    `pack_connection`.  Returns (packed int32 table (C, W) on `device`,
+    linear parts (C, d, d) and unwrapped translations (C, d), int64)."""
+    from repro_torch.core import cmesh as C
+
+    Ms, cs, rows = [], [], []
+    meshes = [C.cmesh_brick(d, (2,) * d, periodic=(True,) * d)]
+    if d == 2:
+        meshes.append(C.cmesh_rotated_pair())
+    for cm in meshes:
+        for t, f in zip(*np.nonzero(cm.face_tree >= 0)):
+            Ms.append(cm.face_M[t, f])
+            cs.append(cm.face_c[t, f])
+            rows.append(cm.gluing("cpu").conn[t * (d + 1) + f].numpy())
+    if d == 3:
+        L = C.MAXLEVEL[3]
+        for sigma in (1, -1):
+            M = sigma * np.roll(np.eye(3, dtype=np.int64), 1, axis=1)
+            c = np.array([2, -1, 1], np.int64) << L
+            tm, vm = C.signed_perm_maps(3, M)
+            Ms.append(M)
+            cs.append(c)
+            rows.append(C.pack_connection(3, M, c, tm, vm, 5))
+    return (torch.from_numpy(np.stack(rows)).to(device),
+            torch.from_numpy(np.stack(Ms).astype(np.int64)).to(device),
+            torch.from_numpy(np.stack(cs).astype(np.int64)).to(device))
+
+
 def kernel_cases(d: int, n: int, device) -> dict:
     """{kernel: (inputs, kernel call, plain call)} on n random elements."""
     from repro_torch.core.tables import MAXLEVEL
@@ -176,9 +257,20 @@ def kernel_cases(d: int, n: int, device) -> dict:
     c_anchor = torch.where(odd[:, None], cube.to(torch.int32), anchor).contiguous()
     c_stype = torch.where(odd, torch.randint(0, 2 if d == 2 else 6, (n,), generator=gen,
                                              device=device, dtype=torch.int32), stype)
-    _a, _b, _du, _in, nkey = kref.face_sweep(c_anchor, level, c_stype)
+    nb_anchor, nb_stype, nb_dual, _in, nkey = kref.face_sweep(c_anchor, level, c_stype)
     tgt = torch.randint(0, 4, nkey.shape, generator=gen, device=device, dtype=torch.int32)
     mt, mk = route_markers(d, device)
+    mt8, mk8, _empty = many_markers(d, 8192, device)
+    # tree_transform crosses same-level neighbors, which lie just outside the
+    # root (anchors below 0 or past 2^L): one random face's neighbor of each
+    # element, across a random connection
+    table, _M, _c = transform_connections(d, device)
+    conn = torch.randint(0, table.shape[0], (n,), generator=gen, device=device, dtype=torch.int32)
+    face = torch.randint(0, d + 1, (n,), generator=gen, device=device)
+    row = torch.arange(n, device=device)
+    x_anchor = nb_anchor[face, row].contiguous()
+    x_stype, x_dual = nb_stype[face, row].contiguous(), nb_dual[face, row].contiguous()
+    del nb_anchor, nb_stype, nb_dual
     return {
         "morton_key": ((anchor, stype), lambda: kops.morton_key(anchor, stype),
                        lambda: kref.morton_key(anchor, stype)),
@@ -197,6 +289,14 @@ def kernel_cases(d: int, n: int, device) -> dict:
         "inside_root": ((c_anchor, level, c_stype),
                         lambda: kops.inside_root(c_anchor, level, c_stype),
                         lambda: kref.inside_root(c_anchor, level, c_stype)),
+        "tree_transform": ((conn, x_anchor, level, x_stype, x_dual, table),
+                           lambda: kops.tree_transform(conn, x_anchor, level, x_stype, x_dual,
+                                                       table),
+                           lambda: kref.tree_transform(conn, x_anchor, level, x_stype, x_dual,
+                                                       table)),
+        EVAL_ROUTE_MANY: ((tgt, nkey, level, mt8, mk8),
+                          lambda: kops.eval_route(d, tgt, nkey, level, mt8, mk8),
+                          lambda: kref.eval_route(d, tgt, nkey, level, mt8, mk8)),
     }
 
 
@@ -243,9 +343,32 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
             if owners != [0, 2, 3]:
                 raise AssertionError(f"eval_route d={d}: owners {owners}, want [0, 2, 3]")
             cover = f"; owners {owners} (rank 1 empty)"
+        elif name == EVAL_ROUTE_MANY:
+            owners = torch.unique(torch.cat([want[1].flatten(), want[2].flatten()]))
+            empty = many_markers(d, 8192, "cpu")[2]
+            if owners.numel() < 1000 or bool((owners == empty).any()):
+                raise AssertionError(f"{name} d={d}: {owners.numel()} owners, rank {empty} "
+                                     f"among them: {bool((owners == empty).any())}")
+            cover = f"; {owners.numel()} distinct owners of 8192, empty rank {empty} not among them"
+        elif name == "tree_transform":
+            conn, anchor, lvl, _b, _du, table = inputs
+            _t, Ms, cs = transform_connections(d, anchor.device)
+            M, c = Ms[conn.long()], cs[conn.long()]
+            h = torch.bitwise_left_shift(torch.ones_like(lvl, dtype=torch.int64), L - lvl.long())
+            true = ((anchor.long()[:, None, :] * M).sum(-1) + c
+                    + h[:, None] * M.sum(-1).clamp(max=0))
+            wrapped = int(((true > 2**31 - 1) | (true < -2**31)).sum())
+            reflected = int((M.sum((1, 2)) < 0).sum())
+            del M, c, true
+            if (wrapped > 0) != (d == 2) or not reflected:
+                raise AssertionError(f"tree_transform d={d}: {wrapped} wrapped anchor words, "
+                                     f"{reflected} reflected crossings")
+            cover = (f"; {table.shape[0]} connections, {reflected} crossings with sigma = -1, "
+                     f"{wrapped} anchor words wrapped past 2^31 - 1")
         ms = cuda_ms(kernel, reps)
         dev_ms = device_ms(kernel)
-        plain_ms = cuda_ms(plain, plain_reps)
+        # the plain compare-and-count over 8192 markers takes seconds a call
+        plain_ms = cuda_ms(plain, 1 if name == EVAL_ROUTE_MANY else plain_reps)
         moved = nbytes(*inputs) + nbytes(*got)
         bound_ms = moved / MEM_BYTES_PER_S * 1e3
         rows.append({"name": name, "d": d, "n": n, "max_abs_err": float(err), "ms": ms,
@@ -385,11 +508,75 @@ def migrated(before: list[int], after: list[int]) -> int:
     return int(ob[-1] - stay)
 
 
+def tree_faces_cb(deep: int):
+    """Refine, below level `deep`, every element of tree 0 with a face on
+    the tree's root boundary (a face neighbor outside the root, by the
+    port's `face_sweep`): a layer of fine elements along all of tree 0's
+    faces, each glued to another tree or on the domain boundary, against
+    the coarser leaves across them."""
+    from repro_torch.core.batch import get_batch_ops
+
+    def cb(tree, e):
+        on_face = ~get_batch_ops(e.anchor.shape[1]).face_sweep(e).inside.all(0)
+        return ((tree == 0) & on_face & (e.level < deep)).to(torch.int32)
+    return cb
+
+
+def level_jumps(fs) -> dict:
+    """Element faces whose neighbor region holds a leaf more than one level
+    finer (the 2:1 condition Balance restores), split by face kind:
+    {"interior": count, "inter_tree": count}.  Every rank's fixed-up sweep
+    layer is searched in the global leaf table.  A check, run after the
+    path's launch counts are read."""
+    from repro_torch.core import batch as B, forest as F
+    from repro_torch.core.keys import span_mask
+
+    b = fs[0].bops
+    tab = b.upload_table(torch.cat([f.tree for f in fs]), torch.cat([f.keys for f in fs]),
+                         torch.cat([f.level for f in fs]))
+    out = {"interior": 0, "inter_tree": 0}
+    for f in fs:
+        if not f.num_local:
+            continue
+        lay = F.face_sweep_layer(f, f.tree, f.simplices())
+        kend = lay.nkey | span_mask(f.d, f.ops.L, lay.level)[None, :]
+        lo = B.lex_search(tab.tree, tab.key, lay.tgt, lay.nkey)
+        hi = B.lex_search(tab.tree, tab.key, lay.tgt, kend, right=True)
+        finer = lay.valid & (tab.levmax.query(lo, hi) > (lay.level + 1)[None, :])
+        out["interior"] += int((finer & (lay.kind == F.FACE_INTERIOR)).sum())
+        out["inter_tree"] += int((finer & (lay.kind == F.FACE_INTER_TREE)).sum())
+        del lay, kend, lo, hi, finer
+    return out
+
+
+def tree0_face_tiles(fs) -> tuple[int, list]:
+    """(element faces of tree 0's leaves on its root boundary, the levels
+    of those leaves): after the tree-faces Adapt to level `deep`, the d+1
+    root faces are tiled by (d+1) * 2^((d-1) deep) faces of level-`deep`
+    leaves.  A check, run after the path's launch counts are read."""
+    from repro_torch.core.types import Simplex
+
+    tiles, levels = 0, set()
+    for f in fs:
+        sel = torch.nonzero(f.tree == 0).squeeze(1)
+        if not sel.numel():
+            continue
+        s = Simplex(f.anchor[sel], f.level[sel], f.stype[sel])
+        out = ~f.bops.face_sweep(s).inside
+        tiles += int(out.sum())
+        levels |= set(torch.unique(s.level[out.any(0)]).tolist())
+    return tiles, sorted(levels)
+
+
 def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
-             report: bool = False) -> tuple[list, list, object, dict]:
+             report: bool = False, cmesh=None, tree_faces: int | None = None,
+             keep_unbalanced: bool = False) -> tuple[list, list, object, dict]:
     """New -> fractal Adapt -> coarsening Adapt (trees num_trees/2 and up)
-    -> Partition -> weighted repartition -> Balance -> Ghost -> validate on
-    SimComm(P).  Returns (forests, ghosts, comm, facts)."""
+    -> Partition -> weighted repartition -> [tree 0's faces refined to
+    level `tree_faces`] -> Balance -> Ghost -> validate on SimComm(P), over
+    `cmesh` when given.  With
+    `keep_unbalanced`, the forests Balance started from stay in
+    facts["unbalanced"].  Returns (forests, ghosts, comm, facts)."""
     from repro_torch.core import forest as F
 
     comm = F.SimComm(P)
@@ -409,7 +596,8 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
         t = time.perf_counter()
         return fs
 
-    fs = step("new_uniform", F.new_uniform(d, num_trees, level, comm, device=device))
+    fs = step("new_uniform", F.new_uniform(d, num_trees, level, comm, cmesh=cmesh,
+                                           device=device))
     fs = step("adapt fractal", [F.adapt(f, fractal_cb(d, max_level), recursive=True)
                                 for f in fs])
     fs = step("adapt coarsen", [F.adapt(f, coarsen_upper_half_cb(num_trees, max_level))
@@ -429,6 +617,13 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
     facts["weighted_imbalance_after"] = F.load_imbalance(
         fs, comm, weights=level_weights(fs, max_level))
     check_order_and_cover(fs, d, num_trees)
+    if tree_faces is not None:
+        t = time.perf_counter()
+        fs = step("adapt tree faces", [F.adapt(f, tree_faces_cb(tree_faces), recursive=True)
+                                       for f in fs])
+        check_order_and_cover(fs, d, num_trees)
+    if keep_unbalanced:
+        facts["unbalanced"] = fs
     t = time.perf_counter()
     fs = step("balance", F.balance(fs, comm))
     gh = F.ghost(fs, comm)
@@ -502,34 +697,146 @@ def main_path() -> dict:
     return facts
 
 
+def cmesh_path() -> tuple[dict, list, list]:
+    """Phase 3c: the coarse-mesh path at full size on the card.  Returns
+    (facts, the forests Balance started from, the balanced forests) for
+    `check_level_jumps`, which runs after the launch counts are read."""
+    from repro_torch.core.cmesh import cmesh_brick
+
+    cm = cmesh_brick(3, (2, 2, 2), periodic=(True, True, False))
+    glued = int((cm.face_tree >= 0).sum())
+    if cm.num_trees != 48 or glued != 176 or cm.face_tree.size != 192:
+        raise AssertionError(f"brick: {cm.num_trees} trees, {glued} of {cm.face_tree.size} "
+                             "tree faces glued; want 48 and 176 of 192")
+    print(f"  mesh: cmesh_brick(3, (2, 2, 2), periodic=(True, True, False)): "
+          f"{cm.num_trees} trees, {glued} of {cm.face_tree.size} tree faces glued", flush=True)
+    d, trees, level, max_level, deep, P = 3, 48, 5, 7, TREE_FACES_LEVEL, 4
+    half = trees // 2
+    fine, coarse = fractal_count(d, 1, level, max_level), fractal_count(d, 1, level, max_level - 1)
+    want = {"new_uniform": trees << (d * level),
+            "adapt fractal": fractal_count(d, trees, level, max_level),
+            "adapt coarsen": half * fine + half * coarse}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fs, gh, comm, facts = run_path(d, trees, level, max_level, P, torch.device("cuda"),
+                                   report=True, cmesh=cm, tree_faces=deep,
+                                   keep_unbalanced=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in want.items():
+        if sum(facts["per_rank"][k]) != v:
+            raise AssertionError(f"3c {k}: {sum(facts['per_rank'][k])} elements, want {v}")
+    moved = migrated(facts["per_rank"]["adapt coarsen"], facts["per_rank"]["partition"])
+    part = comm.counters["partition"]
+    if part["alltoallv_bytes"] != moved * WIRE_TRIPLE_BYTES or moved <= 6_000_000:
+        raise AssertionError(f"3c partition moved {moved} tets in {part['alltoallv_bytes']} B")
+    if facts["weighted_imbalance_after"] > 1.001:
+        raise AssertionError(f"3c weighted imbalance {facts['weighted_imbalance_after']}")
+    layered, before, after = (sum(facts["per_rank"][k]) for k in
+                              ("adapt coarsen", "adapt tree faces", "balance"))
+    if before <= layered or after <= before:
+        raise AssertionError(f"3c refined nothing: tree faces {layered} -> {before}, "
+                             f"balance {before} -> {after}")
+    if not all(facts["per_rank"]["ghost"]):
+        raise AssertionError(f"3c an empty ghost layer: {facts['per_rank']['ghost']}")
+    print(f"  counts {want['new_uniform']:,} -> {want['adapt fractal']:,} -> "
+          f"{want['adapt coarsen']:,} as the transfer matrix says; tree 0's faces to level "
+          f"{deep}: {before:,}", flush=True)
+    print(f"  partition migrated {moved:,} tets ({part['alltoallv_bytes']:,} B); weighted "
+          f"imbalance {facts['weighted_imbalance_before']} -> "
+          f"{facts['weighted_imbalance_after']}", flush=True)
+    print(f"  balance: {before:,} -> {after:,} tets, per rank {facts['per_rank']['balance']}, "
+          f"{facts['balance_evals']} evaluation rounds; ghosts per rank "
+          f"{facts['per_rank']['ghost']}; validate(forests, ghosts) True", flush=True)
+    print(f"  bytes_for per phase {facts['bytes']}", flush=True)
+    print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
+          flush=True)
+    facts["peak_bytes"] = peak
+    del gh
+    return facts, facts.pop("unbalanced"), fs
+
+
+def check_level_jumps(unbalanced: list, balanced: list, deep: int) -> None:
+    """Phase 3c's check that Balance refined across tree faces: element
+    faces with a leaf more than one level finer in their neighbor region,
+    interior and inter-tree, before Balance (at least
+    `MIN_INTER_TREE_JUMPS` inter-tree ones, along tree 0's faces) and after
+    it (none of either); and that tree 0's root faces were tiled at level
+    `deep` before it."""
+    d = unbalanced[0].d
+    tiles, levels = tree0_face_tiles(unbalanced)
+    print(f"  tree 0's {d + 1} root faces: {tiles:,} faces of leaves of levels {levels}",
+          flush=True)
+    if tiles != (d + 1) << ((d - 1) * deep) or levels != [deep]:
+        raise AssertionError(f"3c: want tree 0's root faces tiled by "
+                             f"{(d + 1) << ((d - 1) * deep)} faces of level-{deep} leaves")
+    jb, ja = level_jumps(unbalanced), level_jumps(balanced)
+    print(f"  element faces whose neighbor region holds a leaf more than one level "
+          f"finer: before Balance {jb}, after it {ja}", flush=True)
+    if jb["inter_tree"] < MIN_INTER_TREE_JUMPS or any(ja.values()):
+        raise AssertionError(f"3c: want at least {MIN_INTER_TREE_JUMPS} inter-tree level "
+                             "jumps before Balance and none of either kind after")
+    torch.cuda.empty_cache()
+
+
+def same_on_card_and_cpu(label: str, d: int, trees: int, P: int, cmesh=None,
+                         tree_faces: int | None = None) -> None:
+    """The pipeline at small size (level 1 -> 3, tree 0's faces then to
+    level `tree_faces` when given) on the card and on the CPU: every forest
+    and ghost field, and every per-phase byte count, identical."""
+    (fg, gg, cg, ng), (fc, gc, cc, nc) = [
+        run_path(d, trees, 1, 3, P, torch.device(dev), cmesh=cmesh,
+                 tree_faces=tree_faces)
+        for dev in ("cuda", "cpu")]
+    if ng["per_rank"] != nc["per_rank"]:
+        raise AssertionError(f"{label}: counts differ, card {ng['per_rank']} vs CPU "
+                             f"{nc['per_rank']}")
+    for a, b in zip(fg, fc, strict=True):
+        for name in ("anchor", "level", "stype", "tree", "keys"):
+            x, y = getattr(a, name), getattr(b, name)
+            if x.device.type != "cuda" or x.dtype != y.dtype or not torch.equal(x.cpu(), y):
+                raise AssertionError(f"{label} rank {a.rank}: {name} differs card vs CPU")
+    for r, (a, b) in enumerate(zip(gg, gc, strict=True)):
+        for name in ("anchor", "level", "stype", "tree", "owner"):
+            x, y = a[name], b[name]
+            if x.device.type != "cuda" or x.dtype != y.dtype or not torch.equal(x.cpu(), y):
+                raise AssertionError(f"{label} rank {r}: ghost {name} differs card vs CPU")
+    if cg.counters != cc.counters or ng["bytes"] != nc["bytes"]:
+        raise AssertionError(f"{label}: byte counters differ: {cg.counters} vs {cc.counters}")
+    for phase in ("partition", "balance", "ghost"):
+        if not ng["bytes"].get(phase):
+            raise AssertionError(f"{label}: the small {phase} moved nothing")
+    print(f"  {label}: {sum(ng['per_rank']['adapt fractal'])} -> "
+          f"{sum(ng['per_rank']['adapt coarsen'])} -> {sum(ng['per_rank']['balance'])} "
+          f"elements, ghosts {ng['per_rank']['ghost']} on SimComm({P}); card == CPU "
+          f"forest and ghost field for field; bytes_for {ng['bytes']} equal", flush=True)
+
+
 def card_vs_cpu() -> None:
-    """Phase 4: the same pipeline at small size on both devices."""
+    """Phase 4: the pipeline at small size on both devices, without a
+    coarse mesh (d = 3 and 2, 8 trees) and over one (the 48-tree brick of
+    phase 3c, a periodic 2 x 2 brick of 8 triangles, the rotated pair)."""
+    from repro_torch.core import cmesh as C
+
     for d in (3, 2):
-        trees, level, max_level, P = 8, 1, 3, 4
-        (fg, gg, cg, ng), (fc, gc, cc, nc) = [
-            run_path(d, trees, level, max_level, P, torch.device(dev)) for dev in ("cuda", "cpu")]
-        if ng["per_rank"] != nc["per_rank"]:
-            raise AssertionError(f"d={d}: counts differ, card {ng['per_rank']} vs CPU "
-                                 f"{nc['per_rank']}")
-        for a, b in zip(fg, fc, strict=True):
-            for name in ("anchor", "level", "stype", "tree", "keys"):
-                x, y = getattr(a, name), getattr(b, name)
-                if x.device.type != "cuda" or x.dtype != y.dtype or not torch.equal(x.cpu(), y):
-                    raise AssertionError(f"d={d} rank {a.rank}: {name} differs card vs CPU")
-        for r, (a, b) in enumerate(zip(gg, gc, strict=True)):
-            for name in ("anchor", "level", "stype", "tree", "owner"):
-                x, y = a[name], b[name]
-                if x.device.type != "cuda" or x.dtype != y.dtype or not torch.equal(x.cpu(), y):
-                    raise AssertionError(f"d={d} rank {r}: ghost {name} differs card vs CPU")
-        if cg.counters != cc.counters or ng["bytes"] != nc["bytes"]:
-            raise AssertionError(f"d={d}: byte counters differ: {cg.counters} vs {cc.counters}")
-        for phase in ("partition", "balance", "ghost"):
-            if not ng["bytes"].get(phase):
-                raise AssertionError(f"d={d}: the small {phase} moved nothing")
-        print(f"  d={d}: {sum(ng['per_rank']['adapt fractal'])} -> "
-              f"{sum(ng['per_rank']['adapt coarsen'])} -> {sum(ng['per_rank']['balance'])} "
-              f"elements, ghosts {ng['per_rank']['ghost']} on SimComm({P}); card == CPU "
-              f"forest and ghost field for field; bytes_for {ng['bytes']} equal", flush=True)
+        same_on_card_and_cpu(f"d={d}", d, 8, 4)
+    brick3 = C.cmesh_brick(3, (2, 2, 2), periodic=(True, True, False))
+    brick2 = C.cmesh_brick(2, (2, 2), periodic=(True, True))
+    same_on_card_and_cpu("d=3 brick of 8 cells (48 trees)", 3, brick3.num_trees, 4,
+                         cmesh=brick3, tree_faces=4)
+    same_on_card_and_cpu("d=2 periodic brick (8 trees)", 2, brick2.num_trees, 4,
+                         cmesh=brick2, tree_faces=5)
+    same_on_card_and_cpu("d=2 rotated pair", 2, 2, 4, cmesh=C.cmesh_rotated_pair(),
+                         tree_faces=5)
+
+
+def counted(kops, kref, run) -> tuple[object, dict, dict]:
+    """(run()'s result, its kernel launches, its plain-version calls), every
+    count set to 0 just before the run and read just after it."""
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    out = run()
+    return out, dict(kops.launch_counts), dict(kref.call_counts)
 
 
 def main() -> int:
@@ -561,15 +868,15 @@ def main() -> int:
 
     print("== 3. main path at full size", flush=True)
     sizes, originals = record_launch_sizes(kops)
-    kops.reset_launch_counts()
-    kref.reset_call_counts()
-    main_path()
-    launches = dict(kops.launch_counts)
-    plain_calls = dict(kref.call_counts)
+    _facts, launches, plain_calls = counted(kops, kref, main_path)
+    print("== 3c. the coarse-mesh path at full size", flush=True)
+    (_facts, unbalanced, balanced), launches_c, plain_calls_c = counted(kops, kref, cmesh_path)
     for name, fn in originals.items():
         setattr(kops, name, fn)
+    check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
+    del unbalanced, balanced
 
-    print(f"== 3b. kernels at the sizes phase 3 launched (card {smi})", flush=True)
+    print(f"== 3b. kernels at the sizes phases 3 and 3c launched (card {smi})", flush=True)
     time_at_launch_sizes(sizes)
 
     print("== 4. card vs CPU", flush=True)
@@ -577,20 +884,34 @@ def main() -> int:
 
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
-    if not all(launches[k] > 0 for k in REPLACES):
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-    if any(plain_calls.values()):
-        raise AssertionError(f"plain versions ran on the main path: {plain_calls}")
+    print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
+          flush=True)
+    if not all(launches[k] > 0 for k in REPLACES if k != "tree_transform"):
+        raise AssertionError(f"a kernel was not launched on the phase-3 path: {launches}")
+    if not all(launches_c[k] > 0 for k in REPLACES):
+        raise AssertionError(f"a kernel was not launched on the phase-3c path: {launches_c}")
+    if any(plain_calls.values()) or any(plain_calls_c.values()):
+        raise AssertionError(f"plain versions ran on a main path: {plain_calls}, {plain_calls_c}")
     kernels = []
-    for i, r in enumerate(rows[3]):
-        kernels.append({
-            "name": f"{r['name']}_kernel", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[r["name"]], "launches": launches[r["name"]],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "device_ms": r["device_ms"],
-            "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": "bytes", "library_ms": None,
-            "d": 3, "n": r["n"], "ms_d2": rows[2][i]["ms"],
-            "device_ms_d2": rows[2][i]["device_ms"], "bound_ms_d2": rows[2][i]["bound_ms"]})
+    for name in REPLACES:
+        r = next(x for x in rows[3] if x["name"] == name)
+        r2 = next(x for x in rows[2] if x["name"] == name)
+        entry = {
+            "name": f"{name}_kernel", "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name] or launches_c[name],
+            "launches_phase3": launches[name], "launches_phase3c": launches_c[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "d": 3, "n": r["n"],
+            "ms_d2": r2["ms"], "device_ms_d2": r2["device_ms"], "bound_ms_d2": r2["bound_ms"]}
+        if name == "eval_route":
+            for dd in (3, 2):
+                m = next(x for x in rows[dd] if x["name"] == EVAL_ROUTE_MANY)
+                sfx = "_p8192" if dd == 3 else "_p8192_d2"
+                entry.update({f"ms{sfx}": m["ms"], f"device_ms{sfx}": m["device_ms"],
+                              f"plain_ms{sfx}": m["plain_ms"], f"bound_ms{sfx}": m["bound_ms"],
+                              f"max_abs_err{sfx}": m["max_abs_err"]})
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,8 +7,11 @@ and goes to the wrapper in `kernels.ops`, which launches the CUDA kernel for
 CUDA tensors and runs the plain PyTorch version for CPU tensors.  There is
 no backend knob: the device decides.  Outputs stay on the inputs' device.
 
-The fused Balance/Ghost eval stage lives here too: `sweep_full` keeps one
-face sweep of an element layer resident as a `SweepHandle`, `upload_table`
+The fused Balance/Ghost eval stage lives here too: `sweep_from_layer` keeps
+one face sweep of an element layer resident as a `SweepHandle` (the
+forest's `face_sweep_layer`, with over a coarse mesh the crossings that
+`transform_crossings` carried into the neighbor trees; `sweep_full` is the
+same handle straight from `face_sweep`, without crossings), `upload_table`
 makes a lex-sorted `LeafTable`, and `eval_2to1` / `eval_cache` /
 `eval_route` compute the 2:1 need masks, the boundary mask and the
 compacted routing rows on the device, each with ONE host fetch of its
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from .cmesh import pack_connection
 from .keys import span_mask, to_u64
 from .ops import get_ops
 from .types import ECLASS_SIMPLEX, Simplex
@@ -271,6 +275,29 @@ class BatchedOps:
         _count("is_inside_root")
         return kops.inside_root(s.anchor, s.level, s.stype)
 
+    def tree_transform(self, s: Simplex, M, c, typemap) -> Simplex:
+        """Cross-tree coordinate change under one connection (the
+        `core.cmesh` gluing map): anchor' = M @ anchor + c with the
+        reflected-axis correction, type through `typemap`; the translation
+        is carried modulo 2^32 (`cmesh.wrap_i32`).  The `tree_transform`
+        kernel with a one-row connection table."""
+        table = torch.as_tensor(pack_connection(self.d, M, c, typemap),
+                                device=s.device).reshape(1, -1)
+        zero = torch.zeros_like(s.level)
+        return self.transform_crossings(zero, s, zero, table)[0]
+
+    def transform_crossings(self, conn: torch.Tensor, s: Simplex, dual: torch.Tensor,
+                            table: torch.Tensor):
+        """ONE `tree_transform` launch for face crossings of any mix of
+        connections: element i (a same-level neighbor just outside its root)
+        crosses by row conn[i] of the packed connection table.  Returns (the
+        elements in the neighbor trees' frames, their dual faces there, the
+        neighbor trees)."""
+        _count("tree_transform")
+        anchor, stype, dual2, tree = kops.tree_transform(
+            conn.to(torch.int32), s.anchor, s.level, s.stype, dual, table)
+        return Simplex(anchor, s.level, stype), dual2, tree
+
     # -- fused Balance/Ghost eval stage --------------------------------------
     def sweep_full(self, s: Simplex, tree_ids: torch.Tensor) -> SweepHandle | None:
         """Face-sweep an element layer and keep the result resident: ONE
@@ -283,6 +310,17 @@ class BatchedOps:
         _anchor, _stype, dual, inside, key = kops.face_sweep(s.anchor, s.level, s.stype)
         tgt = tree_ids.to(torch.int32).expand(key.shape[0], -1).contiguous()
         return SweepHandle(n, tgt, key, inside, dual, s.level)
+
+    def sweep_from_layer(self, tgt, nkey, valid, dual, level) -> SweepHandle | None:
+        """A resident handle over a face sweep layer
+        (`forest.face_sweep_layer`, its crossings carried across the tree
+        faces over a coarse mesh): the JAX package's `sweep_from_host`, but
+        the layer never left the device, so nothing is uploaded and no
+        dispatch is counted (the layer's sweep was)."""
+        n = int(level.shape[0])
+        if n == 0:
+            return None
+        return SweepHandle(n, tgt.to(torch.int32).contiguous(), nkey, valid, dual, level)
 
     def upload_table(self, tree, keys, level, device=None) -> LeafTable | None:
         """A lex-sorted (tree, key, level) leaf table on `device` (the

@@ -22,10 +22,15 @@ and collectives; their per-element and per-query host loops are tensor code
 on the forest's device (lex binary searches, range maxima, batched plane
 tests), with only compacted rows crossing to the host.
 
+A forest over a coarse mesh (`Forest.cmesh`, `core.cmesh`) follows face
+neighbors across glued tree faces: `face_sweep_layer` carries every
+crossing of a layer into the neighbor tree's frame with one
+`tree_transform` launch, and Balance, Ghost and validate read the fixed-up
+layer as they read a cmesh-free one.
+
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
-a card they raise.  Everything else follows the forests' device.  Coarse
-meshes (`cmesh`), the hex element class, `iterate` and the global-table
-oracles are not ported yet.
+a card they raise.  Everything else follows the forests' device.  The hex
+element class, `iterate` and the global-table oracles are not ported yet.
 """
 
 from __future__ import annotations
@@ -36,7 +41,8 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .batch import BatchedOps, count_dispatch, get_batch_ops, lex_search
+from .batch import BatchedOps, SweepHandle, count_dispatch, get_batch_ops, lex_search
+from .cmesh import Cmesh
 from .comm import Comm, CommHandle, LocalComm, SimComm
 from .errors import not_ported
 from .keys import span_exponent, span_mask
@@ -101,11 +107,9 @@ class Forest:
     stype: torch.Tensor       # (n,)  int32
     tree: torch.Tensor        # (n,)  int32
     keys: torch.Tensor        # (n,)  int64 morton keys (level-padded ids)
-    cmesh: object = None
-
-    def __post_init__(self):
-        if self.cmesh is not None:
-            raise not_ported("a forest over a coarse mesh (cmesh)", "cmesh")
+    # coarse-mesh connectivity; None = isolated trees (every tree face is a
+    # domain boundary)
+    cmesh: Cmesh | None = None
 
     @property
     def device(self) -> torch.device:
@@ -149,12 +153,12 @@ class Forest:
         return (int(self.tree[0]), int(self.keys[0]))
 
 
-def _empty(d, num_trees, rank, num_ranks, device) -> Forest:
+def _empty(d, num_trees, rank, num_ranks, device, cmesh=None) -> Forest:
     def z(*shape, dtype=torch.int32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
     return Forest(d, num_trees, rank, num_ranks, z(0, d), z(0), z(0), z(0),
-                  z(0, dtype=torch.int64))
+                  z(0, dtype=torch.int64), cmesh)
 
 
 # ---------------------------------------------------------------------- new
@@ -163,7 +167,9 @@ def new_uniform(d: int, num_trees: int, level: int, comm: Comm,
     """Paper Algorithm 5.1 (New): partitioned uniform level-`level` forest.
 
     Returns one `Forest` per rank resident in this process (all P under
-    `SimComm`), on `device` (the card by default)."""
+    `SimComm`), on `device` (the card by default).  With `cmesh`, the trees
+    are glued per its face tables and Balance and Ghost follow neighbors
+    across tree faces."""
     dev = resolve_device(device)
     return [new_uniform_rank(d, num_trees, level, p, comm.size, method=method,
                              cmesh=cmesh, device=dev)
@@ -175,8 +181,9 @@ def new_uniform_rank(d: int, num_trees: int, level: int, rank: int, num_ranks: i
     """One rank's portion of a uniform refinement — communication free: the
     rank's index range of each tree goes through one batched Algorithm-4.8
     decode (`method="decode"`)."""
-    if cmesh is not None:
-        raise not_ported("a forest over a coarse mesh (cmesh)", "cmesh")
+    if cmesh is not None and (cmesh.d != d or cmesh.num_trees != num_trees):
+        raise ValueError(f"cmesh ({cmesh.d}D, {cmesh.num_trees} trees) does not match "
+                         f"forest ({d}D, {num_trees} trees)")
     if method == "successor":
         raise not_ported('new_uniform(method="successor")', "successor")
     if method != "decode":
@@ -189,7 +196,7 @@ def new_uniform_rank(d: int, num_trees: int, level: int, rank: int, num_ranks: i
     N = n_per_tree * num_trees
     g_first = (N * rank) // num_ranks
     g_last = (N * (rank + 1)) // num_ranks  # exclusive
-    f = _empty(d, num_trees, rank, num_ranks, dev)
+    f = _empty(d, num_trees, rank, num_ranks, dev, cmesh)
     if g_last <= g_first:
         return f
     bops = get_batch_ops(d)
@@ -546,8 +553,9 @@ class FaceSweepLayer:
       valid   (nf, n) False at the domain boundary
       anchor  (nf, n, d) / stype (nf, n): the same-level neighbor
       dual    (nf, n) neighbor's face index back to us
-      kind    (nf, n) FACE_INTERIOR / FACE_DOMAIN_BOUNDARY (without a coarse
-              mesh no face crosses into another tree)
+      kind    (nf, n) FACE_INTERIOR / FACE_INTER_TREE / FACE_DOMAIN_BOUNDARY
+    Across a glued tree face the neighbor, its key and its dual face are
+    those in the neighbor tree's frame, and `tgt` is that tree.
     """
 
     tgt: torch.Tensor
@@ -568,17 +576,53 @@ class FaceSweepLayer:
 def face_sweep_layer(f: Forest, tree_ids: torch.Tensor, s: Simplex) -> FaceSweepLayer:
     """Neighbor lookup for ALL faces of the elements in `s` (any subset of
     local elements; `tree_ids` their trees) in one `face_sweep` launch.
-    Without a coarse mesh every face that leaves the root is domain
-    boundary; following faces into other trees comes with the coarse-mesh
-    slice."""
-    if f.cmesh is not None:
-        raise not_ported("face sweeps across tree faces (cmesh)", "cmesh")
-    sw = f.bops.face_sweep(s)
+
+    Faces that leave the root are domain boundary, unless the forest's
+    coarse mesh glues the root face they lie on (`Cmesh.root_face_of`, plane
+    tests on the device) to another tree.  Every such crossing of the layer,
+    whatever connection it uses, goes through ONE `tree_transform` launch
+    into the neighbor tree's frame (anchor, type, dual face through the
+    connection's face map, target tree), and the crossed neighbors' keys are
+    recomputed with ONE `morton_key` launch — the cross-tree branch of the
+    JAX package's `face_sweep_layer`, which wraps the int64 transform to
+    int32 once; the kernel's uint32 arithmetic gives the same bits."""
+    bops = f.bops
+    sw = bops.face_sweep(s)
     nf = sw.key.shape[0]
     tgt = tree_ids.to(torch.int32).expand(nf, -1).contiguous()
+    valid = sw.inside
     kind = torch.where(sw.inside, FACE_INTERIOR, FACE_DOMAIN_BOUNDARY).to(torch.int32)
-    return FaceSweepLayer(tgt, sw.key, sw.inside.clone(), sw.neighbor.anchor, s.level,
-                          sw.neighbor.stype, sw.dual, kind)
+    anchor, stype, dual, nkey = sw.neighbor.anchor, sw.neighbor.stype, sw.dual, sw.key
+    cm = f.cmesh
+    if cm is not None and not bool(sw.inside.all()):
+        fidx, eidx = torch.nonzero(~sw.inside, as_tuple=True)
+        rf = cm.root_face_of(Simplex(s.anchor[eidx], s.level[eidx], s.stype[eidx]), fidx).long()
+        glue = cm.gluing(f.device)
+        t1 = tree_ids[eidx].long()
+        keep = torch.nonzero((rf >= 0) & (glue.face_tree[t1, rf.clamp(min=0)] >= 0)).squeeze(1)
+        if keep.numel():
+            fk, ek = fidx[keep], eidx[keep]
+            valid = valid.clone()
+            crossed, dual2, tree2 = bops.transform_crossings(
+                t1[keep] * nf + rf[keep], Simplex(anchor[fk, ek], s.level[ek], stype[fk, ek]),
+                dual[fk, ek], glue.conn)
+            anchor[fk, ek] = crossed.anchor
+            stype[fk, ek] = crossed.stype
+            dual[fk, ek] = dual2
+            tgt[fk, ek] = tree2
+            valid[fk, ek] = True
+            kind[fk, ek] = FACE_INTER_TREE
+            nkey[fk, ek] = bops.morton_key(crossed)
+    return FaceSweepLayer(tgt, nkey, valid, anchor, s.level, stype, dual, kind)
+
+
+def _layer_handle(f: Forest, bops: BatchedOps, s: Simplex,
+                  tree_ids: torch.Tensor) -> SweepHandle | None:
+    """The resident sweep handle of an element layer: one fused sweep, with
+    over a coarse mesh its crossings carried across the tree faces
+    (`face_sweep_layer`)."""
+    sw = face_sweep_layer(f, tree_ids, s)
+    return bops.sweep_from_layer(sw.tgt, sw.nkey, sw.valid, sw.dual, sw.level)
 
 
 def face_kinds(f: Forest, s: Simplex) -> torch.Tensor:
@@ -616,13 +660,11 @@ def _resident_sweep(f: Forest, bops: BatchedOps):
     it).  A reuse charges one `face_sweep` dispatch, as the JAX meter does."""
     if f.num_local == 0:
         return None
-    if f.cmesh is not None:
-        raise not_ported("face sweeps across tree faces (cmesh)", "cmesh")
     h = f.__dict__.get("_sweep")
     if h is not None:
         count_dispatch("face_sweep")
         return h
-    h = f.__dict__["_sweep"] = bops.sweep_full(f.simplices(), f.tree)
+    h = f.__dict__["_sweep"] = _layer_handle(f, bops, f.simplices(), f.tree)
     return h
 
 
@@ -750,7 +792,7 @@ def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
             if sel.numel() == 0:
                 return None
             s = Simplex(f.anchor[sel], f.level[sel], f.stype[sel])
-            return bops.sweep_full(s, f.tree[sel])
+            return _layer_handle(f, bops, s, f.tree[sel])
 
         def route_to_dests(i: int, rp) -> dict:
             """RoutePairs rows -> {dest rank: (tree, key, level) columns}."""

@@ -9,8 +9,9 @@ what the New -> Adapt -> Partition path calls:
   local_index   paper Table 6
   morton_key    level-padded consecutive index (Algorithm 4.7)
   decode_key    Algorithm 4.8 from a level-padded key
-  coordinates   Algorithm 4.1, in the root frame
+  coordinates   Algorithm 4.1
   face_neighbor Algorithm 4.6
+  tree_transform  the coarse-mesh gluing map (cmesh)
   is_ancestor   Proposition 23
   is_inside_root  Section 4.4
 
@@ -30,6 +31,19 @@ from .tables import MAXLEVEL, get_tables
 from .types import ECLASS_HEX, ECLASS_SIMPLEX, Simplex
 
 __all__ = ["ElementOps", "SimplexOps", "get_ops"]
+
+
+def _wrap_i32(a: torch.Tensor) -> torch.Tensor:
+    """Two's-complement int32 wrap of an int64 tensor (the JAX package's
+    `cmesh.wrap_i32`, on tensors)."""
+    return (((a + 2**31) & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def _i64(x, device) -> torch.Tensor:
+    """An array, tensor or nested list as an int64 tensor on `device`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device, torch.int64)
+    return torch.as_tensor(np.asarray(x, np.int64), device=device)
 
 
 class ElementOps:
@@ -117,9 +131,9 @@ class SimplexOps(ElementOps):
         return torch.stack([(cid >> k) & 1 for k in range(self.d)], dim=-1)
 
     def coordinates(self, s: Simplex) -> torch.Tensor:
-        """Algorithm 4.1: (..., d+1, d) int32 corner nodes.  Elements of the
-        root frame only: the vertices of an element inside the root fit
-        int32 (the cross-tree vertex wrap comes with the coarse mesh)."""
+        """Algorithm 4.1: (..., d+1, d) int32 corner nodes, computed in
+        int32 as the JAX package computes them: a vertex past 2^31 - 1 (a
+        transformed element's at d = 2) wraps as it does there."""
         verts = self._tab("ref_verts", s.device)[s.stype.long()].to(torch.int32)
         return s.anchor[..., None, :] + self.h(s.level)[..., None, None] * verts
 
@@ -144,15 +158,31 @@ class SimplexOps(ElementOps):
         return self._lookup("local_index", self.cube_id(s), s.stype)
 
     # ------------------------------------------------------------- neighbors
-    def face_neighbor(self, s: Simplex, f: int):
-        """Algorithm 4.6: (same-level neighbor across face f, dual face).
+    def face_neighbor(self, s: Simplex, f):
+        """Algorithm 4.6: (same-level neighbor across face f, dual face);
+        `f` is one face for all elements or a tensor of one per element.
         The neighbor may lie outside the root simplex (`is_inside_root`)."""
         dev = s.device
-        fi = torch.full_like(s.stype, f)
-        off = self._tab("neighbor_offset", dev)[s.stype.long(), f].to(torch.int32)
+        fi = torch.as_tensor(f, device=dev).to(s.stype.dtype).expand(s.stype.shape)
+        off = self._tab("neighbor_offset", dev)[s.stype.long(), fi.long()].to(torch.int32)
         anchor = s.anchor + self.h(s.level)[..., None] * off
         return (Simplex(anchor, s.level, self._lookup("neighbor_type", s.stype, fi)),
                 self._lookup("neighbor_face", s.stype, fi))
+
+    def tree_transform(self, s: Simplex, M, c, typemap) -> Simplex:
+        """The coarse-mesh gluing map: anchor' = M @ anchor + c, less h on
+        reflected rows so the anchor stays the image cube's minimum corner,
+        and type' = typemap[type].  `M` is a signed permutation, (d, d) or
+        per element (..., d, d); `c` the translation, pre-wrapped to int32,
+        (d,) or (..., d); `typemap` (d!,) or (..., d!).  Computed in int64
+        and wrapped to int32 once, which equals int32 ring arithmetic."""
+        M, c, tm = (_i64(x, s.device) for x in (M, c, typemap))
+        h = self.h(s.level).to(torch.int64)
+        neg = M.sum(dim=-1).clamp(max=0)                   # -1 on reflected rows
+        a = (s.anchor.to(torch.int64)[..., None, :] * M).sum(dim=-1) + c + h[..., None] * neg
+        tm = tm.expand(s.stype.shape + tm.shape[-1:])
+        stype = torch.gather(tm, -1, s.stype.long()[..., None])[..., 0]
+        return Simplex(_wrap_i32(a), s.level, stype.to(torch.int32))
 
     # ------------------------------------------------- ancestors / containment
     def is_ancestor(self, t: Simplex, n: Simplex) -> torch.Tensor:

@@ -39,7 +39,17 @@ def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
     """The rank whose partition range [marker_r, marker_{r+1}) holds each
     lex (tree, key): the number of the P markers lex-<= it, less one,
     clamped to 0 (keys before the first marker go to rank 0).  int32, the
-    shape of `tree`; all tensors on one device."""
+    shape of `tree`; all tensors on one device.  The (query, marker)
+    comparison matrix is built a slice of queries at a time, so memory
+    stays bounded at any P."""
     t, k = tree.reshape(-1, 1), key.reshape(-1, 1)
-    le = (marker_tree < t) | ((marker_tree == t) & (marker_key <= k))
-    return (le.sum(dim=1, dtype=torch.int32) - 1).clamp(min=0).reshape(tree.shape)
+    step = max(1, _PAIRS_PER_SLICE // max(marker_tree.shape[0], 1))
+    out = torch.empty(t.shape[0], dtype=torch.int32, device=tree.device)
+    for a in range(0, t.shape[0], step):
+        ts, ks = t[a:a + step], k[a:a + step]
+        le = (marker_tree < ts) | ((marker_tree == ts) & (marker_key <= ks))
+        out[a:a + step] = le.sum(dim=1, dtype=torch.int32)
+    return (out - 1).clamp(min=0).reshape(tree.shape)
+
+
+_PAIRS_PER_SLICE = 1 << 27   # query-marker comparisons held at once

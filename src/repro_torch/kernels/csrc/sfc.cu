@@ -1,9 +1,10 @@
 // Hand-written Hopper (sm_90a) kernels for the simplex SFC element ops of
 // the forest pipeline.  New -> Adapt -> Partition: encode (morton key),
 // decode, parent (+ local index) and children.  Balance -> Ghost -> validate:
-// the fused face sweep, the routing eval, and the inside-root test.  One
-// thread per element (per element and child for `children`, per element and
-// face for `eval_route`), templated on the dimension D.
+// the fused face sweep, the routing eval, and the inside-root test; over a
+// coarse mesh, the tree transform of every face crossing.  One thread per
+// element (per element and child for `children`, per element and face for
+// `eval_route`), templated on the dimension D.
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same name
 // computes (src/repro/kernels/sfc.py), bit for bit, but none carries over the
@@ -40,6 +41,8 @@
 //               (d+1) x (end key int64 + first + last int32) out
 //                                              116 / 88 B (+ 12 B a marker)
 //   inside_root anchor + level + type in, 1 B out          21 / 17 B
+//   tree_transform connection + anchor + level + type + dual in,
+//               anchor + type + dual + tree out  52 / 44 B (+ 4W B a connection)
 // These integer table walks do no floating-point work, and no published
 // integer peak fits them, so the bound has no operations term.
 // What the design does about it: encode and decode keep the whole level
@@ -48,8 +51,10 @@
 // passes whose stores are contiguous across the threads of a warp.  The
 // face sweep reads each element once and writes every face's outputs
 // face-major ((d+1, n) planes), so each store is contiguous across a warp;
-// eval_route reads the P partition markers into shared memory once per
-// block and scans them from there.
+// eval_route reads up to 4096 partition markers into shared memory once per
+// block and scans them from there, and binary searches more of them in
+// global memory; tree_transform reads its connection rows through the
+// read-only cache.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() after the launch.
@@ -64,7 +69,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTab = 64;  // shared copy of a packed table; index mask kTab - 1
 constexpr int kNei = 32;  // shared copy of the face-neighbor table; mask kNei - 1
-constexpr int kMaxMarkers = 4096;  // eval_route's markers in shared memory: 48 KB
+constexpr int kSharedMarkers = 4096;  // eval_route scans up to this many from shared memory (48 KB)
 
 template <int D> struct Dim;
 template <> struct Dim<2> {
@@ -323,10 +328,22 @@ face_sweep_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict_
 // neighbor's interval, key | (2^(D(L - lvl)) - 1) (keys are span aligned),
 // and the first and last owner rank of the interval: the number of the P
 // partition markers lex-<= (tree, key) resp. (tree, end key), less one,
-// clamped to 0.  Grid: x over elements, y over faces.  The markers are
-// copied into shared memory once per block and scanned there (a binary
-// search pays only for large P).  The span exponent is clamped to [0, 63],
-// so the mask never shifts by 64: at d = 3, level 0 it is 2^63 - 1.
+// clamped to 0.  Grid: x over elements, y over faces.  The span exponent is
+// clamped to [0, 63], so the mask never shifts by 64: at d = 3, level 0 it
+// is 2^63 - 1.  Two variants of the owner count, chosen by P at launch:
+// up to kSharedMarkers the markers are copied into shared memory once per
+// block and scanned there (a binary search pays only for large P); beyond
+// it they stay in global memory, read through the read-only cache, and each
+// pair runs two lex binary searches (upper bounds), one per interval end.
+// The markers are lex-sorted (the forest checks it), so the upper bound is
+// the count of markers lex-<= the key; empty ranks repeat a marker.
+template <int D>
+__device__ __forceinline__ int64_t interval_end(int64_t k, int lvl) {
+  constexpr int L = Dim<D>::L;
+  const int sb = min(max(D * (L - lvl), 0), 63);
+  return k | static_cast<int64_t>(0x7FFFFFFFFFFFFFFFull >> (63 - sb));
+}
+
 template <int D>
 __global__ void __launch_bounds__(kThreads)
 eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ key,
@@ -334,7 +351,6 @@ eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ k
                   const int64_t* __restrict__ marker_key, int num_markers,
                   int64_t* __restrict__ kend, int32_t* __restrict__ first,
                   int32_t* __restrict__ last, int64_t n) {
-  constexpr int L = Dim<D>::L;
   extern __shared__ int64_t route_smem[];
   int64_t* mk = route_smem;
   int32_t* mt = reinterpret_cast<int32_t*>(route_smem + num_markers);
@@ -348,8 +364,7 @@ eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ k
   const int64_t o = blockIdx.y * n + i;
   const int t = tgt[o];
   const int64_t k = key[o];
-  const int sb = min(max(D * (L - level[i]), 0), 63);
-  const int64_t ke = k | static_cast<int64_t>(0x7FFFFFFFFFFFFFFFull >> (63 - sb));
+  const int64_t ke = interval_end<D>(k, level[i]);
   int c0 = 0, c1 = 0;
   for (int m = 0; m < num_markers; ++m) {
     const int tm = mt[m];
@@ -360,6 +375,40 @@ eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ k
   kend[o] = ke;
   first[o] = max(c0 - 1, 0);
   last[o] = max(c1 - 1, 0);
+}
+
+// The number of lex-sorted markers lex-<= (t, k): an upper-bound binary
+// search over the markers in global memory.
+__device__ __forceinline__ int markers_at_or_below(const int32_t* __restrict__ mt,
+                                                   const int64_t* __restrict__ mk, int p,
+                                                   int t, int64_t k) {
+  int lo = 0, hi = p;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const int tm = __ldg(mt + mid);
+    if (tm < t || (tm == t && __ldg(mk + mid) <= k)) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+eval_route_search_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ key,
+                         const int32_t* __restrict__ level,
+                         const int32_t* __restrict__ marker_tree,
+                         const int64_t* __restrict__ marker_key, int num_markers,
+                         int64_t* __restrict__ kend, int32_t* __restrict__ first,
+                         int32_t* __restrict__ last, int64_t n) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const int64_t o = blockIdx.y * n + i;
+  const int t = tgt[o];
+  const int64_t k = key[o];
+  const int64_t ke = interval_end<D>(k, level[i]);
+  kend[o] = ke;
+  first[o] = max(markers_at_or_below(marker_tree, marker_key, num_markers, t, k) - 1, 0);
+  last[o] = max(markers_at_or_below(marker_tree, marker_key, num_markers, t, ke) - 1, 0);
 }
 
 // Replaces inside_root_kernel (src/repro/kernels/sfc.py:662, body
@@ -376,6 +425,59 @@ inside_root_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict
 #pragma unroll
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
   inside[i] = inside_root_of<D>(c, level[i], stype[i]) ? 1 : 0;
+}
+
+// Replaces tree_transform_kernel (src/repro/kernels/sfc.py:678, body
+// _tree_transform_body :464): the coarse-mesh gluing map, one element a
+// thread, each across its own connection.  Per element: anchor'[k] =
+// anchor[ax_k] + c[k] on a + row, c[k] - anchor[ax_k] - h on a reflected
+// row (h = 2^(L - level)), type' = typemap[type], dual' = facemap[type][dual]
+// and the neighbor tree.  The TPU kernel bakes one connection's M, c and
+// typemap into each compiled program and looks the type up by a masked sum
+// (_lut); one launch over every crossing of a many-tree mesh needs the
+// connection as data instead, so each thread reads its row (packed by
+// repro_torch/core/cmesh.py:pack_connection, W = 2D + D! + D!(D+1) + 1
+// int32) from the table in global memory through the read-only cache: the
+// number of connections is unbounded, so the table does not go to shared
+// memory.  The arithmetic is done in uint32 and cast back, which is the
+// int32 ring arithmetic of the reference without signed overflow: at d = 2
+// periodic translations reach 2^31.  Connection, type and dual indices are
+// clamped to their tables, so a malformed input reads a wrong row, never
+// out of bounds.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+tree_transform_kernel(const int32_t* __restrict__ conn, const int32_t* __restrict__ anchor,
+                      const int32_t* __restrict__ level, const int32_t* __restrict__ stype,
+                      const int32_t* __restrict__ dual, const int32_t* __restrict__ table,
+                      int num_conn, int32_t* __restrict__ o_anchor,
+                      int32_t* __restrict__ o_stype, int32_t* __restrict__ o_dual,
+                      int32_t* __restrict__ o_tree, int64_t n) {
+  constexpr int L = Dim<D>::L, NT = Dim<D>::NT, NF = D + 1;
+  constexpr int W = 2 * D + NT + NT * NF + 1;
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const int64_t row = static_cast<int64_t>(min(max(conn[i], 0), num_conn - 1)) * W;
+  const int32_t* __restrict__ r = table + row;
+  int a[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) a[k] = anchor[i * D + k];
+  const uint32_t h = 1u << ((L - level[i]) & 31);
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    const int code = __ldg(r + k);
+    const int ax = code & 3;
+    uint32_t src = static_cast<uint32_t>(a[0]);
+#pragma unroll
+    for (int j = 1; j < D; ++j) src = ax == j ? static_cast<uint32_t>(a[j]) : src;
+    const uint32_t c = static_cast<uint32_t>(__ldg(r + D + k));
+    const uint32_t v = (code & 4) ? c - src - h : src + c;
+    o_anchor[i * D + k] = static_cast<int32_t>(v);
+  }
+  const int b = min(max(stype[i], 0), NT - 1);
+  const int f = min(max(dual[i], 0), NF - 1);
+  o_stype[i] = __ldg(r + 2 * D + b);
+  o_dual[i] = __ldg(r + 2 * D + NT + b * NF + f);
+  o_tree[i] = __ldg(r + W - 1);
 }
 
 inline unsigned blocks_for(int64_t work) {
@@ -470,7 +572,7 @@ int sfc_eval_route(int d, const void* tgt, const void* key, const void* level,
                    const void* marker_tree, const void* marker_key, int num_markers,
                    void* kend, void* first, void* last, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (num_markers < 1 || num_markers > kMaxMarkers) return cudaErrorInvalidValue;
+  if (num_markers < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<const int32_t*>(tgt);
   auto k = static_cast<const int64_t*>(key);
@@ -480,11 +582,16 @@ int sfc_eval_route(int d, const void* tgt, const void* key, const void* level,
   auto ke = static_cast<int64_t*>(kend);
   auto f = static_cast<int32_t*>(first);
   auto la = static_cast<int32_t*>(last);
-  const size_t shmem = static_cast<size_t>(num_markers) * (sizeof(int64_t) + sizeof(int32_t));
   const dim3 grid(blocks_for(n), d + 1);
+  if (d != 2 && d != 3) return cudaErrorInvalidValue;
+  if (num_markers > kSharedMarkers) {
+    if (d == 2) eval_route_search_kernel<2><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
+    else eval_route_search_kernel<3><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
+    return cudaGetLastError();
+  }
+  const size_t shmem = static_cast<size_t>(num_markers) * (sizeof(int64_t) + sizeof(int32_t));
   if (d == 2) eval_route_kernel<2><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-  else if (d == 3) eval_route_kernel<3><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-  else return cudaErrorInvalidValue;
+  else eval_route_kernel<3><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
   return cudaGetLastError();
 }
 
@@ -498,6 +605,29 @@ int sfc_inside_root(int d, const void* anchor, const void* level, const void* st
   auto in = static_cast<uint8_t*>(inside);
   if (d == 2) inside_root_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, in, n);
   else if (d == 3) inside_root_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, in, n);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+int sfc_tree_transform(int d, const void* conn, const void* anchor, const void* level,
+                       const void* stype, const void* dual, const void* table, int num_conn,
+                       void* o_anchor, void* o_stype, void* o_dual, void* o_tree, int64_t n,
+                       void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (num_conn < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto cn = static_cast<const int32_t*>(conn);
+  auto a = static_cast<const int32_t*>(anchor);
+  auto l = static_cast<const int32_t*>(level);
+  auto b = static_cast<const int32_t*>(stype);
+  auto du = static_cast<const int32_t*>(dual);
+  auto tb = static_cast<const int32_t*>(table);
+  auto oa = static_cast<int32_t*>(o_anchor);
+  auto ob = static_cast<int32_t*>(o_stype);
+  auto od = static_cast<int32_t*>(o_dual);
+  auto ot = static_cast<int32_t*>(o_tree);
+  if (d == 2) tree_transform_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(cn, a, l, b, du, tb, num_conn, oa, ob, od, ot, n);
+  else if (d == 3) tree_transform_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(cn, a, l, b, du, tb, num_conn, oa, ob, od, ot, n);
   else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }

@@ -1,6 +1,7 @@
 """Wrappers around the CUDA kernels of `csrc/sfc.cu`: encode, decode,
-parent and children (New -> Adapt -> Partition) and the face sweep, routing
-eval and inside-root test (Balance -> Ghost -> validate).
+parent and children (New -> Adapt -> Partition), the face sweep, routing
+eval and inside-root test (Balance -> Ghost -> validate), and the tree
+transform that carries face neighbors across glued tree faces (cmesh).
 
 Each wrapper checks dtype, shape and contiguity, then dispatches by device:
 a CPU tensor goes to its plain version in `kernels.ref`; a CUDA tensor goes
@@ -16,18 +17,16 @@ import ctypes
 
 import torch
 
+from ..core.cmesh import conn_row_width
 from . import ref
 from .build import library
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
-           "inside_root", "launch_counts", "reset_launch_counts", "MAX_MARKERS"]
+           "inside_root", "tree_transform", "launch_counts", "reset_launch_counts"]
 
 launch_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
-                                 "face_sweep": 0, "eval_route": 0, "inside_root": 0}
-
-# eval_route keeps the partition markers in 48 KB of shared memory
-# (kMaxMarkers in csrc/sfc.cu).
-MAX_MARKERS = 4096
+                                 "face_sweep": 0, "eval_route": 0, "inside_root": 0,
+                                 "tree_transform": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -39,6 +38,8 @@ _ARGTYPES = {
     "sfc_face_sweep": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _N, _P],
     "sfc_eval_route": [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _N, _P],
     "sfc_inside_root": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
+    "sfc_tree_transform": [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int,
+                           _P, _P, _P, _P, _N, _P],
 }
 _FNS: dict = {}
 
@@ -185,8 +186,11 @@ def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor
                marker_tree: torch.Tensor, marker_key: torch.Tensor):
     """Over the pairs of a face-major (d+1, n) sweep — target tree int32 and
     neighbor key int64 per pair, level int32 per element — against P
-    partition markers (tree int32, key int64): the interval end key (int64)
-    and first and last owner rank (int32), each (d+1, n)."""
+    lex-sorted partition markers (tree int32, key int64), any P >= 1: the
+    interval end key (int64) and first and last owner rank (int32), each
+    (d+1, n).  On the card up to 4096 markers are scanned from shared
+    memory and more are binary searched in global memory; both count as
+    `eval_route` launches."""
     if d not in (2, 3):
         raise ValueError(f"d must be 2 or 3, got {d}")
     n, P = level.shape[0], marker_tree.shape[0]
@@ -195,8 +199,8 @@ def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor
     _check(level, "level", torch.int32, (n,))
     _check(marker_tree, "marker_tree", torch.int32, (P,))
     _check(marker_key, "marker_key", torch.int64, (P,))
-    if not 1 <= P <= MAX_MARKERS:
-        raise ValueError(f"need 1 to {MAX_MARKERS} partition markers, got {P}")
+    if P < 1:
+        raise ValueError(f"need at least 1 partition marker, got {P}")
     if _on_cpu(tgt, key, level, marker_tree, marker_key):
         return ref.eval_route(d, tgt, key, level, marker_tree, marker_key)
     dev = key.device
@@ -221,3 +225,30 @@ def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor) 
     if n:
         _launch("inside_root", "sfc_inside_root", d, anchor, level, stype, inside, n)
     return inside
+
+
+def tree_transform(conn: torch.Tensor, anchor: torch.Tensor, level: torch.Tensor,
+                   stype: torch.Tensor, dual: torch.Tensor, table: torch.Tensor):
+    """(n,) elements, each across its own coarse-mesh connection: row
+    conn[i] of the packed int32 connection table (C, W)
+    (`core.cmesh.pack_connection`).  Returns the element in the neighbor
+    tree's frame — anchor (n, d), type — its dual face renumbered by the
+    connection's face map, and the neighbor tree; all int32."""
+    d, n = _dim(anchor), anchor.shape[0]
+    _check(conn, "conn", torch.int32, (n,))
+    _check(anchor, "anchor", torch.int32, (n, d))
+    _check(level, "level", torch.int32, (n,))
+    _check(stype, "stype", torch.int32, (n,))
+    _check(dual, "dual", torch.int32, (n,))
+    if table.dim() != 2 or table.shape[0] < 1:
+        raise ValueError(f"table must hold at least one connection row, got {tuple(table.shape)}")
+    _check(table, "table", torch.int32, (table.shape[0], conn_row_width(d)))
+    if _on_cpu(conn, anchor, level, stype, dual, table):
+        return ref.tree_transform(conn, anchor, level, stype, dual, table)
+    dev = anchor.device
+    outs = (torch.empty((n, d), dtype=torch.int32, device=dev),
+            *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)))
+    if n:
+        _launch("tree_transform", "sfc_tree_transform", d, conn, anchor, level, stype, dual,
+                table, table.shape[0], *outs, n)
+    return outs

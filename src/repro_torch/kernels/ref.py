@@ -17,10 +17,11 @@ from ..core.tables import MAXLEVEL
 from ..core.types import Simplex
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
-           "inside_root", "call_counts", "reset_call_counts"]
+           "inside_root", "tree_transform", "call_counts", "reset_call_counts"]
 
 call_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
-                               "face_sweep": 0, "eval_route": 0, "inside_root": 0}
+                               "face_sweep": 0, "eval_route": 0, "inside_root": 0,
+                               "tree_transform": 0}
 
 
 def reset_call_counts() -> None:
@@ -98,3 +99,27 @@ def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor) 
     """Section 4.4: (n,) bool, does each element lie inside the root simplex."""
     call_counts["inside_root"] += 1
     return get_ops(anchor.shape[-1]).is_inside_root(Simplex(anchor, level, stype))
+
+
+def tree_transform(conn: torch.Tensor, anchor: torch.Tensor, level: torch.Tensor,
+                   stype: torch.Tensor, dual: torch.Tensor, table: torch.Tensor):
+    """Each element (n,) across its own connection: row conn[i] of the
+    packed connection table (`core.cmesh.pack_connection`) gives the
+    gluing's (M, c, typemap), applied by `SimplexOps.tree_transform`, the
+    face map that renumbers the dual face, and the neighbor tree.  Returns
+    (anchor (n, d), type, dual face, tree), int32."""
+    call_counts["tree_transform"] += 1
+    n, d = anchor.shape
+    o = get_ops(d)
+    nt, nf = o.nt, o.nf
+    row = table[conn.long()].long()
+    code = row[:, :d]
+    sign = 1 - 2 * ((code >> 2) & 1)
+    M = torch.zeros((n, d, d), dtype=torch.int64, device=anchor.device)
+    M.scatter_(2, (code & 3)[:, :, None], sign[:, :, None])
+    s2 = o.tree_transform(Simplex(anchor, level, stype), M, row[:, d:2 * d],
+                          row[:, 2 * d:2 * d + nt])
+    facemap = row[:, 2 * d + nt:2 * d + nt + nt * nf].reshape(n, nt, nf)
+    b = stype.long()
+    dual2 = facemap[torch.arange(n, device=anchor.device), b, dual.long()]
+    return s2.anchor, s2.stype, dual2.to(torch.int32), row[:, -1].to(torch.int32)

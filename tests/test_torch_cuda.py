@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import cmesh as TC
 from repro_torch.core import forest as TF
 from repro_torch.core.tables import MAXLEVEL
 from repro_torch.kernels import ops as kops, ref as kref
@@ -84,8 +85,10 @@ def test_cuda_wrappers_never_fall_back():
     kops.inside_root(anchor, level, stype)
     tgt, nkey, mt, mk = _route_inputs(3, level, dev)
     kops.eval_route(3, tgt, nkey, level, mt, mk)
+    conn, table = _transform_inputs(3, 64, dev)[:2]
+    kops.tree_transform(conn, anchor, level, stype, tgt[0] & 3, table)
     assert kops.morton_key(anchor[:0], stype[:0]).shape == (0,)
-    assert kops.launch_counts == {k: 1 for k in KERNELS + ["eval_route"]}
+    assert kops.launch_counts == {k: 1 for k in KERNELS + ["eval_route", "tree_transform"]}
     assert not any(kref.call_counts.values())
     with pytest.raises(ValueError):
         kops.morton_key(anchor, stype.cpu())
@@ -210,3 +213,112 @@ def test_cuda_balance_ghost_validate_match_cpu(d):
     for a, b in zip(gg, gc, strict=True):
         for name in ("anchor", "level", "stype", "tree", "owner"):
             assert torch.equal(a[name].cpu(), b[name])
+
+
+def _transform_inputs(d, n, dev, seed=0):
+    """(conn, table, wrapped) for n crossings: each element picks a random
+    connection among the glued faces of a periodic brick, and of the
+    rotated pair at d = 2 (sigma = -1); at d = 3, whose meshes here glue
+    with sigma = +1 only, of reflected rows made by `pack_connection` too.
+    `wrapped` counts the table's translations that wrap past int32."""
+    rng = np.random.default_rng(seed)
+    cms = [TC.cmesh_brick(d, (2,) * d, periodic=(True,) * d)]
+    rows = []
+    if d == 2:
+        cms.append(TC.cmesh_rotated_pair())
+    else:
+        for sigma in (1, -1):
+            M = sigma * np.roll(np.eye(3, dtype=np.int64), 1, axis=1)
+            tm, vm = TC.signed_perm_maps(3, M)
+            rows.append(TC.pack_connection(3, M, np.array([2, -1, 1]) << MAXLEVEL[3], tm, vm, 5))
+    for cm in cms:
+        t, f = np.nonzero(cm.face_tree >= 0)
+        rows.append(cm.gluing("cpu").conn.numpy()[t * (d + 1) + f])
+    table = np.concatenate([np.atleast_2d(r) for r in rows]).astype(np.int32)
+    conn = rng.integers(0, len(table), n).astype(np.int32)
+    wrapped = int((np.abs(np.concatenate([c.face_c.reshape(-1) for c in cms])) >= 1 << 31).sum())
+    return (torch.from_numpy(conn).to(dev), torch.from_numpy(table).to(dev), wrapped)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+def test_cuda_tree_transform_matches_plain(d, n):
+    """tree_transform equals its plain version on elements of every level
+    and type anywhere in the root cube, crossing connections of either
+    sign, with translations that wrap past 2^31 - 1 at d = 2."""
+    dev = _card()
+    anchor, level, stype = _cube_inputs(d, n, seed=n + 7 * d, dev=dev)
+    conn, table, wrapped = _transform_inputs(d, n, dev, seed=n)
+    dual = torch.randint(0, d + 1, (n,), dtype=torch.int32, device=dev)
+    before = kops.launch_counts["tree_transform"]
+    got = kops.tree_transform(conn, anchor, level, stype, dual, table)
+    want = kref.tree_transform(conn, anchor, level, stype, dual, table)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["tree_transform"] == before + 1
+    assert (wrapped > 0) == (d == 2)
+    signs = ((table[:, :d] >> 2) & 1).any(dim=1)
+    assert bool(signs.any()) and not bool(signs.all())
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("P", [4097, 8192])
+def test_cuda_eval_route_beyond_shared_markers_matches_plain(d, P):
+    """Past 4096 markers the kernel binary searches them in global memory;
+    it equals the plain compare-and-count on lex-sorted markers with empty
+    ranks (repeated markers) and a trailing sentinel."""
+    dev = _card()
+    L = MAXLEVEL[d]
+    rng = np.random.default_rng(P + d)
+    _anchor, level, _stype = _cube_inputs(d, 100_000, seed=P, dev=dev)
+    tgt, key, _mt, _mk = _route_inputs(d, level, dev, seed=P)
+    mt = np.sort(rng.integers(0, 4, P)).astype(np.int32)
+    mk = rng.integers(0, 1 << (d * L), P, dtype=np.uint64).astype(np.int64)
+    order = np.lexsort((mk, mt))
+    mt, mk = mt[order], mk[order]
+    mk[10:20], mt[10:20] = mk[9], mt[9]
+    mt[-2:], mk[-2:] = 4, 0
+    mt, mk = torch.from_numpy(mt).to(dev), torch.from_numpy(mk).to(dev)
+    before = kops.launch_counts["eval_route"]
+    got = kops.eval_route(d, tgt, key, level, mt, mk)
+    want = kref.eval_route(d, tgt, key, level, mt, mk)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["eval_route"] == before + 1
+    assert torch.unique(want[1]).numel() > 1000
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["brick_d3", "brick_d2", "rotated_pair"])
+def test_cuda_multitree_pipeline_matches_cpu(name):
+    """Balance -> Ghost -> validate over a coarse mesh on the card equals
+    the CPU run, forest and ghost field for field, with equal bytes, and
+    the card's crossings went through the tree_transform kernel."""
+    dev = _card()
+    cm = {"brick_d3": lambda: TC.cmesh_brick(3, (2, 1, 1), periodic=(True, False, False)),
+          "brick_d2": lambda: TC.cmesh_brick(2, (2, 2), periodic=(True, True)),
+          "rotated_pair": TC.cmesh_rotated_pair}[name]()
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        comm = TF.SimComm(3)
+        kops.reset_launch_counts()
+        fs = TF.new_uniform(cm.d, cm.num_trees, 1, comm, cmesh=cm, device=device)
+        fs = [TF.adapt(f, lambda t, e: ((t == 0) & (e.anchor.sum(1) == 0) & (e.level < 5)).int(),
+                       recursive=True) for f in fs]
+        fs = TF.balance(TF.partition(fs, comm), comm)
+        gh = TF.ghost(fs, comm)
+        assert TF.validate(fs, gh)
+        runs.append((fs, gh, comm.counters, kops.launch_counts["tree_transform"]))
+    (fg, gg, cg, lg), (fc, gc, cc, lc) = runs
+    assert lg > 0 and lc == 0
+    assert cg == cc and cg["balance"]["alltoallv_bytes"] > 0
+    for a, b in zip(fg, fc, strict=True):
+        for k in ("anchor", "level", "stype", "tree", "keys"):
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k))
+    for a, b in zip(gg, gc, strict=True):
+        for k in ("anchor", "level", "stype", "tree", "owner"):
+            assert torch.equal(a[k].cpu(), b[k])

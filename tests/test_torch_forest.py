@@ -24,6 +24,7 @@ from repro_torch import convert
 from repro_torch.core import batch as tbatch
 from repro_torch.core import comm as tcomm
 from repro_torch.core import forest as TF
+from repro_torch.core.cmesh import cmesh_unit_cube
 from repro_torch.core.ops import get_ops
 from repro_torch.core.types import ECLASS_HEX
 
@@ -242,8 +243,8 @@ def test_entry_points_default_to_the_card():
 def test_unported_features_and_bad_input_raise():
     """Features of later slices raise NotImplementedError naming the slice
     (ROADMAP.md's queue); bad input raises ValueError."""
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TF.new_uniform(3, 1, 1, TF.SimComm(1), cmesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="does not match"):   # a cmesh of other trees
+        TF.new_uniform(3, 1, 1, TF.SimComm(1), cmesh=cmesh_unit_cube(3), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         TF.new_uniform(3, 1, 1, TF.SimComm(1), method="successor", device="cpu")
     with pytest.raises(ValueError):
@@ -251,8 +252,10 @@ def test_unported_features_and_bad_input_raise():
     with pytest.raises(NotImplementedError, match="slice 4"):
         get_ops(3, ECLASS_HEX)
     f = TF.new_uniform_rank(3, 1, 1, 0, 1, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        TF.Forest(**convert.forest_to_reference(f), cmesh=object())
+    tables = convert.cmesh_to_reference(cmesh_unit_cube(3))
+    tables["tree_eclass"][0] = ECLASS_HEX
+    with pytest.raises(NotImplementedError, match="slice 4"):
+        convert.cmesh_from_reference(tables)
     arrays = convert.forest_to_reference(f)
     with pytest.raises(NotImplementedError, match="slice 4"):
         convert.forest_from_reference(dict(arrays, eclass=ECLASS_HEX), device="cpu")

@@ -12,6 +12,8 @@ has a zero offset).  The CUDA kernels themselves are held against these
 plain versions on the card by `tests/test_torch_cuda.py` and
 `chip_smoke.py`."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from repro.core.ops import get_ops as jget_ops
 from repro.core.types import Simplex as JSimplex
 from repro.kernels import ops as jkops
 from repro.kernels import sfc as jsfc
+from repro_torch.core.cmesh import pack_connection
 from repro_torch.core.keys import to_pair
 from repro_torch.core.tables import MAXLEVEL
 from repro_torch.kernels import build, ops as kops, ref as kref
@@ -144,8 +147,11 @@ def test_cpu_tensors_take_the_plain_version():
     kops.inside_root(anchor, level, stype)
     tgt = torch.zeros((4, 16), dtype=torch.int32)
     kops.eval_route(3, tgt, tgt.long(), level, tgt[0, :1], tgt[0, :1].long())
+    table = torch.from_numpy(pack_connection(3, np.eye(3), np.zeros(3), np.arange(6)))[None]
+    kops.tree_transform(tgt[0], anchor, level, stype, tgt[1], table)
     assert kref.call_counts == {"morton_key": 2, "decode": 1, "parent": 1, "children": 1,
-                                "face_sweep": 1, "eval_route": 1, "inside_root": 1}
+                                "face_sweep": 1, "eval_route": 1, "inside_root": 1,
+                                "tree_transform": 1}
     assert not any(kops.launch_counts.values())
 
 
@@ -207,3 +213,128 @@ def test_batched_ops_match_reference_batched_ops(d):
     _assert_same([x.numpy() for x in (*p, il)], [np.asarray(x) for x in (*jp, jil)])
     _assert_same([x.numpy() for x in tb.parent(ts)], [np.asarray(x) for x in jb.parent(js)])
     _assert_same([x.numpy() for x in tb.children(ts)], [np.asarray(x) for x in jb.children(js)])
+
+
+def _many_markers(P, trees, d, rng):
+    """P lex-sorted partition markers over `trees` trees, with empty ranks
+    (repeated markers) and a trailing (trees, 0) sentinel, as the marker
+    table gives them: (tree int32, key uint64)."""
+    L = MAXLEVEL[d]
+    mt = np.sort(rng.integers(0, trees, P)).astype(np.int32)
+    mk = rng.integers(0, 1 << (d * L), P, dtype=np.uint64)
+    order = np.lexsort((mk, mt))
+    mt, mk = mt[order], mk[order]
+    mt[0], mk[0] = 0, 0
+    mk[5:9] = mk[4]
+    mt[5:9] = mt[4]
+    mt[-3:], mk[-3:] = trees, 0
+    return mt, mk
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_eval_route_beyond_4096_markers_matches_reference(d):
+    """At P = 4097 partition markers (more than the kernel keeps in shared
+    memory) the port's routing eval runs on the CPU and equals the JAX
+    package: the wrapper against `eval_route_ref`, and `BatchedOps.eval_route`
+    (what Balance and Ghost call) against the JAX package's under
+    `use_backend("jnp")`."""
+    from repro.core import batch as jbatch
+    from repro.kernels import ref as jkref
+    from repro_torch.core import batch as tbatch
+    from test_torch_sweep import _pad_markers
+
+    L = MAXLEVEL[d]
+    rng = np.random.default_rng(40 + d)
+    n, nf, P = 300, d + 1, 4097
+    level = rng.integers(0, L + 1, n).astype(np.int32)
+    shift = (np.uint64(d) * (np.uint64(L) - level.astype(np.uint64)))[None, :]
+    key = (rng.integers(0, 1 << (d * L), (nf, n), dtype=np.uint64) >> shift) << shift
+    tgt = rng.integers(0, 4, (nf, n)).astype(np.int32)
+    mt, mk = _many_markers(P, 4, d, rng)
+    t_args = (torch.from_numpy(tgt), torch.from_numpy(key.astype(np.int64)),
+              torch.from_numpy(level))
+    kend, first, last = kops.eval_route(d, *t_args, torch.from_numpy(mt),
+                                        torch.from_numpy(mk.astype(np.int64)))
+    mt_p, mk_p = _pad_markers(mt, mk)
+    hh, hl, jf, jl = jkref.eval_route_ref(
+        d, jnp.asarray(tgt), jnp.asarray((key >> np.uint64(32)).astype(np.uint32)),
+        jnp.asarray(key.astype(np.uint32)), jnp.asarray(np.broadcast_to(level, (nf, n))),
+        jnp.asarray(mt_p), jnp.asarray((mk_p >> np.uint64(32)).astype(np.uint32)),
+        jnp.asarray(mk_p.astype(np.uint32)))
+    jend = (np.asarray(hh).astype(np.uint64) << np.uint64(32)) | np.asarray(hl).astype(np.uint64)
+    np.testing.assert_array_equal(kend.numpy().astype(np.uint64), jend)
+    np.testing.assert_array_equal(first.numpy(), np.asarray(jf))
+    np.testing.assert_array_equal(last.numpy(), np.asarray(jl))
+    assert len(np.unique(first.numpy())) > 100 and (last.numpy() > first.numpy()).any()
+
+    valid = rng.integers(0, 2, (nf, n)).astype(bool)
+    dual = rng.integers(0, nf, (nf, n)).astype(np.int32)
+    tb, jb = tbatch.get_batch_ops(d), jbatch.get_batch_ops(d, "jnp")
+    tsw = tb.sweep_from_layer(t_args[0], t_args[1], torch.from_numpy(valid),
+                              torch.from_numpy(dual), t_args[2])
+    jsw = jb.sweep_from_host(tgt, key, valid, dual, level)
+    for g in (0, 1000, P - 1):
+        got, want = tb.eval_route(tsw, mt, mk, g), jb.eval_route(jsw, mt, mk, g)
+        assert len(got.tree) > 0
+        for x, y in zip(got, want):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+
+
+def _digesting(comm_cls, P, encode):
+    """A SimComm that hashes every payload posted, per phase, in order:
+    the payloads of thousands of ranks are compared without keeping them."""
+    class Digesting(comm_cls):
+        def __init__(self):
+            super().__init__(P)
+            self.digests = {}
+
+        def _digest(self, payload):
+            phase = self._phases[-1] if self._phases else None
+            self.digests.setdefault(phase, hashlib.sha256()).update(encode(payload))
+
+        def _allgather(self, per_local):
+            self._digest(per_local)
+            return super()._allgather(per_local)
+
+        def _alltoallv(self, send):
+            self._digest(send)
+            return super()._alltoallv(send)
+    return Digesting()
+
+
+@pytest.mark.slow
+def test_balance_and_ghost_on_4100_ranks_match_reference_bytes():
+    """Balance and Ghost of a uniform 4,096-tet forest on SimComm(4100)
+    (more ranks than the eval_route kernel keeps markers in shared memory):
+    the port runs them on the CPU, and the JAX package under
+    `use_backend("jnp")` runs them on the same set-up.  Every forest and
+    ghost field, every counter and every payload posted (by its SHA-256 per
+    phase) are equal, and the bytes are those ROADMAP §3.1 recorded
+    (balance 403,541,280 B, ghost 269,309,120 B)."""
+    from repro.core import batch as jbatch
+    from repro.core import comm as jcomm
+    from repro.core import forest as JF
+    from repro_torch import convert
+    from repro_torch.core import comm as tcomm
+    from repro_torch.core import forest as TF
+    from test_torch_forest import _assert_same_forests
+
+    P = 4100
+    tc = _digesting(TF.SimComm, P, tcomm.encode_payload)
+    tb = TF.balance(TF.new_uniform(3, 1, 4, tc, device="cpu"), tc)
+    tg = TF.ghost(tb, tc)
+    assert TF.count_global(tb) == 4096
+    assert TF.validate(tb, tg)
+    jc = _digesting(JF.SimComm, P, jcomm.encode_payload)
+    with jbatch.use_backend("jnp"):
+        jb = JF.balance(JF.new_uniform(3, 1, 4, jc), jc)
+        jg = JF.ghost(jb, jc)
+    _assert_same_forests(tb, jb)
+    for a, b in zip(tg, jg, strict=True):
+        for k in convert.GHOST_FIELDS:
+            np.testing.assert_array_equal(a[k].numpy(), b[k], err_msg=k)
+    for phase in ("balance", "ghost"):
+        assert tc.counters[phase] == jc.counters[phase]
+        assert tc.digests[phase].hexdigest() == jc.digests[phase].hexdigest()
+    assert tc.bytes_for("balance") == jc.bytes_for("balance") == 403_541_280
+    assert tc.bytes_for("ghost") == jc.bytes_for("ghost") == 269_309_120
