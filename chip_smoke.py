@@ -5,17 +5,21 @@
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
 Partition -> Balance -> Ghost -> validate path at full size on the card,
-without and with a coarse mesh, and checks the card against the CPU.
-Phases, in order; any failure exits nonzero:
+without and with a coarse mesh, asks the paper's element queries of every
+leaf, and checks the card against the CPU.  Phases, in the order they run;
+any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
      versions, the kernels' build from an empty build directory;
-  2. kernel vs plain: each of the eight kernels against its plain version
+  2. kernel vs plain: each of the eleven kernels against its plain version
      on N = 2^22 random elements (every level 0..L, every type, every one
-     of the d*L key bits set somewhere; for face_sweep, inside_root and
-     tree_transform half the elements anywhere in the root cube, outside
-     the root simplex; for eval_route P = 4 markers with an empty rank, and
-     again P = 8192, past the 4096 the kernel keeps in shared memory; for
+     of the d*L key bits set somewhere; for face_sweep, inside_root,
+     face_neighbor and tree_transform half the elements anywhere in the
+     root cube, outside the root simplex, face_neighbor over every (type,
+     face) pair; for eval_route and owner_rank P = 4 markers with an empty
+     rank, and again P = 8192, past the 4096 the kernels keep in shared
+     memory; for successor element 0 and the last element of every level,
+     which wraps to element 0; for
      tree_transform a face neighbor of each element, just outside the root,
      across every glued face of a periodic brick, and sigma = -1
      crossings, with anchor words that wrap past 2^31 - 1 at d = 2), d = 2
@@ -33,6 +37,14 @@ Phases, in order; any failure exits nonzero:
      a repartition with weights 1 + (level == 8); stored order and volume
      coverage are checked after each partition; then Balance, Ghost and
      validate(forests, ghosts), which must hold;
+  3d. the element queries on phase 3's balanced forests (21,676,544 tets),
+     through `BatchedOps`: every leaf's owner rank against the partition
+     markers is its rank; morton_key(successor(a)) is the next leaf's key
+     in global stored order, 0 for the last leaf of a tree;
+     predecessor(successor(a)) == a; face_neighbor(s, f) is plane f of
+     face_sweep(s); each query's wall time on the host clock; then, outside
+     the counted run, face_neighbor of the largest rank's leaves, every
+     face, against its plain version (face_sweep shares its per-face step);
   3c. the coarse-mesh path at full size: the 48 trees of
      cmesh_brick(3, (2, 2, 2), periodic=(True, True, False)) (176 of 192
      tree faces glued) on SimComm(4): New at level 5 (1,572,864 tets), the
@@ -45,24 +57,29 @@ Phases, in order; any failure exits nonzero:
      faces whose neighbor region holds a leaf more than one level finer are
      counted before and after Balance, split into interior and inter-tree
      faces (at least 10,000 inter-tree ones before, none of either after);
-  3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3
-     and 3c launched them with (the smallest, two between and the largest,
-     per kernel);
+  3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3,
+     3d and 3c launched them with (the smallest, two between and the
+     largest, per kernel); New's "decode" and "successor" methods on
+     16,777,216 tets (d = 3, 8 trees, level 7, 3 ranks): the same forests,
+     and the wall of each;
   4. card vs CPU: the same pipelines at small size (level 1 -> 3) on both
      devices — d = 3 and d = 2 on 8 trees, and over the 48-tree brick, a
      periodic 2 x 2 brick of triangles and the rotated pair, with tree 0's
      faces refined to level 4 (d = 3) or 5 (d = 2) — every forest and ghost
      field and every per-phase byte count identical;
-  5. launch counts: every kernel launched in phase 3 (tree_transform
-     aside: that path has no tree faces) and in phase 3c, no plain version
-     called in either.
+  5. launch counts: every kernel of the pipeline launched in phase 3
+     (tree_transform aside: that path has no tree faces) and in phase 3c,
+     owner_rank (Ghost's owner lookup) among them; owner_rank, successor
+     and face_neighbor launched in phase 3d; no plain version called in
+     any of the three.
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
-line, `launches_phase3` and `launches_phase3c` are each kernel's launches
-on the two paths, and `launches` is those of the first path that runs it:
-phase 3 for the seven kernels of the cmesh-free path (its meaning before
-the coarse mesh came), phase 3c for `tree_transform`.  Without a card,
+line, `launches_phase3`, `launches_phase3c` and `launches_phase3d` are
+each kernel's launches in those phases, and `launches` is those of the
+first of phases 3, 3c and 3d that runs it: phase 3 for the eight kernels
+of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
+`successor` and `face_neighbor`.  Without a card,
 or without the repository beside it, the script exits nonzero and prints no
 result.  It imports nothing of JAX.
 """
@@ -84,6 +101,7 @@ ROOT = Path(__file__).resolve().parent
 N_KERNEL = 1 << 22
 SEED = 12
 EVAL_ROUTE_MANY = "eval_route P=8192"   # phase 2's eval_route past 4096 markers
+OWNER_RANK_MANY = "owner_rank P=8192"   # phase 2's owner_rank past 4096 markers
 # Device memory rate of one H100 SXM at its full 700 W limit (NVIDIA's H100
 # data sheet).  The bound of every kernel here is bytes over this rate.
 MEM_BYTES_PER_S = 3.35e12
@@ -96,6 +114,9 @@ REPLACES = {
     "eval_route": "src/repro/kernels/sfc.py:715",
     "inside_root": "src/repro/kernels/sfc.py:662",
     "tree_transform": "src/repro/kernels/sfc.py:678",
+    "owner_rank": "src/repro/kernels/sfc.py:696",
+    "successor": "src/repro/kernels/sfc.py:739",
+    "face_neighbor": "src/repro/kernels/sfc.py:588",
 }
 SOURCE = "src/repro_torch/kernels/csrc/sfc.cu"
 WIRE_TRIPLE_BYTES = 13
@@ -242,12 +263,20 @@ def transform_connections(d: int, device):
 
 def kernel_cases(d: int, n: int, device) -> dict:
     """{kernel: (inputs, kernel call, plain call)} on n random elements."""
+    from repro_torch.core.keys import span_mask
     from repro_torch.core.tables import MAXLEVEL
     from repro_torch.kernels import ops as kops, ref as kref
 
     L = MAXLEVEL[d]
     key, level = random_inputs(d, n, device)
     anchor, stype = kref.decode(d, key, level)        # valid elements, plain decode
+    # successor's inputs: one element in 8 is element 0 of its level, one in
+    # 8 the level's last element (whose successor wraps to element 0)
+    span1 = span_mask(d, L, level)
+    which = torch.arange(n, device=device) % 8
+    s_key = torch.where(which == 1, 0, torch.where(which == 2, ((1 << (d * L)) - 1) ^ span1,
+                                                   key & ~span1))
+    s_anchor, s_stype = kref.decode(d, s_key, level)
     # half the elements anywhere in the root cube, outside the root simplex
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 10 * d)
@@ -271,6 +300,8 @@ def kernel_cases(d: int, n: int, device) -> dict:
     x_anchor = nb_anchor[face, row].contiguous()
     x_stype, x_dual = nb_stype[face, row].contiguous(), nb_dual[face, row].contiguous()
     del nb_anchor, nb_stype, nb_dual
+    face = face.to(torch.int32)
+    o_tree = tgt[0].contiguous()
     return {
         "morton_key": ((anchor, stype), lambda: kops.morton_key(anchor, stype),
                        lambda: kref.morton_key(anchor, stype)),
@@ -297,6 +328,17 @@ def kernel_cases(d: int, n: int, device) -> dict:
         EVAL_ROUTE_MANY: ((tgt, nkey, level, mt8, mk8),
                           lambda: kops.eval_route(d, tgt, nkey, level, mt8, mk8),
                           lambda: kref.eval_route(d, tgt, nkey, level, mt8, mk8)),
+        "owner_rank": ((o_tree, key, mt, mk), lambda: kops.owner_rank(o_tree, key, mt, mk),
+                       lambda: kref.owner_rank(o_tree, key, mt, mk)),
+        OWNER_RANK_MANY: ((o_tree, key, mt8, mk8),
+                          lambda: kops.owner_rank(o_tree, key, mt8, mk8),
+                          lambda: kref.owner_rank(o_tree, key, mt8, mk8)),
+        "successor": ((s_anchor, level, s_stype),
+                      lambda: kops.successor(s_anchor, level, s_stype),
+                      lambda: kref.successor(s_anchor, level, s_stype)),
+        "face_neighbor": ((c_anchor, level, c_stype, face),
+                          lambda: kops.face_neighbor(c_anchor, level, c_stype, face),
+                          lambda: kref.face_neighbor(c_anchor, level, c_stype, face)),
     }
 
 
@@ -343,13 +385,32 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
             if owners != [0, 2, 3]:
                 raise AssertionError(f"eval_route d={d}: owners {owners}, want [0, 2, 3]")
             cover = f"; owners {owners} (rank 1 empty)"
-        elif name == EVAL_ROUTE_MANY:
-            owners = torch.unique(torch.cat([want[1].flatten(), want[2].flatten()]))
+        elif name == "owner_rank":
+            owners = torch.unique(want[0]).tolist()
+            if owners != [0, 2, 3]:
+                raise AssertionError(f"owner_rank d={d}: owners {owners}, want [0, 2, 3]")
+            cover = f"; owners {owners} (rank 1 empty)"
+        elif name in (EVAL_ROUTE_MANY, OWNER_RANK_MANY):
+            owners = torch.unique(torch.cat([w.flatten() for w in want if w.dtype == torch.int32]))
             empty = many_markers(d, 8192, "cpu")[2]
             if owners.numel() < 1000 or bool((owners == empty).any()):
                 raise AssertionError(f"{name} d={d}: {owners.numel()} owners, rank {empty} "
                                      f"among them: {bool((owners == empty).any())}")
             cover = f"; {owners.numel()} distinct owners of 8192, empty rank {empty} not among them"
+        elif name == "successor":
+            # every eighth input (from the second on) is its level's last element
+            last = torch.arange(n, device=device) % 8 == 2
+            lv = torch.unique(inputs[1][last]).numel()
+            if lv != L + 1 or bool(want[0][last].any()) or bool(want[1][last].any()):
+                raise AssertionError(f"successor d={d}: last elements over {lv} levels, their "
+                                     "successors not all element 0")
+            cover = f"; the last element of each of {lv} levels wraps to element 0"
+        elif name == "face_neighbor":
+            anchor_in, _lvl, b, f = inputs
+            pairs = torch.unique(b * (d + 1) + f).numel()
+            if pairs != nt * (d + 1):
+                raise AssertionError(f"face_neighbor d={d}: {pairs} (type, face) pairs")
+            cover = f"; all {pairs} (type, face) pairs"
         elif name == "tree_transform":
             conn, anchor, lvl, _b, _du, table = inputs
             _t, Ms, cs = transform_connections(d, anchor.device)
@@ -368,13 +429,14 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
         ms = cuda_ms(kernel, reps)
         dev_ms = device_ms(kernel)
         # the plain compare-and-count over 8192 markers takes seconds a call
-        plain_ms = cuda_ms(plain, 1 if name == EVAL_ROUTE_MANY else plain_reps)
+        many = name in (EVAL_ROUTE_MANY, OWNER_RANK_MANY)
+        plain_ms = cuda_ms(plain, 1 if many else plain_reps)
         moved = nbytes(*inputs) + nbytes(*got)
         bound_ms = moved / MEM_BYTES_PER_S * 1e3
         rows.append({"name": name, "d": d, "n": n, "max_abs_err": float(err), "ms": ms,
                      "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bytes": moved})
-        print(f"  {name:11s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms "
+        print(f"  {name:13s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms "
               f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({moved} B, {moved // n} B/element), bound/kernel {bound_ms / ms:.1%} "
               f"(device {bound_ms / dev_ms:.1%}){cover}", flush=True)
@@ -692,9 +754,130 @@ def main_path() -> dict:
     print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
           flush=True)
     facts["peak_bytes"] = peak
-    del fs, gh
+    del gh
     torch.cuda.empty_cache()
-    return facts
+    return facts, fs, comm
+
+
+def element_queries(fs: list, comm) -> dict:
+    """Phase 3d: the paper's element queries on every leaf of the balanced
+    forests `fs`, through `BatchedOps` (kernels on the card): each leaf's
+    owner rank against the partition markers is its rank; the successor of
+    each leaf has the next leaf's key in global stored order (the leaves of
+    a tree tile its curve), and the last leaf of each tree wraps to key 0;
+    predecessor(successor(a)) == a; the single-face neighbor of face f is
+    plane f of the face sweep.  Returns each query's wall time summed over
+    the ranks (host clock, each call ending in a synchronize on the card)."""
+    from repro_torch.core import forest as F
+
+    b, d, dev = fs[0].bops, fs[0].d, fs[0].device
+    walls = dict.fromkeys(("owner_rank", "successor", "predecessor", "face_sweep",
+                           "face_neighbor"), 0.0)
+
+    def timed(name, fn):
+        if dev.type == "cuda":
+            sync()
+        t = time.perf_counter()
+        out = fn()
+        if dev.type == "cuda":
+            sync()
+        walls[name] += time.perf_counter() - t
+        return out
+
+    mt, mk = F.partition_markers(fs, comm)
+    mt_d = torch.from_numpy(mt).to(dev)
+    mk_d = torch.from_numpy(mk.astype(np.int64)).to(dev)
+    next_keys = []
+    for p, f in enumerate(fs):
+        s = f.simplices()
+        own = timed("owner_rank", lambda: b.owner_rank(f.tree, f.keys, mt_d, mk_d))
+        if not bool((own == p).all()):
+            raise AssertionError(f"3d: owner_rank sends {int((own != p).sum())} leaves of "
+                                 f"rank {p} elsewhere")
+        nxt = timed("successor", lambda: b.successor(s))
+        next_keys.append(b.morton_key(nxt))
+        back = timed("predecessor", lambda: b.predecessor(nxt))
+        if not (torch.equal(back.anchor, s.anchor) and torch.equal(back.stype, s.stype)):
+            raise AssertionError(f"3d rank {p}: predecessor(successor(a)) differs from a")
+        sw = timed("face_sweep", lambda: b.face_sweep(s))
+        for face in range(d + 1):
+            nb, dual = timed("face_neighbor", lambda: b.face_neighbor(s, face))
+            if not (torch.equal(nb.anchor, sw.neighbor.anchor[face])
+                    and torch.equal(nb.stype, sw.neighbor.stype[face])
+                    and torch.equal(dual, sw.dual[face])):
+                raise AssertionError(f"3d rank {p}: face_neighbor({face}) differs from plane "
+                                     f"{face} of face_sweep")
+        del own, nxt, back, sw
+    tree = torch.cat([f.tree for f in fs])
+    key = torch.cat([f.keys for f in fs])
+    got = torch.cat(next_keys)
+    last = torch.ones_like(tree, dtype=torch.bool)
+    last[:-1] = tree[1:] != tree[:-1]
+    want = torch.zeros_like(key)
+    want[:-1] = key[1:]
+    want = torch.where(last, 0, want)
+    bad = int((got != want).sum())
+    if bad:
+        raise AssertionError(f"3d: {bad} successors without the next leaf's key")
+    print(f"  {tree.numel():,} leaves on {len(fs)} ranks: owner_rank == rank for every leaf; "
+          f"morton_key(successor(a)) == key of the next leaf, and 0 for the last leaf of "
+          f"each of {int(last.sum())} trees; predecessor(successor(a)) == a; "
+          f"face_neighbor(s, f) == plane f of face_sweep(s), f = 0..{d}", flush=True)
+    print("  wall (s, summed over ranks): " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()),
+          flush=True)
+    return walls
+
+
+def face_neighbor_vs_plain(f, kops, kref) -> None:
+    """Phase 3d's independent check of `face_neighbor`: one rank's leaves,
+    every face, against the plain version (`face_sweep` runs the kernel's
+    own per-face step, so plane f of the sweep cannot catch a fault in
+    it).  Run outside the counted phase-3d run."""
+    fc = torch.empty_like(f.level)
+    for face in range(f.d + 1):
+        fc.fill_(face)
+        got = kops.face_neighbor(f.anchor, f.level, f.stype, fc)
+        want = kref.face_neighbor(f.anchor, f.level, f.stype, fc)
+        if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
+            raise AssertionError(f"3d rank {f.rank}: face_neighbor({face}) differs from "
+                                 "its plain version")
+    print(f"  face_neighbor of rank {f.rank}'s {f.num_local:,} leaves, f = 0..{f.d}, equals "
+          "its plain version", flush=True)
+
+
+def new_uniform_methods(reps: int = 3) -> dict:
+    """Phase 3b: New's two methods at d = 3, 8 trees, level 7 (16,777,216
+    tets) on SimComm(3), whose rank ranges split trees: "decode" (one
+    Algorithm-4.8 decode of each rank's range of a tree) and "successor"
+    (the coarsest aligned subtrees decoded and expanded by the children
+    kernel, head and tail decoded) give the same forests; each method's
+    least wall of `reps`, interleaved, on the host clock ending in a
+    synchronize."""
+    from repro_torch.core import forest as F
+
+    comm, dev = F.SimComm(3), torch.device("cuda")
+    walls = {"decode": float("inf"), "successor": float("inf")}
+    out = {}
+    for _ in range(reps):
+        for method in walls:
+            out.pop(method, None)
+            sync()
+            t = time.perf_counter()
+            out[method] = F.new_uniform(3, 8, 7, comm, method=method, device=dev)
+            sync()
+            walls[method] = min(walls[method], time.perf_counter() - t)
+    for a, b in zip(out["decode"], out["successor"], strict=True):
+        for k in ("anchor", "level", "stype", "tree", "keys"):
+            if not torch.equal(getattr(a, k), getattr(b, k)):
+                raise AssertionError(f"new_uniform: rank {a.rank}'s {k} differs by method")
+    n = sum(f.num_local for f in out["decode"])
+    print(f"  new_uniform of {n:,} tets on 3 ranks, least of {reps}: decode "
+          f"{walls['decode']:.4f} s, successor {walls['successor']:.4f} s "
+          f"(successor / decode {walls['successor'] / walls['decode']:.3f}); same forests",
+          flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return walls
 
 
 def cmesh_path() -> tuple[dict, list, list]:
@@ -868,7 +1051,12 @@ def main() -> int:
 
     print("== 3. main path at full size", flush=True)
     sizes, originals = record_launch_sizes(kops)
-    _facts, launches, plain_calls = counted(kops, kref, main_path)
+    (_facts, fs, comm), launches, plain_calls = counted(kops, kref, main_path)
+    print("== 3d. element queries on phase 3's forests", flush=True)
+    _walls, launches_d, plain_calls_d = counted(kops, kref, lambda: element_queries(fs, comm))
+    face_neighbor_vs_plain(max(fs, key=lambda f: f.num_local), kops, kref)
+    del fs
+    torch.cuda.empty_cache()
     print("== 3c. the coarse-mesh path at full size", flush=True)
     (_facts, unbalanced, balanced), launches_c, plain_calls_c = counted(kops, kref, cmesh_path)
     for name, fn in originals.items():
@@ -876,8 +1064,9 @@ def main() -> int:
     check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
     del unbalanced, balanced
 
-    print(f"== 3b. kernels at the sizes phases 3 and 3c launched (card {smi})", flush=True)
+    print(f"== 3b. kernels at the sizes phases 3, 3c and 3d launched (card {smi})", flush=True)
     time_at_launch_sizes(sizes)
+    new_uniform_methods()
 
     print("== 4. card vs CPU", flush=True)
     card_vs_cpu()
@@ -886,27 +1075,36 @@ def main() -> int:
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
           flush=True)
-    if not all(launches[k] > 0 for k in REPLACES if k != "tree_transform"):
+    print(f"  kernel launches in phase 3d: {launches_d}; plain calls: {plain_calls_d}",
+          flush=True)
+    queries = ("owner_rank", "successor", "face_neighbor")
+    if not all(launches[k] > 0 for k in REPLACES if k not in ("tree_transform", *queries[1:])):
         raise AssertionError(f"a kernel was not launched on the phase-3 path: {launches}")
-    if not all(launches_c[k] > 0 for k in REPLACES):
+    if not all(launches_c[k] > 0 for k in REPLACES if k not in queries[1:]):
         raise AssertionError(f"a kernel was not launched on the phase-3c path: {launches_c}")
-    if any(plain_calls.values()) or any(plain_calls_c.values()):
-        raise AssertionError(f"plain versions ran on a main path: {plain_calls}, {plain_calls_c}")
+    if not all(launches_d[k] > 0 for k in queries):
+        raise AssertionError(f"a query kernel was not launched in phase 3d: {launches_d}")
+    if any(plain_calls.values()) or any(plain_calls_c.values()) or any(plain_calls_d.values()):
+        raise AssertionError(f"plain versions ran on a main path: {plain_calls}, "
+                             f"{plain_calls_c}, {plain_calls_d}")
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows[3] if x["name"] == name)
         r2 = next(x for x in rows[2] if x["name"] == name)
         entry = {
             "name": f"{name}_kernel", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name] or launches_c[name],
+            "replaces": REPLACES[name],
+            "launches": launches[name] or launches_c[name] or launches_d[name],
             "launches_phase3": launches[name], "launches_phase3c": launches_c[name],
+            "launches_phase3d": launches_d[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "d": 3, "n": r["n"],
             "ms_d2": r2["ms"], "device_ms_d2": r2["device_ms"], "bound_ms_d2": r2["bound_ms"]}
-        if name == "eval_route":
+        many = {"eval_route": EVAL_ROUTE_MANY, "owner_rank": OWNER_RANK_MANY}.get(name)
+        if many:
             for dd in (3, 2):
-                m = next(x for x in rows[dd] if x["name"] == EVAL_ROUTE_MANY)
+                m = next(x for x in rows[dd] if x["name"] == many)
                 sfx = "_p8192" if dd == 3 else "_p8192_d2"
                 entry.update({f"ms{sfx}": m["ms"], f"device_ms{sfx}": m["device_ms"],
                               f"plain_ms{sfx}": m["plain_ms"], f"bound_ms{sfx}": m["bound_ms"],

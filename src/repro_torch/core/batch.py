@@ -257,10 +257,59 @@ class BatchedOps:
         anchor, level, stype, iloc = kops.parent(s.anchor, s.level, s.stype)
         return Simplex(anchor, level, stype), iloc
 
+    def local_index(self, s: Simplex) -> torch.Tensor:
+        """TM child index within the parent (paper Table 6): the index
+        output of the `parent` kernel."""
+        _count("local_index")
+        return kops.parent(s.anchor, s.level, s.stype)[3]
+
     def children(self, s: Simplex) -> Simplex:
         """All 2^d children in TM order: batch shape (n, 2^d)."""
         _count("children")
         return Simplex(*kops.children(s.anchor, s.level, s.stype))
+
+    def successor(self, s: Simplex) -> Simplex:
+        """Batch Algorithm 4.10: the next same-level element along the curve
+        (the last element of a level wraps to element 0)."""
+        _count("successor")
+        anchor, stype = kops.successor(s.anchor, s.level, s.stype)
+        return Simplex(anchor, s.level, stype)
+
+    def predecessor(self, s: Simplex) -> Simplex:
+        """The previous same-level element (element 0 wraps to the last):
+        the `morton_key` kernel, the key less one span at the element's
+        level, the `decode` kernel.  The span, 2^63 at d = 3 and level 0,
+        is never formed: key - (span - 1) - 1 stays within int64."""
+        _count("predecessor")
+        span1 = span_mask(self.d, self.ops.L, s.level)
+        key = kops.morton_key(s.anchor, s.stype) & ~span1
+        last = ((1 << (self.d * self.ops.L)) - 1) ^ span1       # the level's last key
+        prev = torch.where(key == 0, last, key - span1 - 1)
+        anchor, stype = kops.decode(self.d, prev, s.level)
+        return Simplex(anchor, s.level, stype)
+
+    def face_neighbor(self, s: Simplex, face):
+        """Algorithm 4.6: (same-level neighbor, dual face) across `face`,
+        one face for all elements or an int32 tensor of one per element.
+        The neighbor may lie outside the root."""
+        _count("face_neighbor")
+        face = torch.as_tensor(face, device=s.device).to(torch.int32).expand(s.level.shape)
+        face = face.contiguous()
+        anchor, stype, dual = kops.face_neighbor(s.anchor, s.level, s.stype, face)
+        return Simplex(anchor, s.level, stype), dual
+
+    def owner_rank(self, tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
+                   marker_key: torch.Tensor) -> torch.Tensor:
+        """The owner rank of each lex (tree, key) (int64 keys) against the
+        P lex-sorted partition markers (`forest.partition_markers` as
+        tensors, int64 keys), all on one device: the rank whose range
+        [marker_r, marker_{r+1}) holds it, rank 0 for keys before the first
+        marker.  (n,) int32 on that device (the JAX package's takes and
+        gives host arrays)."""
+        _count("owner_rank")
+        return kops.owner_rank(tree.to(torch.int32).contiguous(), key.contiguous(),
+                               marker_tree.to(torch.int32).contiguous(),
+                               marker_key.contiguous())
 
     def face_sweep(self, s: Simplex) -> FaceSweep:
         """Fused all-faces sweep: (face_neighbor, is_inside_root,

@@ -27,7 +27,6 @@ class WireFormatError(ResilienceError, ValueError):
 # The later slices of the port, in the order ROADMAP.md queues them.
 SLICES = {
     "hex": 4,              # the hex element class
-    "successor": 5,        # owner_rank, successor, face_neighbor
 }
 
 

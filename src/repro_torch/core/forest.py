@@ -44,11 +44,11 @@ import torch
 from .batch import BatchedOps, SweepHandle, count_dispatch, get_batch_ops, lex_search
 from .cmesh import Cmesh
 from .comm import Comm, CommHandle, LocalComm, SimComm
-from .errors import not_ported
 from .keys import span_exponent, span_mask
 from .ops import ElementOps, get_ops
-from .placement import owner_rank, target_ranks_np
-from .types import ECLASS_SIMPLEX, Simplex, pack_wire, to_numpy, unpack_wire
+from .placement import target_ranks_np
+from .types import (ECLASS_SIMPLEX, Simplex, concat, pack_wire, resolve_device, to_numpy,
+                    unpack_wire)
 
 __all__ = [
     "Forest",
@@ -77,16 +77,6 @@ __all__ = [
     "FACE_INTER_TREE",
     "FACE_DOMAIN_BOUNDARY",
 ]
-
-def resolve_device(device=None) -> torch.device:
-    """`device` as a torch.device; None means the card, and raises if there
-    is none (pass device="cpu" to run on the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
-
 
 # ------------------------------------------------------------------- forest
 @dataclasses.dataclass(eq=False)
@@ -180,13 +170,15 @@ def new_uniform_rank(d: int, num_trees: int, level: int, rank: int, num_ranks: i
                      method: str = "decode", cmesh=None, device=None) -> Forest:
     """One rank's portion of a uniform refinement — communication free: the
     rank's index range of each tree goes through one batched Algorithm-4.8
-    decode (`method="decode"`)."""
+    decode (`method="decode"`), or is built from the coarsest subtrees
+    inside it by child expansion (`method="successor"`,
+    `_range_by_expansion`, kept for parity with the JAX package's option:
+    on the card it is the slower of the two, see PERF.md).  Both give the
+    same elements."""
     if cmesh is not None and (cmesh.d != d or cmesh.num_trees != num_trees):
         raise ValueError(f"cmesh ({cmesh.d}D, {cmesh.num_trees} trees) does not match "
                          f"forest ({d}D, {num_trees} trees)")
-    if method == "successor":
-        raise not_ported('new_uniform(method="successor")', "successor")
-    if method != "decode":
+    if method not in ("decode", "successor"):
         raise ValueError(f"unknown method {method!r}")
     dev = resolve_device(device)
     o = get_ops(d)
@@ -204,11 +196,43 @@ def new_uniform_rank(d: int, num_trees: int, level: int, rank: int, num_ranks: i
     for t in range(g_first // n_per_tree, (g_last - 1) // n_per_tree + 1):
         e_first = max(g_first - t * n_per_tree, 0)
         e_last = min(g_last - t * n_per_tree, n_per_tree)
-        ids = torch.arange(e_first, e_last, dtype=torch.int64, device=dev)
-        lv = torch.full_like(ids, level, dtype=torch.int32)
-        s = bops.decode(ids << (d * (o.L - level)), lv)
-        parts.append((s.anchor, s.level, s.stype, torch.full_like(lv, t)))
+        if method == "decode":
+            s = _decode_range(bops, e_first, e_last, level, dev)
+        else:
+            s = _range_by_expansion(bops, e_first, e_last, level, dev)
+        parts.append((s.anchor, s.level, s.stype, torch.full_like(s.level, t)))
     return f.replace_elements(*(torch.cat(col) for col in zip(*parts)))
+
+
+def _decode_range(bops: BatchedOps, e_first: int, e_last: int, level: int,
+                  device) -> Simplex:
+    """Elements e_first..e_last-1 of a tree's uniform level `level`, by one
+    batched Algorithm-4.8 decode."""
+    ids = torch.arange(e_first, e_last, dtype=torch.int64, device=device)
+    return bops.decode(ids << (bops.d * (bops.ops.L - level)),
+                       torch.full_like(ids, level, dtype=torch.int32))
+
+
+def _range_by_expansion(bops: BatchedOps, e_first: int, e_last: int, level: int,
+                        device) -> Simplex:
+    """The SFC range [e_first, e_last) of a tree's uniform level `level`
+    with O(n) work, the vectorized counterpart of the paper's
+    successor-based New: the subtrees of the coarsest level whose spans
+    tile part of the range are decoded and expanded to `level` child by
+    child; the ragged head and tail are decoded at `level`."""
+    nc = bops.ops.nc
+    for lv in range(level + 1):     # at lv = level, span 1, the whole range
+        span = nc ** (level - lv)
+        lo, hi = -(-e_first // span) * span, e_last // span * span
+        if lo < hi:
+            break
+    mid = _decode_range(bops, lo // span, hi // span, lv, device)
+    for _ in range(lv, level):
+        kids = bops.children(mid)
+        mid = Simplex(kids.anchor.reshape(-1, bops.d), kids.level.reshape(-1),
+                      kids.stype.reshape(-1))
+    return concat([_decode_range(bops, e_first, lo, level, device), mid,
+                   _decode_range(bops, hi, e_last, level, device)])
 
 
 # -------------------------------------------------------------------- adapt
@@ -1085,7 +1109,7 @@ def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool) -> list:
                 # a coarser leaf containing the interval: the interval is
                 # empty globally, and only the owner of its first key answers
                 jj = (starts - 1).clamp(min=0)
-                own = owner_rank(t, k0, mt_d, mk_d)
+                own = bops.owner_rank(t, k0, mt_d, mk_d)
                 pred = ((ends == starts) & (starts > tree_start) & (own == g)
                         & (((k0 - tb.key[jj]) >> span_exponent(d, L, tb.level[jj])) == 0))
                 pi = torch.nonzero(pred).squeeze(1)

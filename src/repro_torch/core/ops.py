@@ -5,13 +5,18 @@ what the New -> Adapt -> Partition path calls:
 
   cube_id       Algorithm 4.2
   parent        Algorithm 4.3
+  child_bey     Algorithm 4.4  (Bey order)
   child_tm      Algorithm 4.5  (TM order; `children_tm` for all 2^d)
   local_index   paper Table 6
-  morton_key    level-padded consecutive index (Algorithm 4.7)
-  decode_key    Algorithm 4.8 from a level-padded key
+  linear_id     Algorithm 4.7  (consecutive index at the element's level)
+  morton_key    level-padded consecutive index
+  from_linear_id / decode_key   Algorithm 4.8
+  successor / predecessor       Algorithm 4.10, wrapping within the level
+  sfc_less      the SFC order across levels
   coordinates   Algorithm 4.1
   face_neighbor Algorithm 4.6
   tree_transform  the coarse-mesh gluing map (cmesh)
+  ancestor_at_level / nearest_common_ancestor
   is_ancestor   Proposition 23
   is_inside_root  Section 4.4
 
@@ -75,6 +80,15 @@ class ElementOps:
             cid = cid | (bits[..., k] << k)
         return cid
 
+    def _per_element(self, x, s: Simplex) -> torch.Tensor:
+        """An int or a tensor of one value per element, as an int32 tensor
+        of the batch shape on the elements' device."""
+        return torch.as_tensor(x, device=s.device).to(torch.int32).expand(s.stype.shape)
+
+    def sibling_tm(self, s: Simplex, iloc) -> Simplex:
+        """The iloc-th TM child of s's parent."""
+        return self.child_tm(self.parent(s), iloc)
+
     def children_tm(self, s: Simplex) -> Simplex:
         """All 2^d children in SFC order: batch shape (..., 2^d)."""
         kids = [self.child_tm(s, i) for i in range(self.nc)]
@@ -93,6 +107,38 @@ class ElementOps:
         the level and run Algorithm 4.8."""
         shift = (self.L - level.to(torch.int64)) * self.d
         return self.from_linear_id(torch.bitwise_right_shift(key, shift), level)
+
+    # ------------------------------------------------------------ linear ids
+    def linear_id(self, s: Simplex) -> torch.Tensor:
+        """Algorithm 4.7: the consecutive index of s at its own level, int64."""
+        shift = (self.L - s.level.to(torch.int64)) * self.d
+        return torch.bitwise_right_shift(self.morton_key(s), shift)
+
+    def _last_id(self, level: torch.Tensor) -> torch.Tensor:
+        """2^(d*level) - 1, the last consecutive index of a level, int64 (at
+        most 2^63 - 1: d*L <= 63)."""
+        e = (self.d * level.to(torch.int64)).clamp(0, 63)
+        return torch.bitwise_right_shift(torch.full_like(e, (1 << 63) - 1), 63 - e)
+
+    def successor(self, s: Simplex) -> Simplex:
+        """The next element of s's level along the curve (batch Algorithm
+        4.10); the last element's successor is element 0, as in the JAX
+        package.  The index is never incremented past 2^63 - 1."""
+        lid, last = self.linear_id(s), self._last_id(s.level)
+        nxt = torch.where(lid == last, 0, torch.minimum(lid, last - 1) + 1)
+        return self.from_linear_id(nxt, s.level)
+
+    def predecessor(self, s: Simplex) -> Simplex:
+        """The previous element of s's level; element 0's is the last."""
+        lid = self.linear_id(s)
+        return self.from_linear_id(torch.where(lid == 0, self._last_id(s.level), lid - 1),
+                                   s.level)
+
+    def sfc_less(self, a: Simplex, b: Simplex) -> torch.Tensor:
+        """Strict SFC order across mixed levels: ancestors precede
+        descendants (Theorem 16 (i))."""
+        ka, kb = self.morton_key(a), self.morton_key(b)
+        return (ka < kb) | ((ka == kb) & (a.level < b.level))
 
 
 class SimplexOps(ElementOps):
@@ -145,10 +191,20 @@ class SimplexOps(ElementOps):
         anchor = s.anchor & ~h[..., None]
         return Simplex(anchor, s.level - 1, self._lookup("parent_type", cid, s.stype))
 
-    def child_tm(self, s: Simplex, iloc: int) -> Simplex:
-        """Algorithm 4.5: the iloc-th child in TM (SFC) order."""
+    def child_bey(self, s: Simplex, i) -> Simplex:
+        """Algorithm 4.4: the i-th child in Bey's order (eq. 2); `i` one
+        index for all elements or a tensor of one per element."""
+        ib = self._per_element(i, s)
         h2 = self.h(s.level) >> 1
-        il = torch.full_like(s.stype, iloc)
+        off = self._tab("child_anchor", s.device)[s.stype.long(), ib.long()].to(torch.int32)
+        return Simplex(s.anchor + h2[..., None] * off, s.level + 1,
+                       self._lookup("child_type", s.stype, ib))
+
+    def child_tm(self, s: Simplex, iloc) -> Simplex:
+        """Algorithm 4.5: the iloc-th child in TM (SFC) order; `iloc` one
+        index for all elements or a tensor of one per element."""
+        h2 = self.h(s.level) >> 1
+        il = self._per_element(iloc, s)
         cid = self._lookup("cube_id_of_local", s.stype, il)
         anchor = s.anchor + h2[..., None] * self._cid_bits(cid)
         return Simplex(anchor, s.level + 1, self._lookup("type_of_local", s.stype, il))
@@ -162,9 +218,8 @@ class SimplexOps(ElementOps):
         """Algorithm 4.6: (same-level neighbor across face f, dual face);
         `f` is one face for all elements or a tensor of one per element.
         The neighbor may lie outside the root simplex (`is_inside_root`)."""
-        dev = s.device
-        fi = torch.as_tensor(f, device=dev).to(s.stype.dtype).expand(s.stype.shape)
-        off = self._tab("neighbor_offset", dev)[s.stype.long(), fi.long()].to(torch.int32)
+        fi = self._per_element(f, s)
+        off = self._tab("neighbor_offset", s.device)[s.stype.long(), fi.long()].to(torch.int32)
         anchor = s.anchor + self.h(s.level)[..., None] * off
         return (Simplex(anchor, s.level, self._lookup("neighbor_type", s.stype, fi)),
                 self._lookup("neighbor_face", s.stype, fi))
@@ -185,6 +240,34 @@ class SimplexOps(ElementOps):
         return Simplex(_wrap_i32(a), s.level, stype.to(torch.int32))
 
     # ------------------------------------------------- ancestors / containment
+    def ancestor_at_level(self, s: Simplex, level) -> Simplex:
+        """The ancestor of s at `level` (<= s.level; one level for all
+        elements or one per element), by the walk from MAXLEVEL: below
+        s.level the anchor bits are zero, so cube-id 0 keeps the type."""
+        level = self._per_element(level, s)
+        b = s.stype
+        out_type = torch.where(level == s.level, s.stype, 0)
+        for i in range(self.L, 0, -1):
+            cid = self.cube_id(s, i)
+            b = torch.where(i > s.level, b, self._lookup("parent_type", cid, b))
+            out_type = torch.where(level == i - 1, b, out_type)
+        mask = ~(self.h(level) - 1)
+        return Simplex(s.anchor & mask[..., None], level, out_type)
+
+    def nearest_common_ancestor(self, a: Simplex, b: Simplex) -> Simplex:
+        """The deepest common ancestor, by the embedding Phi (Prop. 17): the
+        deepest common prefix of the (cube-id, type) chains."""
+        ca, ta = self._type_chain(a)
+        cb, tb = self._type_chain(b)
+        agree = torch.ones(torch.broadcast_shapes(a.level.shape, b.level.shape),
+                           dtype=torch.bool, device=a.device)
+        nca_level = torch.zeros_like(a.level)
+        for i in range(1, self.L + 1):
+            ok = (ca[i] == cb[i]) & (ta[i] == tb[i]) & (i <= a.level) & (i <= b.level)
+            agree = agree & ok
+            nca_level = torch.where(agree, i, nca_level)
+        return self.ancestor_at_level(a, nca_level)
+
     def is_ancestor(self, t: Simplex, n: Simplex) -> torch.Tensor:
         """Proposition 23 (constant time): True where t is an ancestor of n
         (t == n included).  Shapes must broadcast."""
@@ -224,6 +307,18 @@ class SimplexOps(ElementOps):
         return self.is_ancestor(root, s) & (s.level >= 0)
 
     # ------------------------------------------------------------ linear ids
+    def _type_chain(self, s: Simplex):
+        """Cube-ids and types of the ancestors T^i, i = 1..MAXLEVEL (T_0-chain
+        padded below s.level): two lists indexed by level, entry 0 None."""
+        cids = [None] * (self.L + 1)
+        types = [None] * (self.L + 1)
+        b = s.stype
+        for i in range(self.L, 0, -1):
+            cid = self.cube_id(s, i)
+            cids[i], types[i] = cid, b
+            b = torch.where(i > s.level, b, self._lookup("parent_type", cid, b))
+        return cids, types
+
     def morton_key(self, s: Simplex) -> torch.Tensor:
         """Level-padded consecutive index I(s) << d*(MAXLEVEL - level), int64.
 

@@ -50,6 +50,61 @@ class Simplex(NamedTuple):
         return self.anchor.device
 
 
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device; None means the card, and raises if there
+    is none (pass device="cpu" to run on the CPU)."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device available; pass device='cpu' to run on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+def simplex(anchor, level, stype, device=None) -> Simplex:
+    """A `Simplex` from array-likes or tensors, as int32: on `device`, else
+    on the anchor's own device if it is a tensor, else on the card
+    (`resolve_device`).  Level and type are broadcast to the anchor's batch
+    shape as contiguous columns."""
+    if device is None and isinstance(anchor, torch.Tensor):
+        device = anchor.device
+    anchor = torch.as_tensor(anchor, device=resolve_device(device)).to(torch.int32)
+
+    def col(x):
+        x = torch.as_tensor(x, device=anchor.device).to(torch.int32)
+        return x.expand(anchor.shape[:-1]).contiguous()
+
+    return Simplex(anchor, col(level), col(stype))
+
+
+def root(d: int, device=None) -> Simplex:
+    """The root simplex T_d^0 (type 0, level 0, anchor at the origin), on
+    `device` (the card by default, see `resolve_device`)."""
+    dev = resolve_device(device)
+    z = torch.zeros((), dtype=torch.int32, device=dev)
+    return Simplex(torch.zeros(d, dtype=torch.int32, device=dev), z, z.clone())
+
+
+def concat(simplices, dim: int = 0) -> Simplex:
+    """Batches joined along `dim`."""
+    return Simplex(*(torch.cat([getattr(s, k) for s in simplices], dim=dim)
+                     for k in Simplex._fields))
+
+
+def take(s: Simplex, idx) -> Simplex:
+    """The elements `idx` of a batch (an index, slice, mask or index tensor)."""
+    return Simplex(s.anchor[idx], s.level[idx], s.stype[idx])
+
+
+def nbytes_at_rest(s: Simplex, eclass: int = ECLASS_SIMPLEX) -> int:
+    """Storage per paper Remark 20: 4*d + 2 bytes a simplex (coordinates,
+    level and type), so 10 a triangle and 14 a tetrahedron."""
+    if eclass == ECLASS_HEX:
+        raise not_ported("the at-rest size of hex elements", "hex")
+    if eclass != ECLASS_SIMPLEX:
+        raise ValueError(f"unknown element class {eclass!r}")
+    return s.level.numel() * (4 * s.d + 2)
+
+
 def to_numpy(x) -> np.ndarray:
     """Host numpy view of a tensor (copied off the device) or array."""
     if isinstance(x, torch.Tensor):

@@ -2,9 +2,12 @@
 // the forest pipeline.  New -> Adapt -> Partition: encode (morton key),
 // decode, parent (+ local index) and children.  Balance -> Ghost -> validate:
 // the fused face sweep, the routing eval, and the inside-root test; over a
-// coarse mesh, the tree transform of every face crossing.  One thread per
-// element (per element and child for `children`, per element and face for
-// `eval_route`), templated on the dimension D.
+// coarse mesh, the tree transform of every face crossing.  The element
+// queries of paper Section 4: the owner rank of a key against the partition
+// markers (Ghost's owner lookup), the successor (Algorithm 4.10) and the
+// single-face neighbor (Algorithm 4.6).  One thread per element (per element
+// and child for `children`, per element and face for `eval_route`),
+// templated on the dimension D.
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same name
 // computes (src/repro/kernels/sfc.py), bit for bit, but none carries over the
@@ -43,6 +46,10 @@
 //   inside_root anchor + level + type in, 1 B out          21 / 17 B
 //   tree_transform connection + anchor + level + type + dual in,
 //               anchor + type + dual + tree out  52 / 44 B (+ 4W B a connection)
+//   owner_rank  tree + key in, rank out           16 B (+ 12 B a marker)
+//   successor   anchor + level + type in, anchor + type out  36 / 28 B
+//   face_neighbor anchor + level + type + face in,
+//               anchor + type + dual out          44 / 36 B
 // These integer table walks do no floating-point work, and no published
 // integer peak fits them, so the bound has no operations term.
 // What the design does about it: encode and decode keep the whole level
@@ -51,10 +58,12 @@
 // passes whose stores are contiguous across the threads of a warp.  The
 // face sweep reads each element once and writes every face's outputs
 // face-major ((d+1, n) planes), so each store is contiguous across a warp;
-// eval_route reads up to 4096 partition markers into shared memory once per
-// block and scans them from there, and binary searches more of them in
-// global memory; tree_transform reads its connection rows through the
-// read-only cache.
+// eval_route and owner_rank read up to 4096 partition markers into shared
+// memory once per block and scan them from there, and binary search more of
+// them in global memory; tree_transform reads its connection rows through
+// the read-only cache; successor runs the encode and the decode walks of
+// one element back to back in registers, and face_neighbor is one table
+// lookup.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() after the launch.
@@ -69,7 +78,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTab = 64;  // shared copy of a packed table; index mask kTab - 1
 constexpr int kNei = 32;  // shared copy of the face-neighbor table; mask kNei - 1
-constexpr int kSharedMarkers = 4096;  // eval_route scans up to this many from shared memory (48 KB)
+constexpr int kSharedMarkers = 4096;  // owner counts scan up to this many from shared memory (48 KB)
 
 template <int D> struct Dim;
 template <> struct Dim<2> {
@@ -184,23 +193,16 @@ morton_key_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict_
   key[i] = encode_key<D>(c, stype[i], enc);
 }
 
-// Replaces decode_kernel (src/repro/kernels/sfc.py:573, body _decode_body
-// :238): Algorithm 4.8 coarse -> fine.  Digits finer than the element's
-// level are masked to 0 and the type chain is frozen there, as in the TPU
-// kernel, so keys with garbage below the level decode to the same element.
+// Algorithm 4.8 coarse -> fine (_decode_body, sfc.py:238): the anchor xyz
+// and, returned, the type of the level-`lvl` element with level-padded key
+// k64.  Digits finer than the level are masked to 0 and the type chain is
+// frozen there, as in the TPU kernel, so keys with garbage below the level
+// decode to the same element.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level,
-              int32_t* __restrict__ anchor, int32_t* __restrict__ stype, int64_t n) {
+__device__ __forceinline__ int decode_walk(uint64_t k64, int lvl, const unsigned char* dec,
+                                           int (&xyz)[D]) {
   constexpr int L = Dim<D>::L, NC = 1 << D;
-  __shared__ unsigned char dec[kTab];
-  load_table<D, kDec>(dec);
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const uint64_t k64 = static_cast<uint64_t>(key[i]);
-  const int lvl = level[i];
   int b = 0;
-  int xyz[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) xyz[k] = 0;
 #pragma unroll
@@ -213,6 +215,21 @@ decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level
 #pragma unroll
     for (int k = 0; k < D; ++k) xyz[k] |= ((cid >> k) & 1) << (L - lv);
   }
+  return b;
+}
+
+// Replaces decode_kernel (src/repro/kernels/sfc.py:573, body _decode_body
+// :238): Algorithm 4.8, one element a thread.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level,
+              int32_t* __restrict__ anchor, int32_t* __restrict__ stype, int64_t n) {
+  __shared__ unsigned char dec[kTab];
+  load_table<D, kDec>(dec);
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  int xyz[D];
+  const int b = decode_walk<D>(static_cast<uint64_t>(key[i]), level[i], dec, xyz);
 #pragma unroll
   for (int k = 0; k < D; ++k) anchor[i * D + k] = xyz[k];
   stype[i] = b;
@@ -278,6 +295,22 @@ children_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ 
   c_stype[t] = p >> 3;
 }
 
+// One face of Algorithm 4.6 (_neighbor_expr, sfc.py:124): the same-level
+// neighbor across face f of the element with anchor c, cube side h =
+// 2^(L - level) and type b, from the packed neighbor table: its anchor nc,
+// type nb and dual face.  A face or type out of range reads a wrong entry of
+// the 32-entry shared copy, never out of bounds.
+template <int D>
+__device__ __forceinline__ void neighbor_across(const int (&c)[D], int h, int b, int f,
+                                                const unsigned short* nei, int (&nc)[D],
+                                                int& nb, int& dual) {
+  const int p = nei[(b * (D + 1) + f) & (kNei - 1)];
+#pragma unroll
+  for (int k = 0; k < D; ++k) nc[k] = c[k] + (((p >> (6 + 2 * k)) & 3) - 1) * h;
+  nb = p & 7;
+  dual = (p >> 3) & 7;
+}
+
 // Replaces face_sweep_kernel (src/repro/kernels/sfc.py:604, body
 // _face_sweep_body :300 with _neighbor_expr, _inside_expr :139 and
 // _encode_expr :100): for all D+1 faces of each element, the same-level
@@ -307,36 +340,144 @@ face_sweep_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict_
   const int h = 1 << (L - lvl);
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
-    const int p = nei[(b * NF + f) & (kNei - 1)];
-    int nc[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) nc[k] = c[k] + (((p >> (6 + 2 * k)) & 3) - 1) * h;
-    const int nb = p & 7;
+    int nc[D], nb, du;
+    neighbor_across<D>(c, h, b, f, nei, nc, nb, du);
     const int64_t o = f * n + i;
 #pragma unroll
     for (int k = 0; k < D; ++k) nb_anchor[o * D + k] = nc[k];
     nb_stype[o] = nb;
-    dual[o] = (p >> 3) & 7;
+    dual[o] = du;
     inside[o] = inside_root_of<D>(nc, lvl, nb) ? 1 : 0;
     key[o] = encode_key<D>(nc, nb, enc);
   }
+}
+
+// Replaces face_neighbor_kernel (src/repro/kernels/sfc.py:588, body
+// _neighbor_body :279 with _neighbor_expr :124): Algorithm 4.6 across one
+// face per element, face[i] of element i, by the per-face step the face
+// sweep runs, so the two cannot drift.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+face_neighbor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
+                     const int32_t* __restrict__ stype, const int32_t* __restrict__ face,
+                     int32_t* __restrict__ nb_anchor, int32_t* __restrict__ nb_stype,
+                     int32_t* __restrict__ dual, int64_t n) {
+  constexpr int L = Dim<D>::L;
+  __shared__ unsigned short nei[kNei];
+  load_neighbor_table<D>(nei);
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  int c[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
+  int nc[D], nb, du;
+  neighbor_across<D>(c, 1 << (L - level[i]), stype[i], face[i], nei, nc, nb, du);
+#pragma unroll
+  for (int k = 0; k < D; ++k) nb_anchor[i * D + k] = nc[k];
+  nb_stype[i] = nb;
+  dual[i] = du;
+}
+
+// The owner count of _owner_count_expr (sfc.py:504), which the TPU's
+// owner_rank and eval_route kernels share and so do these: the owner rank of
+// a lex (tree, key) is the number of the P lex-sorted partition markers
+// lex-<= it, less one, clamped to 0 (keys before the first marker go to rank
+// 0; an empty rank repeats the next rank's marker and owns nothing).  Two
+// variants, chosen by P at launch: up to kSharedMarkers the markers are
+// copied into shared memory once per block and scanned there (a binary
+// search pays only for large P); beyond it they stay in global memory, read
+// through the read-only cache, and each query runs an upper-bound lex binary
+// search.
+struct Markers {
+  const int32_t* tree;
+  const int64_t* key;
+  int n;
+};
+
+// The block's view of the markers: with Shared, a copy in dynamic shared
+// memory (P * 12 bytes; every thread of the block must reach this, it ends
+// in __syncthreads); else the global arrays themselves.
+template <bool Shared>
+__device__ __forceinline__ Markers stage_markers(const int32_t* __restrict__ mt,
+                                                 const int64_t* __restrict__ mk, int p) {
+  if constexpr (Shared) {
+    extern __shared__ int64_t marker_smem[];
+    int32_t* st = reinterpret_cast<int32_t*>(marker_smem + p);
+    for (int m = threadIdx.x; m < p; m += blockDim.x) {
+      marker_smem[m] = mk[m];
+      st[m] = mt[m];
+    }
+    __syncthreads();
+    return {st, marker_smem, p};
+  } else {
+    return {mt, mk, p};
+  }
+}
+
+__device__ __forceinline__ bool marker_le(int tm, int64_t km, int t, int64_t k) {
+  return tm < t || (tm == t && km <= k);
+}
+
+// The owner ranks of N keys k[j] of one tree t (eval_route asks for an
+// interval's two ends at once, so a shared-memory scan reads each marker
+// once for both).
+template <bool Shared, int N>
+__device__ __forceinline__ void owner_ranks(const Markers& m, int t, const int64_t (&k)[N],
+                                            int (&rank)[N]) {
+  int c[N];
+  if constexpr (Shared) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) c[j] = 0;
+    for (int i = 0; i < m.n; ++i) {
+      const int tm = m.tree[i];
+      const int64_t km = m.key[i];
+#pragma unroll
+      for (int j = 0; j < N; ++j) c[j] += marker_le(tm, km, t, k[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      int lo = 0, hi = m.n;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (marker_le(__ldg(m.tree + mid), __ldg(m.key + mid), t, k[j])) lo = mid + 1;
+        else hi = mid;
+      }
+      c[j] = lo;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N; ++j) rank[j] = max(c[j] - 1, 0);
+}
+
+// Replaces owner_rank_kernel (src/repro/kernels/sfc.py:696, body
+// _owner_rank_body :491 with _owner_count_expr :504): one (tree, key) a
+// thread.  The TPU kernel pads the markers to a power of two with sentinels
+// and unrolls the scan over them at compile time; here P is a launch
+// argument and the loop runs over exactly P markers.
+template <bool Shared>
+__global__ void __launch_bounds__(kThreads)
+owner_rank_kernel(const int32_t* __restrict__ tree, const int64_t* __restrict__ key,
+                  const int32_t* __restrict__ marker_tree,
+                  const int64_t* __restrict__ marker_key, int num_markers,
+                  int32_t* __restrict__ rank, int64_t n) {
+  const Markers m = stage_markers<Shared>(marker_tree, marker_key, num_markers);
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  const int64_t k[1] = {key[i]};
+  int r[1];
+  owner_ranks<Shared, 1>(m, tree[i], k, r);
+  rank[i] = r[0];
 }
 
 // Replaces eval_route_kernel (src/repro/kernels/sfc.py:715, body
 // _eval_route_body :516 with _owner_count_expr :504): for each (face,
 // element) pair of a face-major (nf, n) sweep, the end key of the
 // neighbor's interval, key | (2^(D(L - lvl)) - 1) (keys are span aligned),
-// and the first and last owner rank of the interval: the number of the P
-// partition markers lex-<= (tree, key) resp. (tree, end key), less one,
-// clamped to 0.  Grid: x over elements, y over faces.  The span exponent is
-// clamped to [0, 63], so the mask never shifts by 64: at d = 3, level 0 it
-// is 2^63 - 1.  Two variants of the owner count, chosen by P at launch:
-// up to kSharedMarkers the markers are copied into shared memory once per
-// block and scanned there (a binary search pays only for large P); beyond
-// it they stay in global memory, read through the read-only cache, and each
-// pair runs two lex binary searches (upper bounds), one per interval end.
-// The markers are lex-sorted (the forest checks it), so the upper bound is
-// the count of markers lex-<= the key; empty ranks repeat a marker.
+// and the first and last owner rank of the interval, those of (tree, key)
+// and (tree, end key).  Grid: x over elements, y over faces.  The span
+// exponent is clamped to [0, 63], so the mask never shifts by 64: at d = 3,
+// level 0 it is 2^63 - 1.
 template <int D>
 __device__ __forceinline__ int64_t interval_end(int64_t k, int lvl) {
   constexpr int L = Dim<D>::L;
@@ -344,71 +485,60 @@ __device__ __forceinline__ int64_t interval_end(int64_t k, int lvl) {
   return k | static_cast<int64_t>(0x7FFFFFFFFFFFFFFFull >> (63 - sb));
 }
 
-template <int D>
+template <int D, bool Shared>
 __global__ void __launch_bounds__(kThreads)
 eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ key,
                   const int32_t* __restrict__ level, const int32_t* __restrict__ marker_tree,
                   const int64_t* __restrict__ marker_key, int num_markers,
                   int64_t* __restrict__ kend, int32_t* __restrict__ first,
                   int32_t* __restrict__ last, int64_t n) {
-  extern __shared__ int64_t route_smem[];
-  int64_t* mk = route_smem;
-  int32_t* mt = reinterpret_cast<int32_t*>(route_smem + num_markers);
-  for (int m = threadIdx.x; m < num_markers; m += blockDim.x) {
-    mk[m] = marker_key[m];
-    mt[m] = marker_tree[m];
-  }
-  __syncthreads();
+  const Markers m = stage_markers<Shared>(marker_tree, marker_key, num_markers);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   const int64_t o = blockIdx.y * n + i;
-  const int t = tgt[o];
   const int64_t k = key[o];
   const int64_t ke = interval_end<D>(k, level[i]);
-  int c0 = 0, c1 = 0;
-  for (int m = 0; m < num_markers; ++m) {
-    const int tm = mt[m];
-    const int64_t km = mk[m];
-    c0 += tm < t || (tm == t && km <= k);
-    c1 += tm < t || (tm == t && km <= ke);
-  }
+  const int64_t ks[2] = {k, ke};
+  int r[2];
+  owner_ranks<Shared, 2>(m, tgt[o], ks, r);
   kend[o] = ke;
-  first[o] = max(c0 - 1, 0);
-  last[o] = max(c1 - 1, 0);
+  first[o] = r[0];
+  last[o] = r[1];
 }
 
-// The number of lex-sorted markers lex-<= (t, k): an upper-bound binary
-// search over the markers in global memory.
-__device__ __forceinline__ int markers_at_or_below(const int32_t* __restrict__ mt,
-                                                   const int64_t* __restrict__ mk, int p,
-                                                   int t, int64_t k) {
-  int lo = 0, hi = p;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const int tm = __ldg(mt + mid);
-    if (tm < t || (tm == t && __ldg(mk + mid) <= k)) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
-}
-
+// Replaces successor_kernel (src/repro/kernels/sfc.py:739, body
+// _successor_body :339): Algorithm 4.10 at the element's own level.  The
+// level-padded key (the encode walk) plus 2^(D(L - lvl)), the span of one
+// element of the level, in uint64 and masked to the D*L key bits, then the
+// decode walk at the same level.  The TPU kernel carries +1 through the
+// level's digits; the sum here carries the same way, and the carry out of
+// the top digit is masked off, so the last element of a level wraps to
+// element 0 and a level-0 element maps to the root, as there.  At d = 3 a
+// level-0 span is 2^63, which the uint64 sum holds and an int64 would not.
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-eval_route_search_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ key,
-                         const int32_t* __restrict__ level,
-                         const int32_t* __restrict__ marker_tree,
-                         const int64_t* __restrict__ marker_key, int num_markers,
-                         int64_t* __restrict__ kend, int32_t* __restrict__ first,
-                         int32_t* __restrict__ last, int64_t n) {
+successor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
+                 const int32_t* __restrict__ stype, int32_t* __restrict__ o_anchor,
+                 int32_t* __restrict__ o_stype, int64_t n) {
+  constexpr int L = Dim<D>::L;
+  constexpr uint64_t kKeyBits = (uint64_t{1} << (D * L)) - 1;
+  __shared__ unsigned char enc[kTab];
+  __shared__ unsigned char dec[kTab];
+  load_table<D, kEnc>(enc);
+  load_table<D, kDec>(dec);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
-  const int64_t o = blockIdx.y * n + i;
-  const int t = tgt[o];
-  const int64_t k = key[o];
-  const int64_t ke = interval_end<D>(k, level[i]);
-  kend[o] = ke;
-  first[o] = max(markers_at_or_below(marker_tree, marker_key, num_markers, t, k) - 1, 0);
-  last[o] = max(markers_at_or_below(marker_tree, marker_key, num_markers, t, ke) - 1, 0);
+  int c[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
+  const int lvl = level[i];
+  const uint64_t span = uint64_t{1} << min(max(D * (L - lvl), 0), 63);
+  const uint64_t next = (static_cast<uint64_t>(encode_key<D>(c, stype[i], enc)) + span) & kKeyBits;
+  int xyz[D];
+  const int b = decode_walk<D>(next, lvl, dec, xyz);
+#pragma unroll
+  for (int k = 0; k < D; ++k) o_anchor[i * D + k] = xyz[k];
+  o_stype[i] = b;
 }
 
 // Replaces inside_root_kernel (src/repro/kernels/sfc.py:662, body
@@ -482,6 +612,10 @@ tree_transform_kernel(const int32_t* __restrict__ conn, const int32_t* __restric
 
 inline unsigned blocks_for(int64_t work) {
   return static_cast<unsigned>((work + kThreads - 1) / kThreads);
+}
+
+inline size_t marker_smem_bytes(int num_markers) {
+  return static_cast<size_t>(num_markers) * (sizeof(int64_t) + sizeof(int32_t));
 }
 
 }  // namespace
@@ -572,7 +706,7 @@ int sfc_eval_route(int d, const void* tgt, const void* key, const void* level,
                    const void* marker_tree, const void* marker_key, int num_markers,
                    void* kend, void* first, void* last, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (num_markers < 1) return cudaErrorInvalidValue;
+  if (num_markers < 1 || (d != 2 && d != 3)) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<const int32_t*>(tgt);
   auto k = static_cast<const int64_t*>(key);
@@ -583,15 +717,66 @@ int sfc_eval_route(int d, const void* tgt, const void* key, const void* level,
   auto f = static_cast<int32_t*>(first);
   auto la = static_cast<int32_t*>(last);
   const dim3 grid(blocks_for(n), d + 1);
-  if (d != 2 && d != 3) return cudaErrorInvalidValue;
+  const size_t shmem = marker_smem_bytes(num_markers);
   if (num_markers > kSharedMarkers) {
-    if (d == 2) eval_route_search_kernel<2><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-    else eval_route_search_kernel<3><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-    return cudaGetLastError();
+    if (d == 2) eval_route_kernel<2, false><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
+    else eval_route_kernel<3, false><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
+  } else {
+    if (d == 2) eval_route_kernel<2, true><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
+    else eval_route_kernel<3, true><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
   }
-  const size_t shmem = static_cast<size_t>(num_markers) * (sizeof(int64_t) + sizeof(int32_t));
-  if (d == 2) eval_route_kernel<2><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-  else eval_route_kernel<3><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
+  return cudaGetLastError();
+}
+
+int sfc_owner_rank(const void* tree, const void* key, const void* marker_tree,
+                   const void* marker_key, int num_markers, void* rank, int64_t n,
+                   void* stream) {
+  if (n <= 0) return cudaSuccess;
+  if (num_markers < 1) return cudaErrorInvalidValue;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto t = static_cast<const int32_t*>(tree);
+  auto k = static_cast<const int64_t*>(key);
+  auto mt = static_cast<const int32_t*>(marker_tree);
+  auto mk = static_cast<const int64_t*>(marker_key);
+  auto r = static_cast<int32_t*>(rank);
+  if (num_markers > kSharedMarkers)
+    owner_rank_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(t, k, mt, mk, num_markers, r, n);
+  else
+    owner_rank_kernel<true><<<blocks_for(n), kThreads, marker_smem_bytes(num_markers), s>>>(
+        t, k, mt, mk, num_markers, r, n);
+  return cudaGetLastError();
+}
+
+int sfc_successor(int d, const void* anchor, const void* level, const void* stype,
+                  void* o_anchor, void* o_stype, int64_t n, void* stream) {
+  if (n <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto a = static_cast<const int32_t*>(anchor);
+  auto l = static_cast<const int32_t*>(level);
+  auto b = static_cast<const int32_t*>(stype);
+  auto oa = static_cast<int32_t*>(o_anchor);
+  auto ob = static_cast<int32_t*>(o_stype);
+  if (d == 2) successor_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, oa, ob, n);
+  else if (d == 3) successor_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, oa, ob, n);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+int sfc_face_neighbor(int d, const void* anchor, const void* level, const void* stype,
+                      const void* face, void* nb_anchor, void* nb_stype, void* dual, int64_t n,
+                      void* stream) {
+  if (n <= 0) return cudaSuccess;
+  auto s = static_cast<cudaStream_t>(stream);
+  auto a = static_cast<const int32_t*>(anchor);
+  auto l = static_cast<const int32_t*>(level);
+  auto b = static_cast<const int32_t*>(stype);
+  auto f = static_cast<const int32_t*>(face);
+  auto na = static_cast<int32_t*>(nb_anchor);
+  auto nb = static_cast<int32_t*>(nb_stype);
+  auto du = static_cast<int32_t*>(dual);
+  if (d == 2) face_neighbor_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, f, na, nb, du, n);
+  else if (d == 3) face_neighbor_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, f, na, nb, du, n);
+  else return cudaErrorInvalidValue;
   return cudaGetLastError();
 }
 

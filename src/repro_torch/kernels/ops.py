@@ -1,7 +1,8 @@
 """Wrappers around the CUDA kernels of `csrc/sfc.cu`: encode, decode,
 parent and children (New -> Adapt -> Partition), the face sweep, routing
-eval and inside-root test (Balance -> Ghost -> validate), and the tree
-transform that carries face neighbors across glued tree faces (cmesh).
+eval and inside-root test (Balance -> Ghost -> validate), the tree
+transform that carries face neighbors across glued tree faces (cmesh), and
+the element queries owner rank, successor and single-face neighbor.
 
 Each wrapper checks dtype, shape and contiguity, then dispatches by device:
 a CPU tensor goes to its plain version in `kernels.ref`; a CUDA tensor goes
@@ -22,11 +23,13 @@ from . import ref
 from .build import library
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
-           "inside_root", "tree_transform", "launch_counts", "reset_launch_counts"]
+           "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
+           "launch_counts", "reset_launch_counts"]
 
 launch_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
                                  "face_sweep": 0, "eval_route": 0, "inside_root": 0,
-                                 "tree_transform": 0}
+                                 "tree_transform": 0, "owner_rank": 0, "successor": 0,
+                                 "face_neighbor": 0}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -40,6 +43,9 @@ _ARGTYPES = {
     "sfc_inside_root": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
     "sfc_tree_transform": [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int,
                            _P, _P, _P, _P, _N, _P],
+    "sfc_owner_rank": [_P, _P, _P, _P, ctypes.c_int, _P, _N, _P],
+    "sfc_successor": [ctypes.c_int, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_face_neighbor": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _N, _P],
 }
 _FNS: dict = {}
 
@@ -88,11 +94,13 @@ def _dim(anchor: torch.Tensor) -> int:
     return anchor.shape[1]
 
 
-def _launch(name: str, kernel: str, d: int, *args) -> None:
-    dev = args[0].device
+def _launch(name: str, kernel: str, *args) -> None:
+    """Call C entry point `kernel` with `args` (tensors as pointers) and the
+    current stream of the tensors' card."""
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     with torch.cuda.device(dev):
-        err = _fn(kernel)(d, *ptrs, torch.cuda.current_stream(dev).cuda_stream)
+        err = _fn(kernel)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError_t {err}")
     launch_counts[name] += 1
@@ -251,4 +259,64 @@ def tree_transform(conn: torch.Tensor, anchor: torch.Tensor, level: torch.Tensor
     if n:
         _launch("tree_transform", "sfc_tree_transform", d, conn, anchor, level, stype, dual,
                 table, table.shape[0], *outs, n)
+    return outs
+
+
+def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
+               marker_key: torch.Tensor) -> torch.Tensor:
+    """The owner rank of each (n,) lex (tree int32, key int64) against P
+    lex-sorted partition markers (tree int32, key int64): the number of
+    markers lex-<= it, less one, clamped to 0; (n,) int32.  On the card,
+    any P >= 1: up to 4096 markers are scanned from shared memory and more
+    are binary searched in global memory, both `owner_rank` launches."""
+    n, P = tree.shape[0], marker_tree.shape[0]
+    _check(tree, "tree", torch.int32, (n,))
+    _check(key, "key", torch.int64, (n,))
+    _check(marker_tree, "marker_tree", torch.int32, (P,))
+    _check(marker_key, "marker_key", torch.int64, (P,))
+    if _on_cpu(tree, key, marker_tree, marker_key):
+        return ref.owner_rank(tree, key, marker_tree, marker_key)
+    if P < 1:
+        raise ValueError(f"need at least 1 partition marker, got {P}")
+    rank = torch.empty(n, dtype=torch.int32, device=key.device)
+    if n:
+        _launch("owner_rank", "sfc_owner_rank", tree, key, marker_tree, marker_key, P,
+                rank, n)
+    return rank
+
+
+def successor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+    """Algorithm 4.10: the next element along the curve at each element's
+    own level, wrapping within the level (the last element's successor is
+    element 0).  Returns (anchor (n, d), type), int32; the level is the
+    input's."""
+    d, n = _dim(anchor), anchor.shape[0]
+    _check(anchor, "anchor", torch.int32, (n, d))
+    _check(level, "level", torch.int32, (n,))
+    _check(stype, "stype", torch.int32, (n,))
+    if _on_cpu(anchor, level, stype):
+        return ref.successor(anchor, level, stype)
+    outs = (torch.empty((n, d), dtype=torch.int32, device=anchor.device),
+            torch.empty(n, dtype=torch.int32, device=anchor.device))
+    if n:
+        _launch("successor", "sfc_successor", d, anchor, level, stype, *outs, n)
+    return outs
+
+
+def face_neighbor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+                  face: torch.Tensor):
+    """Algorithm 4.6 across face[i] of element i (face int32 (n,)): the
+    same-level neighbor's anchor (n, d) and type, and the dual face, all
+    int32.  The neighbor may lie outside the root."""
+    d, n = _dim(anchor), anchor.shape[0]
+    _check(anchor, "anchor", torch.int32, (n, d))
+    _check(level, "level", torch.int32, (n,))
+    _check(stype, "stype", torch.int32, (n,))
+    _check(face, "face", torch.int32, (n,))
+    if _on_cpu(anchor, level, stype, face):
+        return ref.face_neighbor(anchor, level, stype, face)
+    outs = (torch.empty((n, d), dtype=torch.int32, device=anchor.device),
+            *(torch.empty(n, dtype=torch.int32, device=anchor.device) for _ in range(2)))
+    if n:
+        _launch("face_neighbor", "sfc_face_neighbor", d, anchor, level, stype, face, *outs, n)
     return outs

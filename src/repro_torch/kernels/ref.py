@@ -12,16 +12,17 @@ import torch
 
 from ..core.keys import span_mask
 from ..core.ops import get_ops
-from ..core.placement import owner_rank
 from ..core.tables import MAXLEVEL
 from ..core.types import Simplex
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
-           "inside_root", "tree_transform", "call_counts", "reset_call_counts"]
+           "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
+           "call_counts", "reset_call_counts"]
 
 call_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
                                "face_sweep": 0, "eval_route": 0, "inside_root": 0,
-                               "tree_transform": 0}
+                               "tree_transform": 0, "owner_rank": 0, "successor": 0,
+                               "face_neighbor": 0}
 
 
 def reset_call_counts() -> None:
@@ -91,8 +92,57 @@ def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor
     Returns (end key int64, first int32, last int32), each (nf, n)."""
     call_counts["eval_route"] += 1
     kend = key | span_mask(d, MAXLEVEL[d], level)[None, :]
-    return (kend, owner_rank(tgt, key, marker_tree, marker_key),
-            owner_rank(tgt, kend, marker_tree, marker_key))
+    return (kend, _owner_count(tgt, key, marker_tree, marker_key),
+            _owner_count(tgt, kend, marker_tree, marker_key))
+
+
+def _owner_count(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
+                 marker_key: torch.Tensor) -> torch.Tensor:
+    """The marker compare-and-count of the JAX package's `owner_rank_lex`
+    (`repro.core.batch`), shared by `owner_rank` and `eval_route` as the
+    Pallas kernels share `_owner_count_expr`: the number of the P markers
+    lex-<= each (tree, key), less one, clamped to 0.  int32, the shape of
+    `tree`.  The (query, marker) comparison matrix is built a slice of
+    queries at a time, so memory stays bounded at any P."""
+    t, k = tree.reshape(-1, 1), key.reshape(-1, 1)
+    step = max(1, _PAIRS_PER_SLICE // max(marker_tree.shape[0], 1))
+    out = torch.empty(t.shape[0], dtype=torch.int32, device=tree.device)
+    for a in range(0, t.shape[0], step):
+        ts, ks = t[a:a + step], k[a:a + step]
+        le = (marker_tree < ts) | ((marker_tree == ts) & (marker_key <= ks))
+        out[a:a + step] = le.sum(dim=1, dtype=torch.int32)
+    return (out - 1).clamp(min=0).reshape(tree.shape)
+
+
+_PAIRS_PER_SLICE = 1 << 27   # query-marker comparisons held at once
+
+
+def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
+               marker_key: torch.Tensor) -> torch.Tensor:
+    """The rank whose partition range [marker_r, marker_{r+1}) holds each
+    lex (tree, key): the number of the P lex-sorted markers lex-<= it, less
+    one, clamped to 0 (keys before the first marker go to rank 0).  (n,)
+    int32."""
+    call_counts["owner_rank"] += 1
+    return _owner_count(tree, key, marker_tree, marker_key)
+
+
+def successor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+    """Algorithm 4.10 at each element's own level, wrapping within the
+    level (`ElementOps.successor`): (anchor (n, d), type)."""
+    call_counts["successor"] += 1
+    s = get_ops(anchor.shape[-1]).successor(Simplex(anchor, level, stype))
+    return s.anchor, s.stype
+
+
+def face_neighbor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+                  face: torch.Tensor):
+    """Algorithm 4.6 across one face per element, face[i] of element i:
+    the same-level neighbor's (anchor (n, d), type) and the dual face, all
+    int32.  The neighbor may lie outside the root."""
+    call_counts["face_neighbor"] += 1
+    nb, dual = get_ops(anchor.shape[-1]).face_neighbor(Simplex(anchor, level, stype), face)
+    return nb.anchor, nb.stype, dual
 
 
 def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor) -> torch.Tensor:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import cmesh as TC
 from repro_torch.core import forest as TF
+from repro_torch.core.keys import span_mask
 from repro_torch.core.tables import MAXLEVEL
 from repro_torch.kernels import ops as kops, ref as kref
 
@@ -87,11 +88,18 @@ def test_cuda_wrappers_never_fall_back():
     kops.eval_route(3, tgt, nkey, level, mt, mk)
     conn, table = _transform_inputs(3, 64, dev)[:2]
     kops.tree_transform(conn, anchor, level, stype, tgt[0] & 3, table)
+    kops.owner_rank(tgt[0], key, mt, mk)
+    kops.successor(anchor, level, stype)
+    kops.face_neighbor(anchor, level, stype, tgt[0] & 3)
     assert kops.morton_key(anchor[:0], stype[:0]).shape == (0,)
-    assert kops.launch_counts == {k: 1 for k in KERNELS + ["eval_route", "tree_transform"]}
+    assert kops.launch_counts == {k: 1 for k in KERNELS + ["eval_route", "tree_transform",
+                                                           "owner_rank", "successor",
+                                                           "face_neighbor"]}
     assert not any(kref.call_counts.values())
     with pytest.raises(ValueError):
         kops.morton_key(anchor, stype.cpu())
+    with pytest.raises(ValueError, match="at least 1"):    # the kernel needs a marker
+        kops.owner_rank(tgt[0], key, mt[:0], mk[:0])
 
 
 @pytest.mark.cuda
@@ -322,3 +330,111 @@ def test_cuda_multitree_pipeline_matches_cpu(name):
     for a, b in zip(gg, gc, strict=True):
         for k in ("anchor", "level", "stype", "tree", "owner"):
             assert torch.equal(a[k].cpu(), b[k])
+
+
+def _markers(P, trees, d, seed, dev):
+    """P lex-sorted markers over `trees` trees with empty ranks (repeated
+    markers) and a trailing (trees, 0) sentinel."""
+    rng = np.random.default_rng(seed)
+    mt = np.sort(rng.integers(0, trees, P)).astype(np.int32)
+    mk = rng.integers(0, 1 << (d * MAXLEVEL[d]), P, dtype=np.uint64).astype(np.int64)
+    order = np.lexsort((mk, mt))
+    mt, mk = mt[order], mk[order]
+    mt[0], mk[0] = 0, 0
+    mk[2:4], mt[2:4] = mk[1], mt[1]
+    mt[-1], mk[-1] = trees, 0
+    return torch.from_numpy(mt).to(dev), torch.from_numpy(mk).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("P", [4, 4096, 4097, 8192])
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+def test_cuda_owner_rank_matches_plain(d, P, n):
+    """owner_rank equals its plain version on either side of the 4096
+    markers the kernel keeps in shared memory, with empty ranks."""
+    dev = _card()
+    key = _inputs(d, max(n, 2), seed=n + P, dev=dev)[0][:n].contiguous()
+    tree = torch.randint(0, 5, (n,), dtype=torch.int32, device=dev)
+    mt, mk = _markers(P, 4, d, seed=P + d, dev=dev)
+    before = kops.launch_counts["owner_rank"]
+    got, want = kops.owner_rank(tree, key, mt, mk), kref.owner_rank(tree, key, mt, mk)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["owner_rank"] == before + 1
+    if n > 1000:
+        assert torch.unique(want).numel() > min(P - 4, 1000)
+    assert got.device.type == "cuda" and got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+def test_cuda_successor_matches_plain(d, n):
+    """successor equals its plain version at levels 0..L, element 0 and the
+    last element of a level (which wraps to element 0) included."""
+    dev = _card()
+    key, level, _a, _b = _inputs(d, max(n, 2), seed=n + 5 * d, dev=dev)
+    key, level = key[:n], level[:n]
+    span1 = span_mask(d, MAXLEVEL[d], level)
+    pick = torch.arange(n, device=dev) % 3
+    key = torch.where(pick == 1, 0, torch.where(pick == 2, ((1 << (d * MAXLEVEL[d])) - 1) ^ span1,
+                                                key))
+    anchor, stype = kref.decode(d, key, level)
+    before = kops.launch_counts["successor"]
+    got, want = kops.successor(anchor, level, stype), kref.successor(anchor, level, stype)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["successor"] == before + 1
+    last = pick == 2
+    assert not bool(want[0][last].any()) and not bool(want[1][last].any())
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+def test_cuda_face_neighbor_matches_plain(d, n):
+    """face_neighbor equals its plain version on elements anywhere in the
+    root cube, one random face each."""
+    dev = _card()
+    anchor, level, stype = _cube_inputs(d, n, seed=n + 11 * d, dev=dev)
+    face = torch.randint(0, d + 1, (n,), dtype=torch.int32, device=dev)
+    before = kops.launch_counts["face_neighbor"]
+    got = kops.face_neighbor(anchor, level, stype, face)
+    want = kref.face_neighbor(anchor, level, stype, face)
+    torch.cuda.synchronize()
+    assert kops.launch_counts["face_neighbor"] == before + 1
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+def test_cuda_element_queries_match_cpu(d):
+    """The `BatchedOps` queries on a balanced forest's leaves, on the card
+    and on the CPU, are equal; `new_uniform(method="successor")` on the
+    card equals the decode method."""
+    dev = _card()
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        comm = TF.SimComm(3)
+        fs = TF.new_uniform(d, 2, 1, comm, device=device, method="successor")
+        fs = [TF.adapt(f, lambda t, e: ((e.anchor.sum(1) == 0) & (e.level < 5)).int(),
+                       recursive=True) for f in fs]
+        fs = TF.balance(TF.partition(fs, comm), comm)
+        mt, mk = TF.partition_markers(fs, comm)
+        mt, mk = torch.from_numpy(mt).to(device), torch.from_numpy(mk.astype(np.int64)).to(device)
+        out = []
+        for f in fs:
+            b, s = f.bops, f.simplices()
+            nb, dual = b.face_neighbor(s, 1)
+            out += [b.owner_rank(f.tree, f.keys, mt, mk), *b.successor(s), *b.predecessor(s),
+                    b.local_index(s), *nb, dual]
+        outs.append(out)
+    for g, c in zip(*outs, strict=True):
+        assert g.device.type == "cuda" and torch.equal(g.cpu(), c)
+    for method in ("decode", "successor"):
+        f = TF.new_uniform_rank(d, 3, 3, 1, 4, method=method, device=dev)
+        outs.append([f.anchor, f.level, f.stype, f.tree])
+    for a, b in zip(outs[-2], outs[-1], strict=True):
+        assert torch.equal(a, b)

@@ -245,8 +245,6 @@ def test_unported_features_and_bad_input_raise():
     (ROADMAP.md's queue); bad input raises ValueError."""
     with pytest.raises(ValueError, match="does not match"):   # a cmesh of other trees
         TF.new_uniform(3, 1, 1, TF.SimComm(1), cmesh=cmesh_unit_cube(3), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        TF.new_uniform(3, 1, 1, TF.SimComm(1), method="successor", device="cpu")
     with pytest.raises(ValueError):
         TF.new_uniform(3, 1, 1, TF.SimComm(1), method="bogus", device="cpu")
     with pytest.raises(NotImplementedError, match="slice 4"):

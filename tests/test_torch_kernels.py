@@ -149,9 +149,13 @@ def test_cpu_tensors_take_the_plain_version():
     kops.eval_route(3, tgt, tgt.long(), level, tgt[0, :1], tgt[0, :1].long())
     table = torch.from_numpy(pack_connection(3, np.eye(3), np.zeros(3), np.arange(6)))[None]
     kops.tree_transform(tgt[0], anchor, level, stype, tgt[1], table)
+    kops.owner_rank(tgt[0], key, tgt[0, :0], key[:0])          # P = 0: every key to rank 0
+    kops.successor(anchor, level, stype)
+    kops.face_neighbor(anchor, level, stype, tgt[0])
     assert kref.call_counts == {"morton_key": 2, "decode": 1, "parent": 1, "children": 1,
                                 "face_sweep": 1, "eval_route": 1, "inside_root": 1,
-                                "tree_transform": 1}
+                                "tree_transform": 1, "owner_rank": 1, "successor": 1,
+                                "face_neighbor": 1}
     assert not any(kops.launch_counts.values())
 
 
