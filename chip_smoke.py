@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
 Partition -> Balance -> Ghost -> validate path at full size on the card,
-without and with a coarse mesh, asks the paper's element queries of every
-leaf, and checks the card against the CPU.  Phases, in the order they run;
-any failure exits nonzero:
+without and with a coarse mesh of simplex trees and over a brick of hex
+trees, asks the paper's element queries of every leaf, and checks the card
+against the CPU.  Phases, in the order they run; any failure exits
+nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
      versions, the kernels' build from an empty build directory;
@@ -28,6 +29,15 @@ any failure exits nonzero:
      around launches queued behind a spinning kernel (no host time), and
      the byte bound (bytes moved / 3.35 TB/s, the H100 SXM's device memory
      rate);
+  2h. the hex bodies of the ten kernels that have one (owner_rank's body
+     is one for both classes) against their plain versions the same way:
+     hexes of every level with h-aligned anchors, half of them anywhere in
+     [-2^L, 2^L)^d, twice the root cube; face_neighbor over all 2d faces;
+     successor of element 0 and of every level's last element; eval_route
+     over nf = 2d face planes at P = 4 with an empty rank and at P = 8192;
+     tree_transform across every glued face of a periodic hex brick and
+     rows with a permuted and reflected axis; no type column counted in
+     the bytes of a body that does not read it;
   3. main path at full size, no coarse mesh: d = 3, 8 trees on SimComm(4)
      (all four ranks on the card): New at level 6 (2,097,152 tets),
      recursive Adapt with the paper's Fig. 12 fractal callback to level 8
@@ -57,6 +67,18 @@ any failure exits nonzero:
      faces whose neighbor region holds a leaf more than one level finer are
      counted before and after Balance, split into interior and inter-tree
      faces (at least 10,000 inter-tree ones before, none of either after);
+  3h. the hex path at full size: the 8 hex trees of
+     cmesh_hex_brick(3, (2, 2, 2), periodic=(True, True, False)) (40 of 48
+     tree faces glued) on SimComm(4): New at level 6 (2,097,152 hexes), the
+     parity fractal to level 8 (a hex refines where its cube id at its own
+     level has an even number of set bits; 38,797,312), coarsening trees
+     4-7 (24,117,248), Partition (13,369,344 hexes migrating), the weighted
+     repartition, tree 0's faces to level 9, Balance (at least 2 refining
+     rounds), Ghost and validate; the counts held to the closed form
+     `parity_fractal_count`, level jumps counted before and after Balance
+     as in phase 3c; then the queries of phase 3d on every balanced leaf
+     over 2d faces, and face_neighbor of the largest rank against its plain
+     version outside the counted run;
   3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3,
      3d and 3c launched them with (the smallest, two between and the
      largest, per kernel); New's "decode" and "successor" methods on
@@ -64,14 +86,20 @@ any failure exits nonzero:
      and the wall of each;
   4. card vs CPU: the same pipelines at small size (level 1 -> 3) on both
      devices — d = 3 and d = 2 on 8 trees, and over the 48-tree brick, a
-     periodic 2 x 2 brick of triangles and the rotated pair, with tree 0's
-     faces refined to level 4 (d = 3) or 5 (d = 2) — every forest and ghost
-     field and every per-phase byte count identical;
+     periodic 2 x 2 brick of triangles, the rotated pair, a periodic 2 x 2
+     hex brick, a 2 x 2 x 1 hex brick, and the hybrid pair (a hex tree
+     beside a Kuhn cube) at d = 2 and 3 on 2 and 3 ranks, with tree 0's
+     faces refined deeper — every forest and ghost field and every
+     per-phase byte count identical;
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
      and face_neighbor launched in phase 3d; no plain version called in
-     any of the three.
+     any of the three; every hex body launched in phase 3h or its queries
+     (`class_launch_counts`), no simplex body and no plain version there;
+     over the hybrid pair, Balance and Ghost launch face_sweep and
+     eval_route per class exactly as the class groups run on their own
+     (one launch per class per eval layer).
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
@@ -79,15 +107,19 @@ line, `launches_phase3`, `launches_phase3c` and `launches_phase3d` are
 each kernel's launches in those phases, and `launches` is those of the
 first of phases 3, 3c and 3d that runs it: phase 3 for the eight kernels
 of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
-`successor` and `face_neighbor`.  Without a card,
-or without the repository beside it, the script exits nonzero and prints no
-result.  It imports nothing of JAX.
+`successor` and `face_neighbor`.  The `hex_*` keys are the hex body's:
+`hex_replaces` the Pallas kernel's hex branch, `hex_launches_phase3h` its
+launches in phase 3h and its queries, and its phase-2h times and bounds at
+d = 3 and (`_d2`) d = 2.  Without a card, or without the repository beside
+it, the script exits nonzero and prints no result.  It imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -118,13 +150,29 @@ REPLACES = {
     "successor": "src/repro/kernels/sfc.py:739",
     "face_neighbor": "src/repro/kernels/sfc.py:588",
 }
+# The hex branch of each Pallas kernel body (eval_route reads nf off its
+# tile; tree_transform and owner_rank have one body for both classes).
+HEX_REPLACES = {
+    "morton_key": "src/repro/kernels/sfc.py:232",
+    "decode": "src/repro/kernels/sfc.py:264",
+    "parent": "src/repro/kernels/sfc.py:421",
+    "children": "src/repro/kernels/sfc.py:450",
+    "face_sweep": "src/repro/kernels/sfc.py:319",
+    "eval_route": "src/repro/kernels/sfc.py:724",
+    "inside_root": "src/repro/kernels/sfc.py:545",
+    "tree_transform": "src/repro/kernels/sfc.py:678",
+    "owner_rank": "src/repro/kernels/sfc.py:696",
+    "successor": "src/repro/kernels/sfc.py:346",
+    "face_neighbor": "src/repro/kernels/sfc.py:289",
+}
+ECLASS_HEX = 1          # the hex element class (repro_torch.core.types)
 SOURCE = "src/repro_torch/kernels/csrc/sfc.cu"
 WIRE_TRIPLE_BYTES = 13
 # Phase 3c: inter-tree faces with a leaf more than one level finer across
 # them before Balance, at least (tree 0's faces at level 9 against leaves
 # of level 5-7 in the trees they are glued to).
 MIN_INTER_TREE_JUMPS = 10_000
-TREE_FACES_LEVEL = 9   # phase 3c: tree 0's faces refined to this level
+TREE_FACES_LEVEL = 9   # phases 3c and 3h: tree 0's faces refined to this level
 
 
 def nvidia_smi_line() -> str:
@@ -342,6 +390,217 @@ def kernel_cases(d: int, n: int, device) -> dict:
     }
 
 
+@functools.lru_cache(maxsize=None)
+def hex_transform_connections(d: int, device):
+    """The hex connections phase 2 crosses: every glued face of a periodic
+    hex brick of 2^d cells, and two synthetic rows made by
+    `pack_connection`: a rotation (an axis permuted and reflected) and a
+    reflection of axis 0.  Returns (packed int32 table (C, W) on `device`,
+    linear parts (C, d, d) and unwrapped translations (C, d), int64)."""
+    from repro_torch.core import cmesh as C
+
+    cm = C.cmesh_hex_brick(d, (2,) * d, periodic=(True,) * d)
+    conn = cm.gluing("cpu").conn
+    Ms, cs, rows = [], [], []
+    for t, f in zip(*np.nonzero(cm.face_tree >= 0)):
+        Ms.append(cm.face_M[t, f])
+        cs.append(cm.face_c[t, f])
+        rows.append(conn[t * cm.nf_max + f].numpy())
+    L = C.MAXLEVEL[d]
+    rot = np.eye(d, dtype=np.int64)
+    rot[:2, :2] = [[0, -1], [1, 0]]
+    flip = np.eye(d, dtype=np.int64)
+    flip[0, 0] = -1
+    for M in (rot, flip):
+        c = np.ones(d, np.int64) << L
+        Ms.append(M)
+        cs.append(c)
+        rows.append(C.pack_connection(d, M, c, np.zeros(math.factorial(d), np.int32),
+                                      C._hex_face_map(d, M), 3, eclass=ECLASS_HEX))
+    return (torch.from_numpy(np.stack(rows)).to(device),
+            torch.from_numpy(np.stack(Ms).astype(np.int64)).to(device),
+            torch.from_numpy(np.stack(cs).astype(np.int64)).to(device))
+
+
+def hex_kernel_cases(d: int, n: int, device) -> dict:
+    """{kernel: (inputs, kernel call, plain call)} of the hex bodies on n
+    random hexes: every level 0..L with h-aligned anchors (a hex decode of
+    keys with every key bit set somewhere), half of them anywhere in the box
+    [-2^L, 2^L)^d, twice the root cube, so that neighbors fall outside the
+    root on every side.  The inputs list only what a hex body reads: no
+    type column."""
+    from repro_torch.core.keys import span_mask
+    from repro_torch.core.tables import MAXLEVEL
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    L, H = MAXLEVEL[d], ECLASS_HEX
+    key, level = random_inputs(d, n, device)
+    anchor, zero = kref.decode(d, key, level, H)
+    span1 = span_mask(d, L, level)
+    which = torch.arange(n, device=device) % 8
+    s_key = torch.where(which == 1, 0, torch.where(which == 2, ((1 << (d * L)) - 1) ^ span1,
+                                                   key & ~span1))
+    s_anchor, _ = kref.decode(d, s_key, level, H)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 20 * d)
+    h = torch.bitwise_left_shift(torch.ones_like(level, dtype=torch.int64), L - level.long())
+    box = torch.randint(-(1 << L), 1 << L, (n, d), generator=gen, device=device)
+    box = torch.div(box, h[:, None], rounding_mode="floor") * h[:, None]
+    odd = (torch.arange(n, device=device) & 1).bool()
+    c_anchor = torch.where(odd[:, None], box.to(torch.int32), anchor).contiguous()
+    nb_anchor, _nb_type, nb_dual, _in, nkey = kref.face_sweep(c_anchor, level, zero, H)
+    tgt = torch.randint(0, 4, nkey.shape, generator=gen, device=device, dtype=torch.int32)
+    mt, mk = route_markers(d, device)
+    mt8, mk8, _empty = many_markers(d, 8192, device)
+    table, _M, _c = hex_transform_connections(d, device)
+    conn = torch.randint(0, table.shape[0], (n,), generator=gen, device=device, dtype=torch.int32)
+    face = torch.randint(0, 2 * d, (n,), generator=gen, device=device)
+    row = torch.arange(n, device=device)
+    x_anchor, x_dual = nb_anchor[face, row].contiguous(), nb_dual[face, row].contiguous()
+    del nb_anchor, nb_dual
+    face = face.to(torch.int32)
+    return {
+        "morton_key": ((anchor,), lambda: kops.morton_key(anchor, zero, H),
+                       lambda: kref.morton_key(anchor, zero, H)),
+        "decode": ((key, level), lambda: kops.decode(d, key, level, H),
+                   lambda: kref.decode(d, key, level, H)),
+        "parent": ((anchor, level), lambda: kops.parent(anchor, level, zero, H),
+                   lambda: kref.parent(anchor, level, zero, H)),
+        "children": ((anchor, level), lambda: kops.children(anchor, level, zero, H),
+                     lambda: kref.children(anchor, level, zero, H)),
+        "face_sweep": ((c_anchor, level), lambda: kops.face_sweep(c_anchor, level, zero, H),
+                       lambda: kref.face_sweep(c_anchor, level, zero, H)),
+        "eval_route": ((tgt, nkey, level, mt, mk),
+                       lambda: kops.eval_route(d, tgt, nkey, level, mt, mk),
+                       lambda: kref.eval_route(d, tgt, nkey, level, mt, mk)),
+        "inside_root": ((c_anchor, level), lambda: kops.inside_root(c_anchor, level, zero, H),
+                        lambda: kref.inside_root(c_anchor, level, zero, H)),
+        "tree_transform": ((conn, x_anchor, level, x_dual, table),
+                           lambda: kops.tree_transform(conn, x_anchor, level, zero, x_dual,
+                                                       table, H),
+                           lambda: kref.tree_transform(conn, x_anchor, level, zero, x_dual,
+                                                       table, H)),
+        EVAL_ROUTE_MANY: ((tgt, nkey, level, mt8, mk8),
+                          lambda: kops.eval_route(d, tgt, nkey, level, mt8, mk8),
+                          lambda: kref.eval_route(d, tgt, nkey, level, mt8, mk8)),
+        "successor": ((s_anchor, level), lambda: kops.successor(s_anchor, level, zero, H),
+                      lambda: kref.successor(s_anchor, level, zero, H)),
+        "face_neighbor": ((c_anchor, level, face),
+                          lambda: kops.face_neighbor(c_anchor, level, zero, face, H),
+                          lambda: kref.face_neighbor(c_anchor, level, zero, face, H)),
+    }
+
+
+def compare_exact(label: str, kernel, plain) -> tuple[tuple, tuple, int]:
+    """(kernel outputs, plain outputs, max |difference|), which must be 0,
+    with shapes and dtypes equal."""
+    got, want = kernel(), plain()
+    sync()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{label}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
+        err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
+    if err:
+        raise AssertionError(f"{label}: kernel differs from plain, max |err| {err}")
+    return got, want, err
+
+
+def timing_row(name: str, d: int, n: int, inputs, got, kernel, plain, err: int, cover: str,
+               reps: int, plain_reps: int, tag: str = "") -> dict:
+    """Kernel time by CUDA events around a loop of calls, its device time,
+    the plain version's time and the byte bound of the inputs it reads and
+    the outputs it writes; printed and returned as a row."""
+    ms = cuda_ms(kernel, reps)
+    dev_ms = device_ms(kernel)
+    # the plain compare-and-count over 8192 markers takes seconds a call
+    many = name in (EVAL_ROUTE_MANY, OWNER_RANK_MANY)
+    plain_ms = cuda_ms(plain, 1 if many else plain_reps)
+    moved = nbytes(*inputs) + nbytes(*got)
+    bound_ms = moved / MEM_BYTES_PER_S * 1e3
+    print(f"  {tag}{name:13s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+          f"({moved} B, {moved // n} B/element), bound/kernel {bound_ms / ms:.1%} "
+          f"(device {bound_ms / dev_ms:.1%}){cover}", flush=True)
+    return {"name": name, "d": d, "n": n, "max_abs_err": float(err), "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": moved}
+
+
+def hex_kernel_vs_plain(d: int, n: int, device, reps: int = 50,
+                        plain_reps: int = 5) -> list[dict]:
+    """Phase 2, hex bodies, for one dimension: each against its plain
+    version on the same tensors, exact; returns one timing row per kernel."""
+    from repro_torch.core.tables import MAXLEVEL
+
+    L = MAXLEVEL[d]
+    cases = hex_kernel_cases(d, n, device)
+    key, level = cases["decode"][0]
+    if torch.unique(level).numel() != L + 1:
+        raise AssertionError(f"hex d={d}: inputs miss a level")
+    unset = [b for b in range(64) if bool(((key >> b) & 1).any()) != (b < d * L)]
+    if unset:
+        raise AssertionError(f"hex d={d}: key bits {unset} not as wanted")
+    rows = []
+    for name, (inputs, kernel, plain) in cases.items():
+        got, want, err = compare_exact(f"hex {name} d={d}", kernel, plain)
+        cover = ""
+        if name in ("face_sweep", "inside_root"):
+            inside = want[3] if name == "face_sweep" else want[0]
+            share = float(inside.float().mean())
+            if not 0 < share < 1:
+                raise AssertionError(f"hex {name} d={d}: inside share {share}")
+            cover = f"; inside share {share:.3f}"
+            if name == "face_sweep":
+                if want[0].shape[0] != 2 * d or bool(want[1].any()):
+                    raise AssertionError(f"hex face_sweep d={d}: {want[0].shape[0]} planes")
+                cover += f"; {2 * d} face planes, types all 0"
+        elif name == "eval_route":
+            owners = torch.unique(torch.cat([want[1].flatten(), want[2].flatten()])).tolist()
+            if owners != [0, 2, 3] or want[0].shape[0] != 2 * d:
+                raise AssertionError(f"hex eval_route d={d}: owners {owners}, "
+                                     f"{want[0].shape[0]} planes")
+            cover = f"; nf = {2 * d} planes, owners {owners} (rank 1 empty)"
+        elif name == EVAL_ROUTE_MANY:
+            owners = torch.unique(torch.cat([w.flatten() for w in want if w.dtype == torch.int32]))
+            empty = many_markers(d, 8192, "cpu")[2]
+            if owners.numel() < 1000 or bool((owners == empty).any()):
+                raise AssertionError(f"hex {name} d={d}: {owners.numel()} owners")
+            cover = f"; nf = {2 * d}, {owners.numel()} distinct owners of 8192, empty rank {empty} not among them"
+        elif name == "successor":
+            last = torch.arange(n, device=device) % 8 == 2
+            lv = torch.unique(inputs[1][last]).numel()
+            if lv != L + 1 or bool(want[0][last].any()):
+                raise AssertionError(f"hex successor d={d}: the last elements do not wrap")
+            cover = f"; the last element of each of {lv} levels wraps to element 0"
+        elif name == "face_neighbor":
+            faces = torch.unique(inputs[2]).numel()
+            if faces != 2 * d or not torch.equal(want[2], inputs[2] ^ 1):
+                raise AssertionError(f"hex face_neighbor d={d}: {faces} faces")
+            cover = f"; all {faces} faces, dual f ^ 1"
+        elif name == "tree_transform":
+            conn, x_anchor, lvl, dual, table = inputs
+            _t, Ms, cs = hex_transform_connections(d, x_anchor.device)
+            M, c = Ms[conn.long()], cs[conn.long()]
+            reflected = int((M.clamp(max=0).sum((1, 2)) < 0).sum())
+            permuted = int((M.diagonal(dim1=1, dim2=2) == 0).any(1).sum())
+            rows_used = torch.unique(conn).numel()
+            duals = torch.unique(dual).numel()
+            del M, c
+            if rows_used != table.shape[0] or duals != 2 * d or not reflected or not permuted:
+                raise AssertionError(f"hex tree_transform d={d}: {rows_used} rows, {duals} "
+                                     f"faces, {reflected} reflected, {permuted} permuted")
+            cover = (f"; {table.shape[0]} connections ({table.shape[0] - 2} glued faces of a "
+                     f"periodic hex brick), all {duals} dual faces, {reflected} crossings "
+                     f"with a reflected axis, {permuted} with a permuted one")
+        rows.append(timing_row(name, d, n, inputs, got, kernel, plain, err, cover, reps,
+                               plain_reps, tag="hex "))
+    del cases
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5) -> list[dict]:
     """Phase 2 for one dimension: every kernel against its plain version on
     the same tensors, exact; returns one timing row per kernel."""
@@ -362,17 +621,7 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
 
     rows = []
     for name, (inputs, kernel, plain) in cases.items():
-        got, want = kernel(), plain()
-        sync()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = 0
-        for g, w in zip(got, want, strict=True):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"{name} d={d}: {g.shape}/{g.dtype} vs {w.shape}/{w.dtype}")
-            err = max(err, int((g.long() - w.long()).abs().max()) if g.numel() else 0)
-        if err:
-            raise AssertionError(f"{name} d={d}: kernel differs from plain, max |err| {err}")
+        got, want, err = compare_exact(f"{name} d={d}", kernel, plain)
         cover = ""
         if name in ("face_sweep", "inside_root"):
             inside = want[3] if name == "face_sweep" else want[0]
@@ -426,20 +675,8 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
                                      f"{reflected} reflected crossings")
             cover = (f"; {table.shape[0]} connections, {reflected} crossings with sigma = -1, "
                      f"{wrapped} anchor words wrapped past 2^31 - 1")
-        ms = cuda_ms(kernel, reps)
-        dev_ms = device_ms(kernel)
-        # the plain compare-and-count over 8192 markers takes seconds a call
-        many = name in (EVAL_ROUTE_MANY, OWNER_RANK_MANY)
-        plain_ms = cuda_ms(plain, 1 if many else plain_reps)
-        moved = nbytes(*inputs) + nbytes(*got)
-        bound_ms = moved / MEM_BYTES_PER_S * 1e3
-        rows.append({"name": name, "d": d, "n": n, "max_abs_err": float(err), "ms": ms,
-                     "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bytes": moved})
-        print(f"  {name:13s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms "
-              f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({moved} B, {moved // n} B/element), bound/kernel {bound_ms / ms:.1%} "
-              f"(device {bound_ms / dev_ms:.1%}){cover}", flush=True)
+        rows.append(timing_row(name, d, n, inputs, got, kernel, plain, err, cover, reps,
+                               plain_reps))
     del cases
     torch.cuda.empty_cache()
     return rows
@@ -523,13 +760,41 @@ def refine_types(d: int) -> tuple:
     return (0, 3) if d == 3 else (0,)
 
 
-def fractal_cb(d: int, max_level: int):
+def parity_fractal_count(d: int, trees: int, k: int, max_level: int) -> int:
+    """Leaves of the hex parity fractal (`fractal_cb` on hex trees):
+    `trees` roots refined uniformly to level k, then every hex whose cube id
+    at its own level has an even number of set bits — 2^(d-1) of the 2^d
+    children of a parent — refined again until `max_level`."""
+    c, leaves = trees << (d * k), 0
+    for _ in range(k, max_level):
+        leaves += c // 2
+        c = (c // 2) << d
+    return leaves + c
+
+
+def eclass_of_batch(cmesh, tree) -> int:
+    """The element class of a batch of one class (Adapt hands each class
+    group to a callback on its own), from its trees."""
+    if cmesh is None or not tree.numel():
+        return 0
+    return int(cmesh.eclass_table(tree.device)[tree[0].long()])
+
+
+def fractal_cb(d: int, max_level: int, cmesh=None):
+    """The refinement rule of the fractal below `max_level`: a simplex of a
+    type in `refine_types`; a hex whose cube id at its own level has an
+    even number of set bits (the parity fractal)."""
     types = refine_types(d)
 
     def cb(tree, e):
-        hit = torch.zeros_like(e.stype, dtype=torch.bool)
-        for b in types:
-            hit |= e.stype == b
+        if eclass_of_batch(cmesh, tree) == ECLASS_HEX:
+            L = {2: 30, 3: 21}[d]
+            bits = torch.bitwise_right_shift(e.anchor, (L - e.level)[:, None]) & 1
+            hit = (bits.sum(1) & 1) == 0
+        else:
+            hit = torch.zeros_like(e.stype, dtype=torch.bool)
+            for b in types:
+                hit |= e.stype == b
         return (hit & (e.level < max_level)).to(torch.int32)
     return cb
 
@@ -570,16 +835,17 @@ def migrated(before: list[int], after: list[int]) -> int:
     return int(ob[-1] - stay)
 
 
-def tree_faces_cb(deep: int):
+def tree_faces_cb(deep: int, cmesh=None):
     """Refine, below level `deep`, every element of tree 0 with a face on
     the tree's root boundary (a face neighbor outside the root, by the
-    port's `face_sweep`): a layer of fine elements along all of tree 0's
-    faces, each glued to another tree or on the domain boundary, against
-    the coarser leaves across them."""
+    port's `face_sweep` of the tree's class): a layer of fine elements along
+    all of tree 0's faces, each glued to another tree or on the domain
+    boundary, against the coarser leaves across them."""
     from repro_torch.core.batch import get_batch_ops
 
     def cb(tree, e):
-        on_face = ~get_batch_ops(e.anchor.shape[1]).face_sweep(e).inside.all(0)
+        b = get_batch_ops(e.anchor.shape[1], eclass_of_batch(cmesh, tree))
+        on_face = ~b.face_sweep(e).inside.all(0)
         return ((tree == 0) & on_face & (e.level < deep)).to(torch.int32)
     return cb
 
@@ -613,9 +879,11 @@ def level_jumps(fs) -> dict:
 
 def tree0_face_tiles(fs) -> tuple[int, list]:
     """(element faces of tree 0's leaves on its root boundary, the levels
-    of those leaves): after the tree-faces Adapt to level `deep`, the d+1
-    root faces are tiled by (d+1) * 2^((d-1) deep) faces of level-`deep`
-    leaves.  A check, run after the path's launch counts are read."""
+    of those leaves): after the tree-faces Adapt to level `deep`, the nf
+    root faces (d + 1 of a simplex, 2d of a hex) are tiled by
+    nf * 2^((d-1) deep) faces of level-`deep` leaves.  A check, run after
+    the path's launch counts are read."""
+    from repro_torch.core.batch import get_batch_ops
     from repro_torch.core.types import Simplex
 
     tiles, levels = 0, set()
@@ -624,7 +892,8 @@ def tree0_face_tiles(fs) -> tuple[int, list]:
         if not sel.numel():
             continue
         s = Simplex(f.anchor[sel], f.level[sel], f.stype[sel])
-        out = ~f.bops.face_sweep(s).inside
+        b = get_batch_ops(f.d, eclass_of_batch(f.cmesh, f.tree[sel]))
+        out = ~b.face_sweep(s).inside
         tiles += int(out.sum())
         levels |= set(torch.unique(s.level[out.any(0)]).tolist())
     return tiles, sorted(levels)
@@ -660,7 +929,7 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
 
     fs = step("new_uniform", F.new_uniform(d, num_trees, level, comm, cmesh=cmesh,
                                            device=device))
-    fs = step("adapt fractal", [F.adapt(f, fractal_cb(d, max_level), recursive=True)
+    fs = step("adapt fractal", [F.adapt(f, fractal_cb(d, max_level, cmesh), recursive=True)
                                 for f in fs])
     fs = step("adapt coarsen", [F.adapt(f, coarsen_upper_half_cb(num_trees, max_level))
                                 for f in fs])
@@ -681,8 +950,8 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
     check_order_and_cover(fs, d, num_trees)
     if tree_faces is not None:
         t = time.perf_counter()
-        fs = step("adapt tree faces", [F.adapt(f, tree_faces_cb(tree_faces), recursive=True)
-                                       for f in fs])
+        fs = step("adapt tree faces", [F.adapt(f, tree_faces_cb(tree_faces, cmesh),
+                                               recursive=True) for f in fs])
         check_order_and_cover(fs, d, num_trees)
     if keep_unbalanced:
         facts["unbalanced"] = fs
@@ -800,7 +1069,7 @@ def element_queries(fs: list, comm) -> dict:
         if not (torch.equal(back.anchor, s.anchor) and torch.equal(back.stype, s.stype)):
             raise AssertionError(f"3d rank {p}: predecessor(successor(a)) differs from a")
         sw = timed("face_sweep", lambda: b.face_sweep(s))
-        for face in range(d + 1):
+        for face in range(b.nf):
             nb, dual = timed("face_neighbor", lambda: b.face_neighbor(s, face))
             if not (torch.equal(nb.anchor, sw.neighbor.anchor[face])
                     and torch.equal(nb.stype, sw.neighbor.stype[face])
@@ -822,7 +1091,7 @@ def element_queries(fs: list, comm) -> dict:
     print(f"  {tree.numel():,} leaves on {len(fs)} ranks: owner_rank == rank for every leaf; "
           f"morton_key(successor(a)) == key of the next leaf, and 0 for the last leaf of "
           f"each of {int(last.sum())} trees; predecessor(successor(a)) == a; "
-          f"face_neighbor(s, f) == plane f of face_sweep(s), f = 0..{d}", flush=True)
+          f"face_neighbor(s, f) == plane f of face_sweep(s), f = 0..{b.nf - 1}", flush=True)
     print("  wall (s, summed over ranks): " + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()),
           flush=True)
     return walls
@@ -834,15 +1103,16 @@ def face_neighbor_vs_plain(f, kops, kref) -> None:
     own per-face step, so plane f of the sweep cannot catch a fault in
     it).  Run outside the counted phase-3d run."""
     fc = torch.empty_like(f.level)
-    for face in range(f.d + 1):
+    ec, nf = f.eclass, f.ops.nf
+    for face in range(nf):
         fc.fill_(face)
-        got = kops.face_neighbor(f.anchor, f.level, f.stype, fc)
-        want = kref.face_neighbor(f.anchor, f.level, f.stype, fc)
+        got = kops.face_neighbor(f.anchor, f.level, f.stype, fc, ec)
+        want = kref.face_neighbor(f.anchor, f.level, f.stype, fc, ec)
         if not all(torch.equal(g, w) for g, w in zip(got, want, strict=True)):
-            raise AssertionError(f"3d rank {f.rank}: face_neighbor({face}) differs from "
+            raise AssertionError(f"rank {f.rank}: face_neighbor({face}) differs from "
                                  "its plain version")
-    print(f"  face_neighbor of rank {f.rank}'s {f.num_local:,} leaves, f = 0..{f.d}, equals "
-          "its plain version", flush=True)
+    print(f"  face_neighbor of rank {f.rank}'s {f.num_local:,} leaves, f = 0..{nf - 1}, "
+          "equals its plain version", flush=True)
 
 
 def new_uniform_methods(reps: int = 3) -> dict:
@@ -939,25 +1209,99 @@ def cmesh_path() -> tuple[dict, list, list]:
     return facts, facts.pop("unbalanced"), fs
 
 
+def hex_path() -> tuple[dict, list, list, object]:
+    """Phase 3h: the hex path at full size on the card: the 8 hex trees of
+    cmesh_hex_brick(3, (2, 2, 2), periodic=(True, True, False)) on
+    SimComm(4), New at level 6, the parity fractal to level 8, trees 4-7
+    coarsened, Partition (more than 5 M hexes migrating), the weighted
+    repartition, tree 0's faces to level 9, Balance, Ghost, validate.
+    Returns (facts, the forests Balance started from, the
+    balanced forests, the communicator) for `check_level_jumps` and the
+    queries, which run after the launch counts are read."""
+    from repro_torch.core.cmesh import cmesh_hex_brick
+
+    cm = cmesh_hex_brick(3, (2, 2, 2), periodic=(True, True, False))
+    glued = int((cm.face_tree >= 0).sum())
+    if cm.num_trees != 8 or glued != 40 or cm.face_tree.size != 48:
+        raise AssertionError(f"hex brick: {cm.num_trees} trees, {glued} of "
+                             f"{cm.face_tree.size} tree faces glued; want 8 and 40 of 48")
+    print(f"  mesh: cmesh_hex_brick(3, (2, 2, 2), periodic=(True, True, False)): "
+          f"{cm.num_trees} hex trees, {glued} of {cm.face_tree.size} tree faces glued, "
+          "the 8 outer z faces domain boundary", flush=True)
+    d, trees, level, max_level, deep, P = 3, 8, 6, 8, TREE_FACES_LEVEL, 4
+    half = trees // 2
+    fine = parity_fractal_count(d, 1, level, max_level)
+    coarse = parity_fractal_count(d, 1, level, max_level - 1)
+    want_rank = [2 * fine] * 2 + [2 * coarse] * 2
+    want = {"new_uniform": trees << (d * level),
+            "adapt fractal": parity_fractal_count(d, trees, level, max_level),
+            "adapt coarsen": half * fine + half * coarse}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fs, gh, comm, facts = run_path(d, trees, level, max_level, P, torch.device("cuda"),
+                                   report=True, cmesh=cm, tree_faces=deep, keep_unbalanced=True)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    for k, v in want.items():
+        if sum(facts["per_rank"][k]) != v:
+            raise AssertionError(f"3h {k}: {sum(facts['per_rank'][k])} hexes, want {v}")
+    if facts["per_rank"]["adapt coarsen"] != want_rank:
+        raise AssertionError(f"3h per-rank counts after coarsening "
+                             f"{facts['per_rank']['adapt coarsen']}, want {want_rank}")
+    moved = migrated(facts["per_rank"]["adapt coarsen"], facts["per_rank"]["partition"])
+    part = comm.counters["partition"]
+    if part["alltoallv_bytes"] != moved * WIRE_TRIPLE_BYTES or moved <= 5_000_000:
+        raise AssertionError(f"3h partition moved {moved} hexes in {part['alltoallv_bytes']} B")
+    if facts["weighted_imbalance_after"] > 1.001:
+        raise AssertionError(f"3h weighted imbalance {facts['weighted_imbalance_after']}")
+    layered, before, after = (sum(facts["per_rank"][k]) for k in
+                              ("adapt coarsen", "adapt tree faces", "balance"))
+    if before <= layered or after <= before or facts["balance_evals"] < 3:
+        raise AssertionError(f"3h: tree faces {layered} -> {before}, balance {before} -> "
+                             f"{after} in {facts['balance_evals']} evaluation rounds; want "
+                             "refinement in at least 2 rounds")
+    if not all(facts["per_rank"]["ghost"]):
+        raise AssertionError(f"3h an empty ghost layer: {facts['per_rank']['ghost']}")
+    print(f"  counts {want['new_uniform']:,} -> {want['adapt fractal']:,} -> "
+          f"{want['adapt coarsen']:,} as the parity fractal's closed form says; per rank "
+          f"before partition {want_rank}; tree 0's faces to level {deep}: {before:,}",
+          flush=True)
+    print(f"  partition migrated {moved:,} hexes ({part['alltoallv_bytes']:,} B of wire "
+          f"triples); load_imbalance {facts['imbalance_before']} -> {facts['imbalance_after']}"
+          f"; weighted {facts['weighted_imbalance_before']} -> "
+          f"{facts['weighted_imbalance_after']}", flush=True)
+    print(f"  balance: {before:,} -> {after:,} hexes, per rank {facts['per_rank']['balance']}, "
+          f"{facts['balance_evals']} evaluation rounds ({facts['balance_evals'] - 1} refining); "
+          f"ghosts per rank {facts['per_rank']['ghost']}; validate(forests, ghosts) True",
+          flush=True)
+    print(f"  bytes_for per phase {facts['bytes']}", flush=True)
+    print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
+          flush=True)
+    facts["peak_bytes"] = peak
+    del gh
+    return facts, facts.pop("unbalanced"), fs, comm
+
+
 def check_level_jumps(unbalanced: list, balanced: list, deep: int) -> None:
-    """Phase 3c's check that Balance refined across tree faces: element
+    """Phase 3c's and 3h's check that Balance refined across tree faces: element
     faces with a leaf more than one level finer in their neighbor region,
     interior and inter-tree, before Balance (at least
     `MIN_INTER_TREE_JUMPS` inter-tree ones, along tree 0's faces) and after
     it (none of either); and that tree 0's root faces were tiled at level
     `deep` before it."""
     d = unbalanced[0].d
+    nf = next(f for f in unbalanced if f.num_local).ops.nf
     tiles, levels = tree0_face_tiles(unbalanced)
-    print(f"  tree 0's {d + 1} root faces: {tiles:,} faces of leaves of levels {levels}",
+    print(f"  tree 0's {nf} root faces: {tiles:,} faces of leaves of levels {levels}",
           flush=True)
-    if tiles != (d + 1) << ((d - 1) * deep) or levels != [deep]:
-        raise AssertionError(f"3c: want tree 0's root faces tiled by "
-                             f"{(d + 1) << ((d - 1) * deep)} faces of level-{deep} leaves")
+    if tiles != nf << ((d - 1) * deep) or levels != [deep]:
+        raise AssertionError(f"want tree 0's root faces tiled by "
+                             f"{nf << ((d - 1) * deep)} faces of level-{deep} leaves")
     jb, ja = level_jumps(unbalanced), level_jumps(balanced)
     print(f"  element faces whose neighbor region holds a leaf more than one level "
           f"finer: before Balance {jb}, after it {ja}", flush=True)
     if jb["inter_tree"] < MIN_INTER_TREE_JUMPS or any(ja.values()):
-        raise AssertionError(f"3c: want at least {MIN_INTER_TREE_JUMPS} inter-tree level "
+        raise AssertionError(f"want at least {MIN_INTER_TREE_JUMPS} inter-tree level "
                              "jumps before Balance and none of either kind after")
     torch.cuda.empty_cache()
 
@@ -998,7 +1342,9 @@ def same_on_card_and_cpu(label: str, d: int, trees: int, P: int, cmesh=None,
 def card_vs_cpu() -> None:
     """Phase 4: the pipeline at small size on both devices, without a
     coarse mesh (d = 3 and 2, 8 trees) and over one (the 48-tree brick of
-    phase 3c, a periodic 2 x 2 brick of 8 triangles, the rotated pair)."""
+    phase 3c, a periodic 2 x 2 brick of 8 triangles, the rotated pair, a
+    periodic 2 x 2 hex brick, a 2 x 2 x 1 hex brick, and the hybrid pair of
+    a hex and a Kuhn cube at d = 2 and 3 on 2 and 3 ranks)."""
     from repro_torch.core import cmesh as C
 
     for d in (3, 2):
@@ -1011,15 +1357,67 @@ def card_vs_cpu() -> None:
                          cmesh=brick2, tree_faces=5)
     same_on_card_and_cpu("d=2 rotated pair", 2, 2, 4, cmesh=C.cmesh_rotated_pair(),
                          tree_faces=5)
+    hex2 = C.cmesh_hex_brick(2, (2, 2), periodic=(True, True))
+    hex3 = C.cmesh_hex_brick(3, (2, 2, 1))
+    same_on_card_and_cpu("d=2 periodic hex brick (4 trees)", 2, hex2.num_trees, 4, cmesh=hex2,
+                         tree_faces=5)
+    same_on_card_and_cpu("d=3 hex brick (4 trees)", 3, hex3.num_trees, 4, cmesh=hex3,
+                         tree_faces=4)
+    for d in (2, 3):
+        pair = C.cmesh_hybrid_pair(d)
+        for P in (2, 3):
+            same_on_card_and_cpu(f"d={d} hybrid pair ({pair.num_trees} trees)", d,
+                                 pair.num_trees, P, cmesh=pair, tree_faces=d + 2)
 
 
-def counted(kops, kref, run) -> tuple[object, dict, dict]:
-    """(run()'s result, its kernel launches, its plain-version calls), every
-    count set to 0 just before the run and read just after it."""
+def counted(kops, kref, run) -> tuple[object, dict, dict, dict]:
+    """(run()'s result, its kernel launches, its plain-version calls, its
+    launches per kernel and element class), every count set to 0 just
+    before the run and read just after it."""
     kops.reset_launch_counts()
     kref.reset_call_counts()
     out = run()
-    return out, dict(kops.launch_counts), dict(kref.call_counts)
+    return (out, dict(kops.launch_counts), dict(kref.call_counts),
+            {k: dict(v) for k, v in kops.class_launch_counts.items()})
+
+
+def hybrid_face_sweeps(kops) -> None:
+    """Phase 5: over the hybrid pair (a hex tree beside a Kuhn cube) on the
+    card, Balance and then Ghost launch `face_sweep` and `eval_route` once
+    per class per eval layer: the mixed run's launches of each class equal
+    those of the class groups run through the one-class functions directly."""
+    from repro_torch.core import cmesh as C, forest as F
+
+    names = ("face_sweep", "eval_route")
+
+    def meter(fn):
+        kops.reset_launch_counts()
+        out = fn()
+        sync()
+        return out, {k: dict(kops.class_launch_counts[k]) for k in names}
+
+    for d in (2, 3):
+        cm = C.cmesh_hybrid_pair(d)
+        comm = F.SimComm(2)
+        fs = F.new_uniform(d, cm.num_trees, 1, comm, cmesh=cm, device=torch.device("cuda"))
+        fs = F.partition([F.adapt(f, fractal_cb(d, 4, cm), recursive=True) for f in fs], comm)
+        bal, mixed_b = meter(lambda: F.balance(fs, comm))
+        _g, mixed_g = meter(lambda: F.ghost(bal, comm))
+        per_b = {k: dict.fromkeys(("simplex", "hex"), 0) for k in names}
+        per_g = {k: dict.fromkeys(("simplex", "hex"), 0) for k in names}
+        for ec in cm.eclasses:
+            _b, c = meter(lambda: F._balance_impl(F._class_subforests(fs, ec), comm, 64, True, ec))
+            _gg, cg = meter(lambda: F._ghost_impl(F._class_subforests(bal, ec), comm, True, ec))
+            for k in names:
+                for cls in per_b[k]:
+                    per_b[k][cls] += c[k][cls]
+                    per_g[k][cls] += cg[k][cls]
+        both = all(v > 0 for k in names for v in mixed_b[k].values())
+        if mixed_b != per_b or mixed_g != per_g or not both:
+            raise AssertionError(f"hybrid d={d}: balance launches {mixed_b} vs per class "
+                                 f"{per_b}; ghost {mixed_g} vs {per_g}")
+        print(f"  hybrid pair d={d}: balance launches {mixed_b}, ghost {mixed_g}: equal to "
+              "the class groups' own runs (one launch per class per eval layer)", flush=True)
 
 
 def main() -> int:
@@ -1049,20 +1447,40 @@ def main() -> int:
           f"card {smi})", flush=True)
     rows = {d: kernel_vs_plain(d, N_KERNEL, torch.device("cuda")) for d in (3, 2)}
 
+    print(f"== 2h. hex kernel vs plain (bound: bytes / {MEM_BYTES_PER_S / 1e12} TB/s; "
+          f"card {smi})", flush=True)
+    hex_rows = {d: hex_kernel_vs_plain(d, N_KERNEL, torch.device("cuda")) for d in (3, 2)}
+
     print("== 3. main path at full size", flush=True)
     sizes, originals = record_launch_sizes(kops)
-    (_facts, fs, comm), launches, plain_calls = counted(kops, kref, main_path)
+    (_facts, fs, comm), launches, plain_calls, _cls = counted(kops, kref, main_path)
     print("== 3d. element queries on phase 3's forests", flush=True)
-    _walls, launches_d, plain_calls_d = counted(kops, kref, lambda: element_queries(fs, comm))
+    _walls, launches_d, plain_calls_d, _cls = counted(kops, kref,
+                                                      lambda: element_queries(fs, comm))
     face_neighbor_vs_plain(max(fs, key=lambda f: f.num_local), kops, kref)
     del fs
     torch.cuda.empty_cache()
     print("== 3c. the coarse-mesh path at full size", flush=True)
-    (_facts, unbalanced, balanced), launches_c, plain_calls_c = counted(kops, kref, cmesh_path)
+    (_facts, unbalanced, balanced), launches_c, plain_calls_c, _cls = counted(kops, kref,
+                                                                              cmesh_path)
     for name, fn in originals.items():
         setattr(kops, name, fn)
     check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
     del unbalanced, balanced
+    torch.cuda.empty_cache()
+
+    print("== 3h. the hex path at full size", flush=True)
+    (_facts, unbalanced, balanced, comm_h), launches_h, plain_calls_h, cls_h = counted(
+        kops, kref, hex_path)
+    check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
+    del unbalanced
+    torch.cuda.empty_cache()
+    print("== 3h. element queries on phase 3h's forests", flush=True)
+    _walls, launches_hq, plain_calls_hq, cls_hq = counted(
+        kops, kref, lambda: element_queries(balanced, comm_h))
+    face_neighbor_vs_plain(max(balanced, key=lambda f: f.num_local), kops, kref)
+    del balanced
+    torch.cuda.empty_cache()
 
     print(f"== 3b. kernels at the sizes phases 3, 3c and 3d launched (card {smi})", flush=True)
     time_at_launch_sizes(sizes)
@@ -1087,6 +1505,20 @@ def main() -> int:
     if any(plain_calls.values()) or any(plain_calls_c.values()) or any(plain_calls_d.values()):
         raise AssertionError(f"plain versions ran on a main path: {plain_calls}, "
                              f"{plain_calls_c}, {plain_calls_d}")
+    hex_of = {k: cls_h[k]["hex"] for k in REPLACES}
+    hex_q = {k: cls_hq[k]["hex"] for k in REPLACES}
+    print(f"  hex-body launches in phase 3h: {hex_of}; in its queries: {hex_q}; plain calls: "
+          f"{plain_calls_h}, {plain_calls_hq}", flush=True)
+    if not all(hex_of[k] > 0 for k in REPLACES if k not in queries[1:]):
+        raise AssertionError(f"a hex body was not launched on the phase-3h path: {hex_of}")
+    if not all(hex_q[k] > 0 for k in queries):
+        raise AssertionError(f"a hex query body was not launched in phase 3h: {hex_q}")
+    if any(v["simplex"] for v in cls_h.values()) or any(v["simplex"] for v in cls_hq.values()):
+        raise AssertionError("a simplex body ran on the hex path")
+    if any(plain_calls_h.values()) or any(plain_calls_hq.values()):
+        raise AssertionError(f"plain versions ran on the hex path: {plain_calls_h}, "
+                             f"{plain_calls_hq}")
+    hybrid_face_sweeps(kops)
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows[3] if x["name"] == name)
@@ -1109,6 +1541,23 @@ def main() -> int:
                 entry.update({f"ms{sfx}": m["ms"], f"device_ms{sfx}": m["device_ms"],
                               f"plain_ms{sfx}": m["plain_ms"], f"bound_ms{sfx}": m["bound_ms"],
                               f"max_abs_err{sfx}": m["max_abs_err"]})
+        entry.update({"hex_replaces": HEX_REPLACES[name],
+                      "hex_launches_phase3h": hex_of[name] + hex_q[name]})
+        h3 = next((x for x in hex_rows[3] if x["name"] == name), None)
+        if h3 is not None:      # owner_rank has one body for both classes
+            h2 = next(x for x in hex_rows[2] if x["name"] == name)
+            entry.update({"hex_max_abs_err": max(h3["max_abs_err"], h2["max_abs_err"]),
+                          "hex_ms": h3["ms"], "hex_device_ms": h3["device_ms"],
+                          "hex_plain_ms": h3["plain_ms"], "hex_bound_ms": h3["bound_ms"],
+                          "hex_ms_d2": h2["ms"], "hex_device_ms_d2": h2["device_ms"],
+                          "hex_plain_ms_d2": h2["plain_ms"], "hex_bound_ms_d2": h2["bound_ms"]})
+        if name == "eval_route":
+            for dd in (3, 2):
+                m = next(x for x in hex_rows[dd] if x["name"] == EVAL_ROUTE_MANY)
+                sfx = "_p8192" if dd == 3 else "_p8192_d2"
+                entry.update({f"hex_ms{sfx}": m["ms"], f"hex_device_ms{sfx}": m["device_ms"],
+                              f"hex_plain_ms{sfx}": m["plain_ms"],
+                              f"hex_bound_ms{sfx}": m["bound_ms"]})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -13,7 +13,9 @@ it (build the JAX `Cmesh` with `Cmesh(**tables)`), and `cmesh_from_reference`
 takes it, or the JAX `Cmesh` itself.
 A ghost layer is a dict of element fields — anchor, level, stype, tree,
 owner — host numpy in the JAX package, tensors here;
-`ghost_from_reference` and `ghost_to_reference` carry it across.
+`ghost_from_reference` and `ghost_to_reference` carry it across.  The
+element class of a forest's leaves is its coarse mesh's (`tree_eclass`,
+hex trees included); a forest without one holds simplices.
 """
 
 from __future__ import annotations
@@ -24,10 +26,9 @@ import numpy as np
 import torch
 
 from .core.cmesh import CMESH_FIELDS, Cmesh
-from .core.errors import not_ported
 from .core.forest import Forest, resolve_device
 from .core.keys import from_u64, to_u64
-from .core.types import ECLASS_SIMPLEX, to_numpy
+from .core.types import ECLASS_HEX, ECLASS_SIMPLEX, to_numpy
 
 __all__ = ["FIELDS", "GHOST_FIELDS", "CMESH_FIELDS", "forest_from_reference",
            "forest_to_reference", "ghost_from_reference", "ghost_to_reference",
@@ -41,12 +42,17 @@ GHOST_FIELDS = ("anchor", "level", "stype", "tree", "owner")
 def forest_from_reference(arrays: dict, device=None) -> Forest:
     """A port `Forest` on `device` (the card by default) from the JAX
     forest's fields, its coarse mesh (`cmesh`, a table dict or the JAX
-    `Cmesh`; absent or None for isolated trees) included.  Forests of
-    another element class than simplices are not ported yet and raise
-    NotImplementedError."""
+    `Cmesh`; absent or None for isolated trees) included.  The leaves'
+    element class is the mesh's; an `eclass` entry, where given (the JAX
+    forest's `eclass` property), must be one of the mesh's classes, so a
+    hex forest needs its coarse mesh (ValueError otherwise)."""
     cm = arrays.get("cmesh")
-    if arrays.get("eclass", ECLASS_SIMPLEX) != ECLASS_SIMPLEX:
-        raise not_ported("a forest of hex trees", "hex")
+    cm = None if cm is None else cmesh_from_reference(cm)
+    ec = arrays.get("eclass")
+    if ec is not None:
+        have = (ECLASS_SIMPLEX,) if cm is None else cm.eclasses
+        if int(ec) not in have:
+            raise ValueError(f"a forest of element class {ec} over a mesh of classes {have}")
     dev = resolve_device(device)
     n = len(arrays["level"])
     d = int(arrays["d"])
@@ -60,8 +66,7 @@ def forest_from_reference(arrays: dict, device=None) -> Forest:
     return Forest(
         d, int(arrays["num_trees"]), int(arrays["rank"]), int(arrays["num_ranks"]),
         col("anchor", (n, d)), col("level", (n,)), col("stype", (n,)), col("tree", (n,)),
-        from_u64(np.asarray(arrays["keys"], np.uint64).reshape(n), dev),
-        None if cm is None else cmesh_from_reference(cm),
+        from_u64(np.asarray(arrays["keys"], np.uint64).reshape(n), dev), cm,
     )
 
 
@@ -83,17 +88,22 @@ def forest_to_reference(f: Forest) -> dict:
 def cmesh_from_reference(cm) -> Cmesh:
     """A port `Cmesh` from the JAX package's coarse mesh: a dict of its
     tables under `CMESH_FIELDS`, or the JAX `Cmesh` itself.  Every table is
-    copied with the reference's dtype; the construction-time proofs do not
-    run again (the tables are the reference's own)."""
+    copied with the reference's dtype; the per-face tables are nf_max wide
+    (2d where the mesh has hex trees, else d + 1).  The construction-time
+    proofs do not run again (the tables are the reference's own)."""
     if not isinstance(cm, dict):
         cm = {k: getattr(cm, k) for k in CMESH_FIELDS}
     d, K = int(cm["d"]), int(cm["num_trees"])
-    want = {"face_tree": ((K, d + 1), np.int32), "face_face": ((K, d + 1), np.int32),
-            "face_M": ((K, d + 1, d, d), np.int32), "face_c": ((K, d + 1, d), np.int64),
-            "face_typemap": ((K, d + 1, math.factorial(d)), np.int32),
-            "face_facemap": ((K, d + 1, math.factorial(d), d + 1), np.int32),
+    ecl = np.asarray(cm["tree_eclass"] if cm.get("tree_eclass") is not None
+                     else np.zeros(K, np.int32))
+    nf, nt = (2 * d if (ecl == ECLASS_HEX).any() else d + 1), math.factorial(d)
+    want = {"face_tree": ((K, nf), np.int32), "face_face": ((K, nf), np.int32),
+            "face_M": ((K, nf, d, d), np.int32), "face_c": ((K, nf, d), np.int64),
+            "face_typemap": ((K, nf, nt), np.int32),
+            "face_facemap": ((K, nf, nt, nf), np.int32),
             "tree_embed_M": ((K, d, d), np.int32), "tree_embed_o": ((K, d), np.int64),
             "tree_eclass": ((K,), np.int32)}
+    cm = dict(cm, tree_eclass=ecl)
     tables = {}
     for name, (shape, dtype) in want.items():
         a = np.asarray(cm[name])

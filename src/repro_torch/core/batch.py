@@ -160,7 +160,8 @@ def lex_lt(t: torch.Tensor, k: torch.Tensor, bt: int, bk: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------- records
 class FaceSweep(NamedTuple):
-    """Result of the fused all-faces sweep, leading axis = face (nf = d+1).
+    """Result of the fused all-faces sweep, leading axis = face (nf = d + 1
+    for simplices, 2d for hexes).
 
     neighbor  same-level neighbor per face: anchor (nf, n, d), level/stype
               (nf, n) — possibly outside the root (check `inside`)
@@ -220,7 +221,9 @@ def _empty_route() -> RoutePairs:
 
 
 class BatchedOps:
-    """Batched element ops over `Simplex` tensors of shape (n,)."""
+    """Batched element ops over `Simplex` tensors of shape (n,), of one
+    element class: every kernel wrapper is given the class, so a hex batch
+    launches the hex bodies."""
 
     def __init__(self, d: int, eclass: int = ECLASS_SIMPLEX):
         self.d = d
@@ -231,7 +234,7 @@ class BatchedOps:
     def morton_key(self, s: Simplex) -> torch.Tensor:
         """Level-padded consecutive index (the mixed-level SFC sort key), int64."""
         _count("morton_key")
-        return kops.morton_key(s.anchor, s.stype)
+        return kops.morton_key(s.anchor, s.stype, self.eclass)
 
     def morton_key_np(self, s: Simplex) -> np.ndarray:
         """Host uint64 keys (the JAX package's forest key format)."""
@@ -241,38 +244,38 @@ class BatchedOps:
         """Algorithm 4.8 from a level-padded key (inverse of `morton_key`)."""
         _count("decode")
         level = level.to(torch.int32)
-        anchor, stype = kops.decode(self.d, key, level)
+        anchor, stype = kops.decode(self.d, key, level, self.eclass)
         return Simplex(anchor, level, stype)
 
     def parent(self, s: Simplex) -> Simplex:
         """Algorithm 4.3."""
         _count("parent")
-        anchor, level, stype, _ = kops.parent(s.anchor, s.level, s.stype)
+        anchor, level, stype, _ = kops.parent(s.anchor, s.level, s.stype, self.eclass)
         return Simplex(anchor, level, stype)
 
     def parent_and_local_index(self, s: Simplex):
         """Algorithm 4.3 + Table 6 in one pass: (parent, TM child index) —
         the pair every family scan needs together."""
         _count("parent_and_local_index")
-        anchor, level, stype, iloc = kops.parent(s.anchor, s.level, s.stype)
+        anchor, level, stype, iloc = kops.parent(s.anchor, s.level, s.stype, self.eclass)
         return Simplex(anchor, level, stype), iloc
 
     def local_index(self, s: Simplex) -> torch.Tensor:
         """TM child index within the parent (paper Table 6): the index
         output of the `parent` kernel."""
         _count("local_index")
-        return kops.parent(s.anchor, s.level, s.stype)[3]
+        return kops.parent(s.anchor, s.level, s.stype, self.eclass)[3]
 
     def children(self, s: Simplex) -> Simplex:
         """All 2^d children in TM order: batch shape (n, 2^d)."""
         _count("children")
-        return Simplex(*kops.children(s.anchor, s.level, s.stype))
+        return Simplex(*kops.children(s.anchor, s.level, s.stype, self.eclass))
 
     def successor(self, s: Simplex) -> Simplex:
         """Batch Algorithm 4.10: the next same-level element along the curve
         (the last element of a level wraps to element 0)."""
         _count("successor")
-        anchor, stype = kops.successor(s.anchor, s.level, s.stype)
+        anchor, stype = kops.successor(s.anchor, s.level, s.stype, self.eclass)
         return Simplex(anchor, s.level, stype)
 
     def predecessor(self, s: Simplex) -> Simplex:
@@ -282,10 +285,10 @@ class BatchedOps:
         is never formed: key - (span - 1) - 1 stays within int64."""
         _count("predecessor")
         span1 = span_mask(self.d, self.ops.L, s.level)
-        key = kops.morton_key(s.anchor, s.stype) & ~span1
+        key = kops.morton_key(s.anchor, s.stype, self.eclass) & ~span1
         last = ((1 << (self.d * self.ops.L)) - 1) ^ span1       # the level's last key
         prev = torch.where(key == 0, last, key - span1 - 1)
-        anchor, stype = kops.decode(self.d, prev, s.level)
+        anchor, stype = kops.decode(self.d, prev, s.level, self.eclass)
         return Simplex(anchor, s.level, stype)
 
     def face_neighbor(self, s: Simplex, face):
@@ -295,7 +298,7 @@ class BatchedOps:
         _count("face_neighbor")
         face = torch.as_tensor(face, device=s.device).to(torch.int32).expand(s.level.shape)
         face = face.contiguous()
-        anchor, stype, dual = kops.face_neighbor(s.anchor, s.level, s.stype, face)
+        anchor, stype, dual = kops.face_neighbor(s.anchor, s.level, s.stype, face, self.eclass)
         return Simplex(anchor, s.level, stype), dual
 
     def owner_rank(self, tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
@@ -309,20 +312,23 @@ class BatchedOps:
         _count("owner_rank")
         return kops.owner_rank(tree.to(torch.int32).contiguous(), key.contiguous(),
                                marker_tree.to(torch.int32).contiguous(),
-                               marker_key.contiguous())
+                               marker_key.contiguous(), self.eclass)
 
     def face_sweep(self, s: Simplex) -> FaceSweep:
         """Fused all-faces sweep: (face_neighbor, is_inside_root,
-        morton_key) for every face in ONE kernel launch, face-major."""
+        morton_key) for every one of the class's nf faces in ONE kernel
+        launch, face-major."""
         _count("face_sweep")
-        anchor, stype, dual, inside, key = kops.face_sweep(s.anchor, s.level, s.stype)
+        anchor, stype, dual, inside, key = kops.face_sweep(s.anchor, s.level, s.stype,
+                                                           self.eclass)
         level = s.level.expand(anchor.shape[0], -1)
         return FaceSweep(Simplex(anchor, level, stype), dual, inside, key)
 
     def is_inside_root(self, s: Simplex) -> torch.Tensor:
-        """Section 4.4 inside-root test (Proposition 23 vs the root simplex)."""
+        """Section 4.4 inside-root test (Proposition 23 vs the root simplex;
+        box containment in the root cube for hexes)."""
         _count("is_inside_root")
-        return kops.inside_root(s.anchor, s.level, s.stype)
+        return kops.inside_root(s.anchor, s.level, s.stype, self.eclass)
 
     def tree_transform(self, s: Simplex, M, c, typemap) -> Simplex:
         """Cross-tree coordinate change under one connection (the
@@ -330,7 +336,7 @@ class BatchedOps:
         reflected-axis correction, type through `typemap`; the translation
         is carried modulo 2^32 (`cmesh.wrap_i32`).  The `tree_transform`
         kernel with a one-row connection table."""
-        table = torch.as_tensor(pack_connection(self.d, M, c, typemap),
+        table = torch.as_tensor(pack_connection(self.d, M, c, typemap, eclass=self.eclass),
                                 device=s.device).reshape(1, -1)
         zero = torch.zeros_like(s.level)
         return self.transform_crossings(zero, s, zero, table)[0]
@@ -339,12 +345,12 @@ class BatchedOps:
                             table: torch.Tensor):
         """ONE `tree_transform` launch for face crossings of any mix of
         connections: element i (a same-level neighbor just outside its root)
-        crosses by row conn[i] of the packed connection table.  Returns (the
-        elements in the neighbor trees' frames, their dual faces there, the
-        neighbor trees)."""
+        crosses by row conn[i] of the packed connection table (rows of this
+        class).  Returns (the elements in the neighbor trees' frames, their
+        dual faces there, the neighbor trees)."""
         _count("tree_transform")
         anchor, stype, dual2, tree = kops.tree_transform(
-            conn.to(torch.int32), s.anchor, s.level, s.stype, dual, table)
+            conn.to(torch.int32), s.anchor, s.level, s.stype, dual, table, self.eclass)
         return Simplex(anchor, s.level, stype), dual2, tree
 
     # -- fused Balance/Ghost eval stage --------------------------------------
@@ -356,7 +362,8 @@ class BatchedOps:
         if n == 0:
             return None
         _count("face_sweep")
-        _anchor, _stype, dual, inside, key = kops.face_sweep(s.anchor, s.level, s.stype)
+        _anchor, _stype, dual, inside, key = kops.face_sweep(s.anchor, s.level, s.stype,
+                                                             self.eclass)
         tgt = tree_ids.to(torch.int32).expand(key.shape[0], -1).contiguous()
         return SweepHandle(n, tgt, key, inside, dual, s.level)
 

@@ -5,9 +5,12 @@ The counterpart of the JAX package's `repro.core.forest`: New (Alg. 5.1) ->
 Adapt (refine / coarsen by callback, optionally recursive) -> Partition
 (weighted SFC repartition with element migration) -> Balance (2:1 across
 faces, the message-based ripple) -> Ghost (the face-ghost layer) ->
-validate (the forest invariants).  A forest is a coarse mesh of K root simplices ("trees"), each
-adaptively refined, with leaves totally ordered by (tree, TM-index) and
-split across P ranks by contiguous SFC ranges.
+validate (the forest invariants).  A forest is a coarse mesh of K roots
+("trees"), each adaptively refined, with leaves totally ordered by (tree,
+SFC index) and split across P ranks by contiguous SFC ranges.  A tree is a
+simplex (the paper's tetrahedral Morton curve) or a hex (quads and
+hexahedra on the plain Morton curve), as its coarse mesh says
+(`Cmesh.tree_eclass`; without one every tree is a simplex).
 
 SPMD style as in the reference: every function computes the view of the
 ranks resident in this process (`comm.local_ranks` — all P under `SimComm`)
@@ -28,9 +31,19 @@ crossing of a layer into the neighbor tree's frame with one
 `tree_transform` launch, and Balance, Ghost and validate read the fixed-up
 layer as they read a cmesh-free one.
 
+Element classes are unions of whole trees, and a face between two classes
+is a domain boundary, so over a mesh of two classes the collective functions
+run the one-class pipeline once per class, in ascending class order on
+every rank, on the rank's leaves of that class (`_class_subforests`), and
+merge the results back into stored (tree, key) order: Adapt per class
+group, Partition with each wire entry tagged with its tree's class and
+decoded by it, Balance and Ghost per class (one fused face sweep per class
+per eval layer), validate's inside-root and key checks per class.  A mesh
+of one class takes the one-class path directly.
+
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
-a card they raise.  Everything else follows the forests' device.  The hex
-element class, `iterate` and the global-table oracles are not ported yet.
+a card they raise.  Everything else follows the forests' device.
+`iterate` and the global-table oracles are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,8 +60,8 @@ from .comm import Comm, CommHandle, LocalComm, SimComm
 from .keys import span_exponent, span_mask
 from .ops import ElementOps, get_ops
 from .placement import target_ranks_np
-from .types import (ECLASS_SIMPLEX, Simplex, concat, pack_wire, resolve_device, to_numpy,
-                    unpack_wire)
+from .types import (ECLASS_SIMPLEX, Simplex, concat, pack_wire, resolve_device, take,
+                    to_numpy, unpack_wire)
 
 __all__ = [
     "Forest",
@@ -106,8 +119,24 @@ class Forest:
         return self.anchor.device
 
     @property
+    def eclasses(self) -> tuple:
+        """Element classes of the coarse mesh (simplices without one)."""
+        return (ECLASS_SIMPLEX,) if self.cmesh is None else self.cmesh.eclasses
+
+    @property
     def eclass(self) -> int:
-        return ECLASS_SIMPLEX
+        """The one element class of this forest's leaves: the mesh's, or
+        over a mesh of two classes that of the trees present here.  A rank
+        holding leaves of both classes has none and raises: group by class
+        first (`_class_groups`)."""
+        ecs = self.eclasses
+        if len(ecs) == 1:
+            return ecs[0]
+        present = torch.unique(self.cmesh.eclass_table(self.device)[self.tree.long()]).tolist()
+        if len(present) > 1:
+            raise ValueError("the forest holds leaves of two element classes; "
+                             "group them by class first")
+        return int(present[0]) if present else ECLASS_SIMPLEX
 
     @property
     def ops(self) -> ElementOps:
@@ -126,13 +155,17 @@ class Forest:
 
     def replace_elements(self, anchor, level, stype, tree) -> "Forest":
         """A new forest of the same ranks holding these elements (in stored
-        order), with their keys computed in one batched encode."""
+        order), with their keys computed in one batched encode per element
+        class present."""
         dev = self.device
         anchor = anchor.to(dev, torch.int32).contiguous()
         level = level.to(dev, torch.int32).contiguous()
         stype = stype.to(dev, torch.int32).contiguous()
         tree = tree.to(dev, torch.int32).contiguous()
-        keys = self.bops.morton_key(Simplex(anchor, level, stype))
+        s = Simplex(anchor, level, stype)
+        keys = torch.empty(level.shape, dtype=torch.int64, device=dev)
+        for ec, sel in _class_groups(self, tree):
+            keys[sel] = get_batch_ops(self.d, ec).morton_key(take(s, sel))
         return dataclasses.replace(
             self, anchor=anchor, level=level, stype=stype, tree=tree, keys=keys)
 
@@ -149,6 +182,71 @@ def _empty(d, num_trees, rank, num_ranks, device, cmesh=None) -> Forest:
 
     return Forest(d, num_trees, rank, num_ranks, z(0, d), z(0), z(0), z(0),
                   z(0, dtype=torch.int64), cmesh)
+
+
+# ---------------------------------------------------------- element classes
+# The element class is a property of a tree (`Cmesh.tree_eclass`); a face
+# between two classes is a domain boundary, so a forest over a mesh of two
+# classes is two independent forests.  The collective functions run the
+# one-class pipeline once per class, in ascending class order (so every rank
+# agrees), and merge the per-rank results back into stored (tree, key)
+# order.  A mesh of one class takes the one-class path directly.
+
+
+def _forest_classes(forests) -> tuple:
+    f = forests[0] if isinstance(forests, (list, tuple)) else forests
+    return f.eclasses
+
+
+def _class_groups(f: Forest, tree: torch.Tensor | None = None) -> list:
+    """[(class, selection)] for the element classes present among elements
+    of trees `tree` (the rank's own leaves by default), ascending: over a
+    mesh of one class one group selecting all of them (`slice(None)`),
+    else a boolean mask a class present."""
+    ecs = _forest_classes(f)
+    if len(ecs) == 1:
+        return [(ecs[0], slice(None))]
+    te = f.cmesh.eclass_table(f.device)[(f.tree if tree is None else tree).long()]
+    return [(ec, m) for ec in ecs if bool((m := te == ec).any())]
+
+
+def _subforest(f: Forest, sel) -> Forest:
+    """The forest restricted to the local elements `sel` (a mask or
+    indices; the same mesh, ranks and tree ids; memoized sweeps and tables
+    do not carry over)."""
+    return dataclasses.replace(f, anchor=f.anchor[sel], level=f.level[sel],
+                               stype=f.stype[sel], tree=f.tree[sel], keys=f.keys[sel])
+
+
+def _class_subforests(forests: list[Forest], ec: int) -> list[Forest]:
+    """Each rank's leaves of class `ec` (a mesh of two classes)."""
+    return [_subforest(f, f.cmesh.eclass_table(f.device)[f.tree.long()] == ec)
+            for f in forests]
+
+
+def _merge_class_groups(base: Forest, parts: list[Forest]) -> Forest:
+    """Per-class forests of one rank joined back into stored (tree, key)
+    order; their keys are already right, so nothing is encoded."""
+    tree = torch.cat([p.tree for p in parts])
+    keys = torch.cat([p.keys for p in parts])
+    by_key = torch.argsort(keys, stable=True)
+    order = by_key[torch.argsort(tree[by_key], stable=True)]
+    return dataclasses.replace(
+        base, anchor=torch.cat([p.anchor for p in parts])[order],
+        level=torch.cat([p.level for p in parts])[order],
+        stype=torch.cat([p.stype for p in parts])[order], tree=tree[order], keys=keys[order])
+
+
+def _layer_eclass(f: Forest, tree_ids: torch.Tensor) -> int:
+    """The element class of a layer of elements, from their trees (one
+    class: the per-class functions see to it)."""
+    ecs = _forest_classes(f)
+    if len(ecs) == 1:
+        return ecs[0]
+    present = torch.unique(f.cmesh.eclass_table(tree_ids.device)[tree_ids.long()]).tolist()
+    if len(present) > 1:
+        raise ValueError("face_sweep_layer needs a layer of one element class")
+    return int(present[0]) if present else ECLASS_SIMPLEX
 
 
 # ---------------------------------------------------------------------- new
@@ -170,11 +268,12 @@ def new_uniform_rank(d: int, num_trees: int, level: int, rank: int, num_ranks: i
                      method: str = "decode", cmesh=None, device=None) -> Forest:
     """One rank's portion of a uniform refinement — communication free: the
     rank's index range of each tree goes through one batched Algorithm-4.8
-    decode (`method="decode"`), or is built from the coarsest subtrees
-    inside it by child expansion (`method="successor"`,
-    `_range_by_expansion`, kept for parity with the JAX package's option:
-    on the card it is the slower of the two, see PERF.md).  Both give the
-    same elements."""
+    decode of the tree's element class (`method="decode"`), or is built
+    from the coarsest subtrees inside it by child expansion
+    (`method="successor"`, `_range_by_expansion`, kept for parity with the
+    JAX package's option: on the card it is the slower of the two, see
+    PERF.md).  Both give the same elements.  Both classes have 2^d
+    children, so the split into ranks does not depend on the class."""
     if cmesh is not None and (cmesh.d != d or cmesh.num_trees != num_trees):
         raise ValueError(f"cmesh ({cmesh.d}D, {cmesh.num_trees} trees) does not match "
                          f"forest ({d}D, {num_trees} trees)")
@@ -191,9 +290,9 @@ def new_uniform_rank(d: int, num_trees: int, level: int, rank: int, num_ranks: i
     f = _empty(d, num_trees, rank, num_ranks, dev, cmesh)
     if g_last <= g_first:
         return f
-    bops = get_batch_ops(d)
     parts = []
     for t in range(g_first // n_per_tree, (g_last - 1) // n_per_tree + 1):
+        bops = get_batch_ops(d, ECLASS_SIMPLEX if cmesh is None else cmesh.eclass_of(t))
         e_first = max(g_first - t * n_per_tree, 0)
         e_last = min(g_last - t * n_per_tree, n_per_tree)
         if method == "decode":
@@ -274,7 +373,19 @@ def adapt(f: Forest, callback: AdaptCallback, recursive: bool = False,
     not coarsened within the same call, and vice versa.  Like the paper's
     Adapt this is process-local: families straddling a partition boundary
     are not coarsened.  With `recursive`, passes repeat on the new elements
-    until nothing changes (at most `max_passes`)."""
+    until nothing changes (at most `max_passes`).  Over a mesh of two
+    classes each class group is adapted on its own (the callback sees each
+    group's trees and elements in turn); a family never spans two classes,
+    which are unions of whole trees."""
+    groups = _class_groups(f)
+    if len(groups) > 1:
+        return _merge_class_groups(f, [_adapt_impl(_subforest(f, m), callback, recursive,
+                                                   max_passes) for _, m in groups])
+    return _adapt_impl(f, callback, recursive, max_passes)
+
+
+def _adapt_impl(f: Forest, callback: AdaptCallback, recursive: bool,
+                max_passes: int) -> Forest:
     o, nc, bops, dev = f.ops, f.ops.nc, f.bops, f.device
     d = f.d
     refined_origin = torch.zeros(f.num_local, dtype=torch.bool, device=dev)
@@ -365,8 +476,9 @@ def repartition(forests: list[Forest], comm: Comm, weights: list | None = None,
     rule, monotone), so each destination's elements form one contiguous run
     of the local SFC order.  Migrating runs ship as the Remark-20 wire
     triples (`types.pack_wire`, 13 bytes/element) over one nonblocking
-    `ialltoallv`; receivers recover (anchor, type) with one batched
-    Algorithm-4.8 decode.  The weight-total allgather flies while the local
+    `ialltoallv`, each entry tagged with its tree's element class;
+    receivers recover (anchor, type) with one batched Algorithm-4.8 decode
+    per class.  The weight-total allgather flies while the local
     prefix sums compute, and the migration while the kept slice is cut;
     `overlap=False` completes each collective at its post site instead
     (same result, same bytes).
@@ -379,6 +491,8 @@ def repartition(forests: list[Forest], comm: Comm, weights: list | None = None,
     """
     P = comm.size
     d = forests[0].d
+    cm = forests[0].cmesh
+    classes = _forest_classes(forests)
     if weights is None:
         weights = [np.ones(f.num_local, np.float64) for f in forests]
     weights = [to_numpy(w).astype(np.float64) for w in weights]
@@ -410,7 +524,9 @@ def repartition(forests: list[Forest], comm: Comm, weights: list | None = None,
             for q in range(P):
                 a, b = int(offs[q]), int(offs[q + 1])
                 if q != g and b > a:
-                    row[q] = pack_wire(f.tree[a:b], f.keys[a:b], f.level[a:b])
+                    tree = to_numpy(f.tree[a:b])
+                    ec = classes[0] if len(classes) == 1 else cm.tree_eclass[tree]
+                    row[q] = pack_wire(tree, f.keys[a:b], f.level[a:b], eclass=ec)
             keep_off.append((int(offs[g]), int(offs[g + 1])))
             send.append(row)
         h_mig = post(comm.ialltoallv(send))
@@ -432,7 +548,7 @@ def repartition(forests: list[Forest], comm: Comm, weights: list | None = None,
             rt = torch.from_numpy(np.concatenate([s[1] for s in segs])).to(dev)
             rk = torch.from_numpy(np.concatenate([s[2] for s in segs]).astype(np.int64)).to(dev)
             rl = torch.from_numpy(np.concatenate([s[3] for s in segs])).to(dev)
-            dec = get_batch_ops(d).decode(rk, rl)
+            dec = _decode_by_class(f, rt, rk, rl)
         blocks, pos, si = [], 0, 0
         for p in range(P):
             if p == g:
@@ -450,6 +566,18 @@ def repartition(forests: list[Forest], comm: Comm, weights: list | None = None,
             raise RuntimeError(f"repartition broke stored SFC order on rank {g}")
         out.append(f2)
     return out
+
+
+def _decode_by_class(f: Forest, tree: torch.Tensor, key: torch.Tensor,
+                     level: torch.Tensor) -> Simplex:
+    """Elements of trees `tree` of `f`'s mesh from their keys and int32
+    levels: one batched Algorithm-4.8 decode per element class present."""
+    anchor = torch.empty((key.shape[0], f.d), dtype=torch.int32, device=key.device)
+    stype = torch.empty_like(level)
+    for ec, sel in _class_groups(f, tree):
+        dec = get_batch_ops(f.d, ec).decode(key[sel], level[sel])
+        anchor[sel], stype[sel] = dec.anchor, dec.stype
+    return Simplex(anchor, level, stype)
 
 
 def load_imbalance(forests: list[Forest], comm: Comm,
@@ -523,15 +651,15 @@ def _unique_rows(*cols: np.ndarray) -> np.ndarray:
     return a[keep]
 
 
-def _pack_triples(tree, key, level) -> np.ndarray:
+def _pack_triples(tree, key, level, eclass: int = ECLASS_SIMPLEX) -> np.ndarray:
     """(tree, key, level) columns -> deterministic 13-byte/entry wire
     buffer: the distinct triples in lex (tree, key, level) order, so the
     bytes depend only on the set's contents (the JAX package's
-    `_pack_triples` of a set of tuples)."""
+    `_pack_triples` of a set of tuples), each tagged with `eclass`."""
     rows = _unique_rows(tree, key, level)
     if len(rows) == 0:
         return np.zeros(0, np.uint8)
-    return pack_wire(rows[:, 0], rows[:, 1], rows[:, 2])
+    return pack_wire(rows[:, 0], rows[:, 1], rows[:, 2], eclass=eclass)
 
 
 def _split_by_rank(first: np.ndarray, last: np.ndarray, cols, P: int, skip: int = -1) -> dict:
@@ -568,8 +696,8 @@ FACE_DOMAIN_BOUNDARY = 2   # no neighbor: true domain boundary
 class FaceSweepLayer:
     """Result of ONE fused `face_sweep` over an element layer: for every
     face of every element, where its neighbor region lives.  Tensors on the
-    layer's device with a leading face axis of length nf = d+1; `level` is
-    shared (same-level neighbors).
+    layer's device with a leading face axis of length nf (d + 1 for
+    simplices, 2d for hexes); `level` is shared (same-level neighbors).
 
       tgt     (nf, n) tree whose leaf table holds the neighbor region
       nkey    (nf, n) int64 neighbor key (that of a neighbor outside the
@@ -599,7 +727,8 @@ class FaceSweepLayer:
 
 def face_sweep_layer(f: Forest, tree_ids: torch.Tensor, s: Simplex) -> FaceSweepLayer:
     """Neighbor lookup for ALL faces of the elements in `s` (any subset of
-    local elements; `tree_ids` their trees) in one `face_sweep` launch.
+    local elements of one class, read off their trees `tree_ids`) in one
+    `face_sweep` launch of that class.
 
     Faces that leave the root are domain boundary, unless the forest's
     coarse mesh glues the root face they lie on (`Cmesh.root_face_of`, plane
@@ -610,7 +739,8 @@ def face_sweep_layer(f: Forest, tree_ids: torch.Tensor, s: Simplex) -> FaceSweep
     recomputed with ONE `morton_key` launch — the cross-tree branch of the
     JAX package's `face_sweep_layer`, which wraps the int64 transform to
     int32 once; the kernel's uint32 arithmetic gives the same bits."""
-    bops = f.bops
+    ec = _layer_eclass(f, tree_ids)
+    bops = get_batch_ops(f.d, ec)
     sw = bops.face_sweep(s)
     nf = sw.key.shape[0]
     tgt = tree_ids.to(torch.int32).expand(nf, -1).contiguous()
@@ -620,7 +750,8 @@ def face_sweep_layer(f: Forest, tree_ids: torch.Tensor, s: Simplex) -> FaceSweep
     cm = f.cmesh
     if cm is not None and not bool(sw.inside.all()):
         fidx, eidx = torch.nonzero(~sw.inside, as_tuple=True)
-        rf = cm.root_face_of(Simplex(s.anchor[eidx], s.level[eidx], s.stype[eidx]), fidx).long()
+        rf = cm.root_face_of(Simplex(s.anchor[eidx], s.level[eidx], s.stype[eidx]), fidx,
+                             ec).long()
         glue = cm.gluing(f.device)
         t1 = tree_ids[eidx].long()
         keep = torch.nonzero((rf >= 0) & (glue.face_tree[t1, rf.clamp(min=0)] >= 0)).squeeze(1)
@@ -628,7 +759,8 @@ def face_sweep_layer(f: Forest, tree_ids: torch.Tensor, s: Simplex) -> FaceSweep
             fk, ek = fidx[keep], eidx[keep]
             valid = valid.clone()
             crossed, dual2, tree2 = bops.transform_crossings(
-                t1[keep] * nf + rf[keep], Simplex(anchor[fk, ek], s.level[ek], stype[fk, ek]),
+                t1[keep] * cm.nf_max + rf[keep],
+                Simplex(anchor[fk, ek], s.level[ek], stype[fk, ek]),
                 dual[fk, ek], glue.conn)
             anchor[fk, ek] = crossed.anchor
             stype[fk, ek] = crossed.stype
@@ -680,8 +812,10 @@ class BalanceNonConvergence(RuntimeError):
 def _resident_sweep(f: Forest, bops: BatchedOps):
     """The resident face sweep of ALL of a rank's elements, memoized on the
     Forest object (its element tensors are never changed in place, so a
-    Balance round over an unchanged rank, and a Ghost after a Balance, reuse
-    it).  A reuse charges one `face_sweep` dispatch, as the JAX meter does."""
+    Balance round over an unchanged rank, and a Ghost after a Balance,
+    reuse it; the leaves of a swept forest are of one class, a mesh of two
+    classes being swept a class subforest at a time).  A reuse charges one
+    `face_sweep` dispatch, as the JAX meter does."""
     if f.num_local == 0:
         return None
     h = f.__dict__.get("_sweep")
@@ -750,8 +884,29 @@ class _Registry:
 
 def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
             overlap: bool = True) -> list[Forest]:
-    """2:1 balance across faces: the ripple algorithm of the JAX package's
-    `balance`, message based, on the forests' device.
+    """2:1 balance across faces (`_balance_impl`).  Over a mesh of two
+    element classes the ripple runs once per class, in ascending class
+    order on every rank (the class groups are independent: a face between
+    classes is a domain boundary), and each rank's results merge back into
+    stored (tree, key) order."""
+    if max_rounds < 1:
+        raise ValueError("max_rounds must be >= 1")
+    classes = _forest_classes(forests)
+    if len(classes) == 1:
+        return _balance_impl(forests, comm, max_rounds, overlap, classes[0])
+    parts: list[list] = [[] for _ in forests]
+    for ec in classes:
+        for i, r in enumerate(_balance_impl(_class_subforests(forests, ec), comm, max_rounds,
+                                            overlap, ec)):
+            parts[i].append(r)
+    return [_merge_class_groups(f, ps) for f, ps in zip(forests, parts)]
+
+
+def _balance_impl(forests: list[Forest], comm: Comm, max_rounds: int, overlap: bool,
+                  eclass: int) -> list[Forest]:
+    """2:1 balance across faces of the leaves of class `eclass`: the ripple
+    algorithm of the JAX package's `balance`, message based, on the
+    forests' device.
 
     A leaf is refined when some face neighbor's key interval holds a leaf
     more than one level finer.  No rank builds the global leaf table:
@@ -772,12 +927,10 @@ def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
     collective where it is posted (same result, same bytes).  Raises
     `BalanceNonConvergence` when `max_rounds` run out.  Returns NEW forests
     on the same device."""
-    if max_rounds < 1:
-        raise ValueError("max_rounds must be >= 1")
     d = forests[0].d
-    o = get_ops(d)
+    o = get_ops(d, eclass)
     L, nc = o.L, o.nc
-    bops = get_batch_ops(d)
+    bops = get_batch_ops(d, eclass)
     P = comm.size
     nloc = len(forests)
     forests = list(forests)
@@ -860,8 +1013,8 @@ def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
                 for q in range(P):
                     nt = notifs[i].get(q) if notifs is not None else None
                     qs = dests[i].get(q)
-                    row.append((_pack_triples(*nt) if nt else np.zeros(0, np.uint8),
-                                _pack_triples(*qs) if qs else np.zeros(0, np.uint8)))
+                    row.append((_pack_triples(*nt, eclass) if nt else np.zeros(0, np.uint8),
+                                _pack_triples(*qs, eclass) if qs else np.zeros(0, np.uint8)))
                 send.append(row)
             return comm.ialltoallv(send)
 
@@ -893,7 +1046,7 @@ def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
                         qbufs.append(qbuf)
                 if qbufs:
                     for p, cols in answer(i, tables[i], srcs, qbufs).items():
-                        row[p] = _pack_triples(*cols)
+                        row[p] = _pack_triples(*cols, eclass)
                 reply_rows.append(row)
                 notif_bufs.append(nbufs)
             hr = post(comm.ialltoallv(reply_rows))
@@ -977,15 +1130,15 @@ def _empty_ghost(d: int, device) -> dict:
     return {"anchor": z(0, d), "level": z(0), "stype": z(0), "tree": z(0), "owner": z(0)}
 
 
-def _ghost_from_candidates(d: int, rows: np.ndarray, device) -> dict:
+def _ghost_from_candidates(f: Forest, rows: np.ndarray) -> dict:
     """Distinct (tree, key, level, owner) host rows, sorted -> the ghost
     layer's tensors on `device` (anchors and types recovered by one batched
-    decode, Remark 20)."""
+    decode per element class present, Remark 20)."""
     if len(rows) == 0:
-        return _empty_ghost(d, device)
-    t, k, l, p = (torch.as_tensor(np.ascontiguousarray(rows[:, c]), device=device)
+        return _empty_ghost(f.d, f.device)
+    t, k, l, p = (torch.as_tensor(np.ascontiguousarray(rows[:, c]), device=f.device)
                   for c in range(4))
-    gs = get_batch_ops(d).decode(k, l.to(torch.int32))
+    gs = _decode_by_class(f, t, k, l.to(torch.int32))
     return {"anchor": gs.anchor, "level": gs.level, "stype": gs.stype,
             "tree": t.to(torch.int32), "owner": p.to(torch.int32)}
 
@@ -1022,19 +1175,30 @@ def ghost(forests: list[Forest], comm: Comm, overlap: bool = True) -> list[dict]
     triples.  The answering is tensor code: one lex search per bound, the
     plane test batched over every (query, leaf) pair.  `overlap=False`
     completes every collective where it is posted (same bytes, same
-    layers)."""
+    layers).  Over a mesh of two element classes the exchange runs once per
+    class, in ascending class order, and each rank's candidates are joined
+    before the layer is assembled."""
     d = forests[0].d
     dev = forests[0].device
-    return [_ghost_from_candidates(d, c, dev) for c in _ghost_impl(forests, comm, overlap)]
+    classes = _forest_classes(forests)
+    if len(classes) == 1:
+        cands = _ghost_impl(forests, comm, overlap, classes[0])
+    else:
+        per_class = [_ghost_impl(_class_subforests(forests, ec), comm, overlap, ec)
+                     for ec in classes]
+        cands = [_unique_rows(*(np.concatenate([c[i][:, j] for c in per_class])
+                                for j in range(4))) for i in range(len(forests))]
+    return [_ghost_from_candidates(forests[0], c) for c in cands]
 
 
-def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool) -> list:
-    """The ghost exchange; returns per local rank the distinct candidate
-    rows (tree, key, level, owner), sorted, as an (m, 4) int64 host array."""
+def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool, eclass: int) -> list:
+    """The ghost exchange of the leaves of class `eclass`; returns per local
+    rank the distinct candidate rows (tree, key, level, owner), sorted, as
+    an (m, 4) int64 host array."""
     d = forests[0].d
-    o = get_ops(d)
+    o = get_ops(d, eclass)
     L = o.L
-    bops = get_batch_ops(d)
+    bops = get_batch_ops(d, eclass)
     dev = forests[0].device
     fci = torch.as_tensor(o.face_corner_indices, dtype=torch.int64, device=dev)
     cpf = fci.shape[1]
@@ -1063,7 +1227,7 @@ def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool) -> list:
                                               (rp.tree, rp.key, rp.level, rp.dual), P,
                                               skip=g).items():
                     r = _unique_rows(*cols)
-                    row[q] = pack_wire(r[:, 0], r[:, 1], r[:, 2], extra=r[:, 3])
+                    row[q] = pack_wire(r[:, 0], r[:, 1], r[:, 2], extra=r[:, 3], eclass=eclass)
             send.append(row)
         h_q = post(comm.ialltoallv(send))
         # the local leaf tables upload while the queries fly
@@ -1097,12 +1261,12 @@ def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool) -> list:
                 hits = [torch.zeros(0, dtype=torch.int64, device=dev)] * 2
                 if pe.numel():
                     nb = bops.decode(k0[pe], lq[pe].to(torch.int32))
-                    corners = o.coordinates(nb).to(torch.int64)          # (m, d+1, d)
+                    corners = o.coordinates(nb).to(torch.int64)          # (m, corners, d)
                     facet = fci[du[pe]][:, :d]                            # (m, d)
                     nrm, rhs = _face_planes(torch.gather(
                         corners, 1, facet[:, :, None].expand(-1, -1, d)))
                     leaves = Simplex(f.anchor[leaf], f.level[leaf], f.stype[leaf])
-                    lc = o.coordinates(leaves).to(torch.int64)           # (np, d+1, d)
+                    lc = o.coordinates(leaves).to(torch.int64)           # (np, corners, d)
                     on = ((lc * nrm[pos][:, None, :]).sum(-1) == rhs[pos][:, None]).sum(-1)
                     ok = on == cpf
                     hits = [pe[pos[ok]], leaf[ok]]
@@ -1119,7 +1283,7 @@ def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool) -> list:
                                     tb.level[lf].long()], 1).cpu().numpy()
                 for p, c in _split_by_rank(rows[:, 0], rows[:, 0],
                                            (rows[:, 1], rows[:, 2], rows[:, 3]), P).items():
-                    row[p] = _pack_triples(*c)
+                    row[p] = _pack_triples(*c, eclass)
             reply_rows.append(row)
         rrecv = post(comm.ialltoallv(reply_rows)).wait()
 
@@ -1146,10 +1310,10 @@ def validate(forests: list[Forest], ghosts: list[dict] | None = None) -> bool:
     their root, complete volume coverage of the trees — and, with `ghosts`,
     every ghost entry an actual leaf of its claimed owner rank, never the
     rank itself.  All on the forests' device; the owner check is one sorted
-    lookup of the ghosts in the global leaf order."""
+    lookup of the ghosts in the global leaf order.  The inside-root test and
+    the ghosts' keys go per element class."""
     d = forests[0].d
     o = get_ops(d)
-    bops = get_batch_ops(d)
     t = torch.cat([f.tree for f in forests]).long()
     k = torch.cat([f.keys for f in forests])
     lv = torch.cat([f.level for f in forests])
@@ -1167,8 +1331,10 @@ def validate(forests: list[Forest], ghosts: list[dict] | None = None) -> bool:
         if not bool((gap != 0)[same].all()):
             return False
     for f in forests:
-        if f.num_local and not bool(bops.is_inside_root(f.simplices()).all()):
-            return False
+        for ec, sel in _class_groups(f):
+            if f.num_local and not bool(
+                    get_batch_ops(d, ec).is_inside_root(take(f.simplices(), sel)).all()):
+                return False
     counts = torch.bincount(lv.long(), minlength=o.L + 1).tolist()
     vol = sum(c / float(1 << (d * l)) for l, c in enumerate(counts))
     K = forests[0].num_trees
@@ -1184,7 +1350,10 @@ def validate(forests: list[Forest], ghosts: list[dict] | None = None) -> bool:
                 continue
             if n == 0:
                 return False
-            gk = bops.morton_key(Simplex(gh["anchor"], gh["level"], gh["stype"]))
+            gs = Simplex(gh["anchor"], gh["level"], gh["stype"])
+            gk = torch.empty(m, dtype=torch.int64, device=t.device)
+            for ec, sel in _class_groups(forests[0], gh["tree"]):
+                gk[sel] = get_batch_ops(d, ec).morton_key(take(gs, sel))
             owner = gh["owner"].long()
             pos = lex_search(t, k, gh["tree"], gk).clamp(max=n - 1)
             found = ((t[pos] == gh["tree"]) & (k[pos] == gk) & (lv[pos] == gh["level"])

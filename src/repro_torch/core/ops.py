@@ -1,7 +1,10 @@
 """Element algorithms of the tetrahedral SFC over batches of tensors.
 
-The plain PyTorch counterpart of the JAX package's `repro.core.ops`, for
-what the New -> Adapt -> Partition path calls:
+The plain PyTorch counterpart of the JAX package's `repro.core.ops`: the
+paper's algorithms for simplices (`SimplexOps`), and the second element
+class, quads and hexahedra on the plain Morton curve (`HexOps`: no types,
+the key the bit interleave of the anchor, face f = 2 axis + dir with dual
+f ^ 1):
 
   cube_id       Algorithm 4.2
   parent        Algorithm 4.3
@@ -31,11 +34,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .errors import not_ported
 from .tables import MAXLEVEL, get_tables
 from .types import ECLASS_HEX, ECLASS_SIMPLEX, Simplex
 
-__all__ = ["ElementOps", "SimplexOps", "get_ops"]
+__all__ = ["ElementOps", "SimplexOps", "HexOps", "get_ops"]
 
 
 def _wrap_i32(a: torch.Tensor) -> torch.Tensor:
@@ -54,15 +56,19 @@ def _i64(x, device) -> torch.Tensor:
 class ElementOps:
     """Element algorithms bound to (dimension, element class).
 
-    A concrete class supplies `eclass`, `nt` (types), `nc` (children) and the
-    primitive algorithms; the level and key arithmetic shared by every class
-    lives here."""
+    A concrete class supplies `eclass`, `nt` (types), `nc` (children), `nf`
+    (faces), `num_corners`, `face_corner_indices` (which corners span each
+    face, in `coordinates` order) and the primitive algorithms; the level,
+    key and gluing arithmetic shared by every class lives here."""
 
     d: int
     L: int
     eclass: int
     nt: int
     nc: int
+    nf: int
+    num_corners: int
+    face_corner_indices: np.ndarray
 
     def h(self, level: torch.Tensor) -> torch.Tensor:
         """Cube side length at `level` (int32)."""
@@ -107,6 +113,22 @@ class ElementOps:
         the level and run Algorithm 4.8."""
         shift = (self.L - level.to(torch.int64)) * self.d
         return self.from_linear_id(torch.bitwise_right_shift(key, shift), level)
+
+    def tree_transform(self, s: Simplex, M, c, typemap) -> Simplex:
+        """The coarse-mesh gluing map: anchor' = M @ anchor + c, less h on
+        reflected rows so the anchor stays the image cube's minimum corner,
+        and type' = typemap[type].  `M` is a signed permutation, (d, d) or
+        per element (..., d, d); `c` the translation, pre-wrapped to int32,
+        (d,) or (..., d); `typemap` (d!,) or (..., d!), of which a hex
+        (type 0) reads entry 0.  Computed in int64
+        and wrapped to int32 once, which equals int32 ring arithmetic."""
+        M, c, tm = (_i64(x, s.device) for x in (M, c, typemap))
+        h = self.h(s.level).to(torch.int64)
+        neg = M.sum(dim=-1).clamp(max=0)                   # -1 on reflected rows
+        a = (s.anchor.to(torch.int64)[..., None, :] * M).sum(dim=-1) + c + h[..., None] * neg
+        tm = tm.expand(s.stype.shape + tm.shape[-1:])
+        stype = torch.gather(tm, -1, s.stype.long()[..., None])[..., 0]
+        return Simplex(_wrap_i32(a), s.level, stype.to(torch.int32))
 
     # ------------------------------------------------------------ linear ids
     def linear_id(self, s: Simplex) -> torch.Tensor:
@@ -153,6 +175,7 @@ class SimplexOps(ElementOps):
         self.nt = self.t.num_types          # d!
         self.nc = self.t.num_children       # 2^d
         self.nf = d + 1                     # faces per simplex
+        self.num_corners = d + 1
         # face f is the face opposite corner f
         self.face_corner_indices = np.asarray(
             [[a for a in range(d + 1) if a != f] for f in range(d + 1)], np.int32)
@@ -223,21 +246,6 @@ class SimplexOps(ElementOps):
         anchor = s.anchor + self.h(s.level)[..., None] * off
         return (Simplex(anchor, s.level, self._lookup("neighbor_type", s.stype, fi)),
                 self._lookup("neighbor_face", s.stype, fi))
-
-    def tree_transform(self, s: Simplex, M, c, typemap) -> Simplex:
-        """The coarse-mesh gluing map: anchor' = M @ anchor + c, less h on
-        reflected rows so the anchor stays the image cube's minimum corner,
-        and type' = typemap[type].  `M` is a signed permutation, (d, d) or
-        per element (..., d, d); `c` the translation, pre-wrapped to int32,
-        (d,) or (..., d); `typemap` (d!,) or (..., d!).  Computed in int64
-        and wrapped to int32 once, which equals int32 ring arithmetic."""
-        M, c, tm = (_i64(x, s.device) for x in (M, c, typemap))
-        h = self.h(s.level).to(torch.int64)
-        neg = M.sum(dim=-1).clamp(max=0)                   # -1 on reflected rows
-        a = (s.anchor.to(torch.int64)[..., None, :] * M).sum(dim=-1) + c + h[..., None] * neg
-        tm = tm.expand(s.stype.shape + tm.shape[-1:])
-        stype = torch.gather(tm, -1, s.stype.long()[..., None])[..., 0]
-        return Simplex(_wrap_i32(a), s.level, stype.to(torch.int32))
 
     # ------------------------------------------------- ancestors / containment
     def ancestor_at_level(self, s: Simplex, level) -> Simplex:
@@ -351,17 +359,143 @@ class SimplexOps(ElementOps):
         return Simplex(anchor, level, b)
 
 
+class HexOps(ElementOps):
+    """Quads and hexahedra on the plain Morton curve, the second element
+    class (the JAX package's `HexOps`).
+
+    A hex has no type bits: it is its cube, so the `stype` column of the
+    shared `Simplex` container is 0 and never read; the key is the plain
+    bit interleave of the anchor; children come in Morton order; face
+    f = 2 axis + dir is the lower (dir = 0) or upper (dir = 1) face along
+    `axis`, with dual face f ^ 1.  MAXLEVEL is the simplex class's, so key
+    spans and `num_elements` agree and partition markers, repartition and
+    `validate` do not depend on the class."""
+
+    eclass = ECLASS_HEX
+
+    def __init__(self, d: int):
+        self.d = d
+        self.L = MAXLEVEL[d]
+        self.nt = 1                         # no types
+        self.nc = 1 << d
+        self.nf = 2 * d
+        self.num_corners = 1 << d
+        self.corners = np.asarray([[(j >> k) & 1 for k in range(d)] for j in range(1 << d)],
+                                  np.int32)
+        # face f holds the 2^(d-1) corners whose bit f // 2 is f % 2; the
+        # first d of them span the face's plane
+        self.face_corner_indices = np.asarray(
+            [[j for j in range(1 << d) if ((j >> (f // 2)) & 1) == (f % 2)]
+             for f in range(2 * d)], np.int32)
+        off = np.zeros((2 * d, d), np.int32)
+        for f in range(2 * d):
+            off[f, f // 2] = 2 * (f % 2) - 1
+        self.neighbor_offset = off
+        self._dev_tables: dict = {}
+
+    def _tab(self, name: str, device) -> torch.Tensor:
+        """`corners` or `neighbor_offset` as an int32 tensor on `device`."""
+        key = (name, torch.device(device))
+        t = self._dev_tables.get(key)
+        if t is None:
+            t = self._dev_tables[key] = torch.as_tensor(getattr(self, name), device=device)
+        return t
+
+    def coordinates(self, s: Simplex) -> torch.Tensor:
+        """(..., 2^d, d) int32 corner nodes in Morton corner order."""
+        return s.anchor[..., None, :] + self.h(s.level)[..., None, None] * self._tab(
+            "corners", s.device)
+
+    # ------------------------------------------------------------- hierarchy
+    def parent(self, s: Simplex) -> Simplex:
+        return Simplex(s.anchor & ~self.h(s.level)[..., None], s.level - 1,
+                       torch.zeros_like(s.stype))
+
+    def child_tm(self, s: Simplex, iloc) -> Simplex:
+        """The iloc-th child in SFC (= Morton) order; `iloc` one index for
+        all elements or a tensor of one per element."""
+        il = self._per_element(iloc, s)
+        bits = torch.stack([(il >> k) & 1 for k in range(self.d)], dim=-1)
+        anchor = s.anchor + (self.h(s.level) >> 1)[..., None] * bits
+        return Simplex(anchor, s.level + 1, torch.zeros_like(s.stype))
+
+    def local_index(self, s: Simplex) -> torch.Tensor:
+        """The Morton child index within the parent: the cube id."""
+        return self.cube_id(s)
+
+    # ------------------------------------------------------------- neighbors
+    def face_neighbor(self, s: Simplex, f):
+        """(same-level neighbor across face f, dual face f ^ 1); `f` one
+        face for all elements or a tensor of one per element.  The neighbor
+        may lie outside the root cube."""
+        fi = self._per_element(f, s)
+        off = self._tab("neighbor_offset", s.device)[fi.long()]
+        anchor = s.anchor + self.h(s.level)[..., None] * off
+        return Simplex(anchor, s.level, torch.zeros_like(s.stype)), fi ^ 1
+
+    # ------------------------------------------------- ancestors / containment
+    def ancestor_at_level(self, s: Simplex, level) -> Simplex:
+        level = self._per_element(level, s)
+        mask = ~(self.h(level) - 1)
+        return Simplex(s.anchor & mask[..., None], level, torch.zeros_like(s.stype))
+
+    def is_ancestor(self, t: Simplex, n: Simplex) -> torch.Tensor:
+        """True where t's cube contains n's (t == n included)."""
+        rel = n.anchor - t.anchor
+        inside = ((rel >= 0) & (rel < self.h(t.level)[..., None])).all(dim=-1)
+        return (n.level >= t.level) & inside
+
+    def is_inside_root(self, s: Simplex) -> torch.Tensor:
+        """Does s lie inside the root cube [0, 2^L)^d?  The bound is
+        anchor <= 2^L - h, which never overflows int32 at level 0."""
+        lim = (1 << self.L) - self.h(s.level)
+        ok = ((s.anchor >= 0) & (s.anchor <= lim[..., None])).all(dim=-1)
+        return ok & (s.level >= 0)
+
+    def nearest_common_ancestor(self, a: Simplex, b: Simplex) -> Simplex:
+        """The deepest common cube: the longest shared prefix of cube ids."""
+        agree = torch.ones(torch.broadcast_shapes(a.level.shape, b.level.shape),
+                           dtype=torch.bool, device=a.device)
+        nca_level = torch.zeros_like(a.level)
+        for i in range(1, self.L + 1):
+            ok = (self.cube_id(a, i) == self.cube_id(b, i)) & (i <= a.level) & (i <= b.level)
+            agree = agree & ok
+            nca_level = torch.where(agree, i, nca_level)
+        return self.ancestor_at_level(a, nca_level)
+
+    # ------------------------------------------------------------ linear ids
+    def morton_key(self, s: Simplex) -> torch.Tensor:
+        """The level-padded plain Morton key, int64: the interleave of the
+        anchor's low L bits (anchors are h-aligned, so the interleave at
+        full resolution is the level-shifted consecutive index)."""
+        key = torch.zeros(s.level.shape, dtype=torch.int64, device=s.device)
+        for i in range(1, self.L + 1):
+            key = key | (self.cube_id(s, i).to(torch.int64) << (self.d * (self.L - i)))
+        return key
+
+    def from_linear_id(self, index: torch.Tensor, level: torch.Tensor) -> Simplex:
+        """De-interleave a consecutive index at `level` into the element."""
+        shape = torch.broadcast_shapes(index.shape, level.shape)
+        level = level.to(torch.int32).expand(shape)
+        key = torch.bitwise_left_shift(
+            index.expand(shape), (self.L - level.to(torch.int64)) * self.d)
+        anchor = torch.zeros(shape + (self.d,), dtype=torch.int32, device=index.device)
+        for i in range(1, self.L + 1):
+            cid = ((key >> (self.d * (self.L - i))) & (self.nc - 1)).to(torch.int32)
+            bits = torch.stack([(cid >> k) & 1 for k in range(self.d)], dim=-1)
+            anchor = anchor | (bits << (self.L - i))
+        return Simplex(anchor, level, torch.zeros(shape, dtype=torch.int32, device=index.device))
+
+
 _OPS: dict = {}
 
 
 def get_ops(d: int, eclass: int = ECLASS_SIMPLEX) -> ElementOps:
-    """The element ops of dimension `d` and class `eclass` (simplices; the
-    hex class is not ported yet)."""
-    if eclass == ECLASS_HEX:
-        raise not_ported("the hex element class", "hex")
-    if eclass != ECLASS_SIMPLEX or d not in (2, 3):
+    """The element ops of dimension `d` (2 or 3) and class `eclass`."""
+    cls = {ECLASS_SIMPLEX: SimplexOps, ECLASS_HEX: HexOps}.get(eclass)
+    if cls is None or d not in (2, 3):
         raise ValueError(f"no element ops for d={d}, eclass={eclass}")
-    o = _OPS.get(d)
+    o = _OPS.get((d, eclass))
     if o is None:
-        o = _OPS[d] = SimplexOps(d)
+        o = _OPS[(d, eclass)] = cls(d)
     return o

@@ -2,10 +2,13 @@
 
 A `Simplex` is the paper's `Tet` data type (Remark 20) in structure-of-arrays
 form: anchor coordinates `(..., d)` int32, refinement level and type int32,
-all on one device.  The at-rest blobs (`pack`/`unpack`, 10 bytes per triangle
-and 14 per tetrahedron) and the 13-byte wire triples and 14-byte quads
-(`pack_wire`/`unpack_wire`) are host numpy buffers, byte-identical to the
-JAX package's for simplices.
+all on one device.  The same container carries the second element class,
+quads and hexahedra on the plain Morton curve, whose type is identically 0.
+The at-rest blobs (`pack`/`unpack`: 10 bytes per triangle and 14 per
+tetrahedron, 9 per quad and 13 per hexahedron, which carry no type) and the
+13-byte wire triples and 14-byte quads (`pack_wire`/`unpack_wire`, the
+element class in bits 6-7 of the level byte) are host numpy buffers,
+byte-identical to the JAX package's.
 """
 
 from __future__ import annotations
@@ -15,14 +18,16 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .errors import WireFormatError, not_ported
+from .errors import WireFormatError
 
-# The element class tags of the wire format, those of the JAX package
-# (simplex 0, hex 1), so wire bytes agree and unknown tags are refused
-# alike.  Only simplices are ported so far.
+# The element classes, with the JAX package's wire tags (simplex 0, hex 1),
+# so wire bytes agree and unknown tags are refused alike.  The class is a
+# property of a tree, never a per-element column: every batch is of one
+# class.
 ECLASS_SIMPLEX = 0
 ECLASS_HEX = 1
 NUM_ECLASSES = 2
+ECLASS_NAMES = {ECLASS_SIMPLEX: "simplex", ECLASS_HEX: "hex"}
 
 
 class Simplex(NamedTuple):
@@ -97,12 +102,13 @@ def take(s: Simplex, idx) -> Simplex:
 
 def nbytes_at_rest(s: Simplex, eclass: int = ECLASS_SIMPLEX) -> int:
     """Storage per paper Remark 20: 4*d + 2 bytes a simplex (coordinates,
-    level and type), so 10 a triangle and 14 a tetrahedron."""
+    level and type), so 10 a triangle and 14 a tetrahedron; 4*d + 1 a hex,
+    which has no type byte (9 a quad, 13 a hexahedron)."""
+    if eclass == ECLASS_SIMPLEX:
+        return s.level.numel() * (4 * s.d + 2)
     if eclass == ECLASS_HEX:
-        raise not_ported("the at-rest size of hex elements", "hex")
-    if eclass != ECLASS_SIMPLEX:
-        raise ValueError(f"unknown element class {eclass!r}")
-    return s.level.numel() * (4 * s.d + 2)
+        return s.level.numel() * (4 * s.d + 1)
+    raise ValueError(f"unknown element class {eclass!r}")
 
 
 def to_numpy(x) -> np.ndarray:
@@ -112,22 +118,28 @@ def to_numpy(x) -> np.ndarray:
     return np.asarray(x)
 
 
-def pack(s: Simplex) -> dict:
-    """At-rest encoding (paper Remark 20): int32 coords + int8 level + int8
-    type — 10 bytes per triangle, 14 per tetrahedron."""
-    return {
-        "anchor": to_numpy(s.anchor).astype(np.int32),
-        "level": to_numpy(s.level).astype(np.int8),
-        "stype": to_numpy(s.stype).astype(np.int8),
-    }
+def pack(s: Simplex, eclass: int = ECLASS_SIMPLEX) -> dict:
+    """At-rest encoding (paper Remark 20): int32 coords + int8 level, and
+    int8 type for simplices only — 10 bytes per triangle, 14 per
+    tetrahedron, 9 per quad, 13 per hexahedron."""
+    blob = {"anchor": to_numpy(s.anchor).astype(np.int32),
+            "level": to_numpy(s.level).astype(np.int8)}
+    if eclass == ECLASS_SIMPLEX:
+        blob["stype"] = to_numpy(s.stype).astype(np.int8)
+    elif eclass != ECLASS_HEX:
+        raise ValueError(f"unknown element class {eclass!r}")
+    return blob
 
 
 def unpack(blob: dict, device) -> Simplex:
-    """Inverse of `pack`, onto `device`."""
+    """Inverse of `pack`, onto `device`.  A blob without a "stype" column
+    is a hex blob: its type column is 0."""
     def col(name):
         return torch.from_numpy(np.array(blob[name], dtype=np.int32)).to(device)
 
-    return Simplex(col("anchor"), col("level"), col("stype"))
+    level = col("level")
+    stype = col("stype") if "stype" in blob else torch.zeros_like(level)
+    return Simplex(col("anchor"), level, stype)
 
 
 # ----------------------------------------------------------- wire encoding
@@ -136,9 +148,9 @@ def unpack(blob: dict, device) -> Simplex:
 # recovers anchor and type), so a (tree, key, level) triple is 13 bytes.  An
 # optional extra byte rides along as a 14-byte quad (Ghost ships the dual
 # face index in it).  The element class rides in bits 6-7 of the level byte
-# (levels fit in six bits): 0 for the simplices of this port.  Unknown class
-# bits are rejected like any other out-of-domain field; hex entries (class 1)
-# wait for the hex slice.
+# (levels fit in six bits): 0 for simplices, so their entries are the
+# class-free format, 1 for hexes.  Unknown class bits are rejected like any
+# other out-of-domain field.
 WIRE_TRIPLE_BYTES = 13  # uint64 key + int32 tree + uint8 (eclass<<6 | level)
 WIRE_QUAD_BYTES = 14    # ... + uint8 extra
 WIRE_LEVEL_MASK = 0x3F
@@ -152,28 +164,33 @@ def _wire_dtype(with_extra: bool) -> np.dtype:
     return np.dtype(fields)
 
 
-def pack_wire(tree, key, level, extra=None) -> np.ndarray:
-    """Pack (tree, key, level[, extra]) columns of simplices — tensors or
-    arrays; keys int64 or uint64, never negative — into a flat uint8 wire
-    buffer of 13-byte little-endian triples (14-byte quads with `extra`),
-    byte-identical to the JAX package's."""
+def pack_wire(tree, key, level, extra=None, eclass=ECLASS_SIMPLEX) -> np.ndarray:
+    """Pack (tree, key, level[, extra]) columns — tensors or arrays; keys
+    int64 or uint64, never negative — into a flat uint8 wire buffer of
+    13-byte little-endian triples (14-byte quads with `extra`),
+    byte-identical to the JAX package's.  `eclass`, one class or a column
+    of one per entry, goes into bits 6-7 of the level byte."""
     tree = to_numpy(tree).astype(np.int32)
     key = to_numpy(key).astype(np.uint64)
+    ec = to_numpy(eclass).astype(np.uint8)
+    if ec.size and int(ec.max(initial=0)) >= NUM_ECLASSES:
+        raise ValueError(f"unknown element class in {np.unique(ec)!r}")
     rec = np.empty(len(key), _wire_dtype(extra is not None))
     rec["key"], rec["tree"] = key, tree
-    rec["level"] = to_numpy(level).astype(np.uint8)   # class bits 0: simplex
+    rec["level"] = to_numpy(level).astype(np.uint8) | (ec << np.uint8(WIRE_ECLASS_SHIFT))
     if extra is not None:
         rec["extra"] = to_numpy(extra).astype(np.uint8)
     return rec.view(np.uint8).reshape(-1)
 
 
-def unpack_wire(buf: np.ndarray, with_extra: bool = False):
+def unpack_wire(buf: np.ndarray, with_extra: bool = False, with_eclass: bool = False):
     """Inverse of `pack_wire`: host numpy columns (tree int32, key uint64,
-    level int32[, extra int32]).
+    level int32[, extra int32][, eclass int32]); the class column only with
+    `with_eclass`, but it is checked either way.
 
     A buffer that is not a whole number of entries, a non-byte buffer, or
     entries with a negative tree or an unknown element class raise
-    `WireFormatError`; hex entries raise NotImplementedError."""
+    `WireFormatError`."""
     try:
         buf = np.asarray(buf, np.uint8).reshape(-1)
     except (ValueError, TypeError) as e:
@@ -195,9 +212,9 @@ def unpack_wire(buf: np.ndarray, with_extra: bool = False):
             raise WireFormatError(
                 f"wire entries carry an unknown element class "
                 f"(max {int(ec.max())} >= {NUM_ECLASSES})")
-        if (ec == ECLASS_HEX).any():
-            raise not_ported("hex wire entries", "hex")
     out = (tree, rec["key"].astype(np.uint64), lv_byte & WIRE_LEVEL_MASK)
     if with_extra:
         out = out + (rec["extra"].astype(np.int32),)
+    if with_eclass:
+        out = out + (ec,)
     return out

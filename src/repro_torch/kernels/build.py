@@ -25,7 +25,7 @@ from pathlib import Path
 from ..core.tables import MAXLEVEL, get_tables
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "packed_tables", "neighbor_table",
-           "root_containment", "table_header", "build", "library"]
+           "hex_neighbor_table", "root_containment", "table_header", "build", "library"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -69,6 +69,21 @@ def neighbor_table(d: int) -> list[int]:
     return nei
 
 
+def hex_neighbor_table(d: int) -> list[int]:
+    """The packed hex face-neighbor table, one entry per face f = 2 axis +
+    dir: dual face f ^ 1 << 3 | (offset_k + 1) << (6 + 2k) for each axis k,
+    the offset -1 or +1 on axis f // 2 and 0 elsewhere (type bits 0: hexes
+    have no types) — the TPU kernels' `_packed_hex_nei`."""
+    nei = [0] * (2 * d)
+    for f in range(2 * d):
+        v = (f ^ 1) << 3
+        for k in range(d):
+            off = (2 * (f % 2) - 1) if k == f // 2 else 0
+            v |= (off + 1) << (6 + 2 * k)
+        nei[f] = v
+    return nei
+
+
 def root_containment(d: int) -> tuple[list[int], dict[str, int]]:
     """The Proposition-23 constants of the root simplex (type 0): its axis
     permutation, and for each boundary case (ik, kj, diag) the bit mask of
@@ -91,9 +106,9 @@ def table_header() -> str:
         for name, vals in (("enc", enc), ("dec", dec)):
             body = ", ".join(str(v) for v in vals)
             lines.append(f"__constant__ unsigned char sfc_{name}_{d}[{len(vals)}] = {{{body}}};")
-        nei = neighbor_table(d)
-        body = ", ".join(str(v) for v in nei)
-        lines.append(f"__constant__ unsigned short sfc_nei_{d}[{len(nei)}] = {{{body}}};")
+        for name, nei in (("nei", neighbor_table(d)), ("hex_nei", hex_neighbor_table(d))):
+            body = ", ".join(str(v) for v in nei)
+            lines.append(f"__constant__ unsigned short sfc_{name}_{d}[{len(nei)}] = {{{body}}};")
         perm, masks = root_containment(d)
         for k, v in enumerate(perm):
             lines.append(f"#define SFC_ROOT_PERM_{d}_{k} {v}")

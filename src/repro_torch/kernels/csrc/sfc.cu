@@ -1,13 +1,18 @@
-// Hand-written Hopper (sm_90a) kernels for the simplex SFC element ops of
-// the forest pipeline.  New -> Adapt -> Partition: encode (morton key),
-// decode, parent (+ local index) and children.  Balance -> Ghost -> validate:
-// the fused face sweep, the routing eval, and the inside-root test; over a
-// coarse mesh, the tree transform of every face crossing.  The element
-// queries of paper Section 4: the owner rank of a key against the partition
-// markers (Ghost's owner lookup), the successor (Algorithm 4.10) and the
-// single-face neighbor (Algorithm 4.6).  One thread per element (per element
-// and child for `children`, per element and face for `eval_route`),
-// templated on the dimension D.
+// Hand-written Hopper (sm_90a) kernels for the SFC element ops of the forest
+// pipeline.  New -> Adapt -> Partition: encode (morton key), decode, parent
+// (+ local index) and children.  Balance -> Ghost -> validate: the fused face
+// sweep, the routing eval, and the inside-root test; over a coarse mesh, the
+// tree transform of every face crossing.  The element queries of paper
+// Section 4: the owner rank of a key against the partition markers (Ghost's
+// owner lookup), the successor (Algorithm 4.10) and the single-face neighbor
+// (Algorithm 4.6).  One thread per element (per element and child for
+// `children`, per element and face for `eval_route`), templated on the
+// dimension D and the element class EC: simplices on the tetrahedral Morton
+// curve (kSimplex), or quads and hexahedra on the plain Morton curve (kHex),
+// whose bodies read no type column and write it as 0.  Each entry point takes
+// the class and launches its body; `eval_route` and `owner_rank` have one body
+// for both, eval_route with one grid row per face plane (d + 1 a simplex, 2d
+// a hex).
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same name
 // computes (src/repro/kernels/sfc.py), bit for bit, but none carries over the
@@ -28,10 +33,15 @@
 //   * Keys are one 64-bit integer per element; the (hi, lo) uint32 word
 //     straddling of the TPU kernels disappears.
 //   * The level loops are unrolled at compile time (MAXLEVEL is a constant).
+//   * The hex key is the bit interleave of the anchor, which the TPU kernels
+//     build one level at a time (_hex_encode_expr); here each coordinate's
+//     low L bits are spread apart by a fixed chain of shifts and masks, and
+//     decode gathers them back the same way.  The hex face-neighbor table
+//     (2d entries of 16 bits) is generated and staged like the simplex one.
 //
 // Bound: the bytes each kernel must move at one H100 SXM's 3.35 TB/s
 // device memory, counting each input byte read once and each output byte
-// written once.  Per element, d = 3 / d = 2:
+// written once.  Simplex bodies, per element, d = 3 / d = 2:
 //   morton_key  anchor + type in, key out        24 / 20 B
 //   decode      key + level in, anchor + type out 28 / 24 B
 //   parent      anchor + level + type in,
@@ -50,14 +60,31 @@
 //   successor   anchor + level + type in, anchor + type out  36 / 28 B
 //   face_neighbor anchor + level + type + face in,
 //               anchor + type + dual out          44 / 36 B
-// These integer table walks do no floating-point work, and no published
-// integer peak fits them, so the bound has no operations term.
+// Hex bodies read no type column; those that write one write zeros, which
+// count.  Per element, d = 3 / d = 2:
+//   morton_key  anchor in, key out                20 / 16 B
+//   decode      key + level in, anchor + type out 28 / 24 B
+//   parent      anchor + level in,
+//               anchor + level + type + index out 40 / 32 B
+//   children    anchor + level in,
+//               2^d x (anchor + level + type) out 176 / 76 B
+//   face_sweep  anchor + level in, 2d x (neighbor anchor + type + dual
+//               int32, inside 1 B, key 8 B) out  190 / 112 B
+//   eval_route  as above over 2d planes          172 / 116 B (+ 12 B a marker)
+//   inside_root anchor + level in, 1 B out        17 / 13 B
+//   tree_transform connection + anchor + level + dual in,
+//               anchor + type + dual + tree out  48 / 40 B (+ 4W B a connection)
+//   successor   anchor + level in, anchor + type out  32 / 24 B
+//   face_neighbor anchor + level + face in,
+//               anchor + type + dual out          40 / 32 B
+// These integer table walks and bit shuffles do no floating-point work, and
+// no published integer peak fits them, so the bound has no operations term.
 // What the design does about it: encode and decode keep the whole level
 // chain in registers and read the tables from shared memory, so the only
 // memory traffic is the element itself; parent and children are single
 // passes whose stores are contiguous across the threads of a warp.  The
 // face sweep reads each element once and writes every face's outputs
-// face-major ((d+1, n) planes), so each store is contiguous across a warp;
+// face-major ((nf, n) planes), so each store is contiguous across a warp;
 // eval_route and owner_rank read up to 4096 partition markers into shared
 // memory once per block and scan them from there, and binary search more of
 // them in global memory; tree_transform reads its connection rows through
@@ -77,8 +104,9 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kTab = 64;  // shared copy of a packed table; index mask kTab - 1
-constexpr int kNei = 32;  // shared copy of the face-neighbor table; mask kNei - 1
+constexpr int kNei = 32;  // shared copy of a face-neighbor table; mask kNei - 1
 constexpr int kSharedMarkers = 4096;  // owner counts scan up to this many from shared memory (48 KB)
+constexpr int kSimplex = 0, kHex = 1;  // element classes, as core/types.py tags them
 
 template <int D> struct Dim;
 template <> struct Dim<2> {
@@ -113,15 +141,25 @@ __device__ __forceinline__ void load_table(unsigned char* dst) {
   __syncthreads();
 }
 
-// Copies the packed face-neighbor table into shared memory, zero-padded to
-// kNei entries.  Every thread of the block must reach this.
-template <int D>
-__device__ __forceinline__ void load_neighbor_table(unsigned short* dst) {
-  constexpr int n = Dim<D>::NT * (D + 1);
-  for (int i = threadIdx.x; i < kNei; i += blockDim.x) {
-    if constexpr (D == 2) dst[i] = i < n ? sfc_nei_2[i] : 0;
-    else dst[i] = i < n ? sfc_nei_3[i] : 0;
+// The packed face-neighbor table of class EC, entry i: the simplex table
+// (entry b * (D+1) + f) or the hex one (entry f).
+template <int D, int EC>
+__device__ __forceinline__ unsigned short neighbor_entry(int i) {
+  if constexpr (EC == kHex) {
+    if constexpr (D == 2) return sfc_hex_nei_2[i];
+    else return sfc_hex_nei_3[i];
+  } else {
+    if constexpr (D == 2) return sfc_nei_2[i];
+    else return sfc_nei_3[i];
   }
+}
+
+// Copies the packed face-neighbor table of class EC into shared memory,
+// zero-padded to kNei entries.  Every thread of the block must reach this.
+template <int D, int EC>
+__device__ __forceinline__ void load_neighbor_table(unsigned short* dst) {
+  constexpr int n = EC == kHex ? 2 * D : Dim<D>::NT * (D + 1);
+  for (int i = threadIdx.x; i < kNei; i += blockDim.x) dst[i] = i < n ? neighbor_entry<D, EC>(i) : 0;
   __syncthreads();
 }
 
@@ -146,6 +184,65 @@ __device__ __forceinline__ int64_t encode_key(const int (&c)[D], int b, const un
     b = p >> 3;
   }
   return static_cast<int64_t>(k64);
+}
+
+// The low L bits of x spread D apart: bit j goes to bit D*j.
+template <int D>
+__device__ __forceinline__ uint64_t spread_bits(uint32_t x) {
+  uint64_t v = x & ((1u << Dim<D>::L) - 1);
+  if constexpr (D == 3) {  // 21 bits -> 63
+    v = (v | (v << 32)) & 0x001F00000000FFFFull;
+    v = (v | (v << 16)) & 0x001F0000FF0000FFull;
+    v = (v | (v << 8)) & 0x100F00F00F00F00Full;
+    v = (v | (v << 4)) & 0x10C30C30C30C30C3ull;
+    v = (v | (v << 2)) & 0x1249249249249249ull;
+  } else {  // 30 bits -> 60
+    v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+    v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+    v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+    v = (v | (v << 2)) & 0x3333333333333333ull;
+    v = (v | (v << 1)) & 0x5555555555555555ull;
+  }
+  return v;
+}
+
+// The inverse of spread_bits: bits D*j of v gathered to bit j.
+template <int D>
+__device__ __forceinline__ int gather_bits(uint64_t v) {
+  if constexpr (D == 3) {
+    v &= 0x1249249249249249ull;
+    v = (v | (v >> 2)) & 0x10C30C30C30C30C3ull;
+    v = (v | (v >> 4)) & 0x100F00F00F00F00Full;
+    v = (v | (v >> 8)) & 0x001F0000FF0000FFull;
+    v = (v | (v >> 16)) & 0x001F00000000FFFFull;
+    v = (v | (v >> 32)) & 0x00000000001FFFFFull;
+  } else {
+    v &= 0x5555555555555555ull;
+    v = (v | (v >> 1)) & 0x3333333333333333ull;
+    v = (v | (v >> 2)) & 0x0F0F0F0F0F0F0F0Full;
+    v = (v | (v >> 4)) & 0x00FF00FF00FF00FFull;
+    v = (v | (v >> 8)) & 0x0000FFFF0000FFFFull;
+    v = (v | (v >> 16)) & 0x00000000FFFFFFFFull;
+  }
+  return static_cast<int>(v);
+}
+
+// The hex key (_hex_encode_expr, sfc.py:174): the plain Morton interleave of
+// the anchor's low L bits, axis k at bit k of each D-bit digit.  An anchor
+// outside the root cube gives the key of its low bits, as there.
+template <int D>
+__device__ __forceinline__ int64_t hex_key(const int (&c)[D]) {
+  uint64_t k64 = 0;
+#pragma unroll
+  for (int k = 0; k < D; ++k) k64 |= spread_bits<D>(static_cast<uint32_t>(c[k])) << k;
+  return static_cast<int64_t>(k64);
+}
+
+// The key of an element of class EC (the type is not read for a hex).
+template <int D, int EC>
+__device__ __forceinline__ int64_t element_key(const int (&c)[D], int b, const unsigned char* enc) {
+  if constexpr (EC == kHex) return hex_key<D>(c);
+  else return encode_key<D>(c, b, enc);
 }
 
 // Proposition 23 against the root simplex (type 0, level 0), as
@@ -177,71 +274,101 @@ __device__ __forceinline__ bool inside_root_of(const int (&c)[D], int lvl, int b
   return at_root || (lvl > 0 && inside);
 }
 
-// Replaces morton_key_kernel (src/repro/kernels/sfc.py:557, body
-// _encode_body :224 / _encode_expr :100).
+// Box containment in the root cube (_hex_inside_expr, sfc.py:210): every
+// coordinate in [0, 2^L - h].  The upper bound is shifted by h, so the
+// compare never forms anchor + h, which overflows int32 at level 0.
 template <int D>
+__device__ __forceinline__ bool inside_root_cube(const int (&c)[D], int lvl) {
+  constexpr int L = Dim<D>::L;
+  const int lim = (1 << L) - (1 << ((L - lvl) & 31));
+  bool inside = lvl >= 0;
+#pragma unroll
+  for (int k = 0; k < D; ++k) inside = inside && c[k] >= 0 && c[k] <= lim;
+  return inside;
+}
+
+template <int D, int EC>
+__device__ __forceinline__ bool element_inside(const int (&c)[D], int lvl, int b) {
+  if constexpr (EC == kHex) return inside_root_cube<D>(c, lvl);
+  else return inside_root_of<D>(c, lvl, b);
+}
+
+// Replaces morton_key_kernel (src/repro/kernels/sfc.py:557, body
+// _encode_body :224 / _encode_expr :100; hex branch :232 / _hex_encode_expr
+// :174).
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 morton_key_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ stype,
                   int64_t* __restrict__ key, int64_t n) {
   __shared__ unsigned char enc[kTab];
-  load_table<D, kEnc>(enc);
+  if constexpr (EC == kSimplex) load_table<D, kEnc>(enc);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   int c[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
-  key[i] = encode_key<D>(c, stype[i], enc);
+  key[i] = element_key<D, EC>(c, EC == kHex ? 0 : stype[i], enc);
 }
 
 // Algorithm 4.8 coarse -> fine (_decode_body, sfc.py:238): the anchor xyz
 // and, returned, the type of the level-`lvl` element with level-padded key
 // k64.  Digits finer than the level are masked to 0 and the type chain is
 // frozen there, as in the TPU kernel, so keys with garbage below the level
-// decode to the same element.
-template <int D>
+// decode to the same element.  A hex de-interleaves the masked key: its
+// digit is the cube id, and its type is 0.
+template <int D, int EC>
 __device__ __forceinline__ int decode_walk(uint64_t k64, int lvl, const unsigned char* dec,
                                            int (&xyz)[D]) {
   constexpr int L = Dim<D>::L, NC = 1 << D;
-  int b = 0;
+  if constexpr (EC == kHex) {
+    const int sb = min(max(D * (L - lvl), 0), 63);
+    const uint64_t k = k64 & ~((uint64_t{1} << sb) - 1);
 #pragma unroll
-  for (int k = 0; k < D; ++k) xyz[k] = 0;
+    for (int a = 0; a < D; ++a) xyz[a] = gather_bits<D>(k >> a);
+    return 0;
+  } else {
+    int b = 0;
 #pragma unroll
-  for (int lv = 1; lv <= L; ++lv) {
-    const bool active = lv <= lvl;
-    const int digit = static_cast<int>((k64 >> (D * (L - lv))) & (NC - 1));
-    const int p = dec[(b * NC + (active ? digit : 0)) & (kTab - 1)];
-    const int cid = p & 7;
-    if (active) b = p >> 3;
+    for (int k = 0; k < D; ++k) xyz[k] = 0;
 #pragma unroll
-    for (int k = 0; k < D; ++k) xyz[k] |= ((cid >> k) & 1) << (L - lv);
+    for (int lv = 1; lv <= L; ++lv) {
+      const bool active = lv <= lvl;
+      const int digit = static_cast<int>((k64 >> (D * (L - lv))) & (NC - 1));
+      const int p = dec[(b * NC + (active ? digit : 0)) & (kTab - 1)];
+      const int cid = p & 7;
+      if (active) b = p >> 3;
+#pragma unroll
+      for (int k = 0; k < D; ++k) xyz[k] |= ((cid >> k) & 1) << (L - lv);
+    }
+    return b;
   }
-  return b;
 }
 
 // Replaces decode_kernel (src/repro/kernels/sfc.py:573, body _decode_body
-// :238): Algorithm 4.8, one element a thread.
-template <int D>
+// :238, hex branch :264): Algorithm 4.8, one element a thread.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level,
               int32_t* __restrict__ anchor, int32_t* __restrict__ stype, int64_t n) {
   __shared__ unsigned char dec[kTab];
-  load_table<D, kDec>(dec);
+  if constexpr (EC == kSimplex) load_table<D, kDec>(dec);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   int xyz[D];
-  const int b = decode_walk<D>(static_cast<uint64_t>(key[i]), level[i], dec, xyz);
+  const int b = decode_walk<D, EC>(static_cast<uint64_t>(key[i]), level[i], dec, xyz);
 #pragma unroll
   for (int k = 0; k < D; ++k) anchor[i * D + k] = xyz[k];
   stype[i] = b;
 }
 
 // Replaces parent_kernel (src/repro/kernels/sfc.py:627, body _parent_body
-// :398): Algorithm 4.3 fused with the Table-6 local index; one cube-id feeds
-// both lookups through the enc table.  Level-0 input is in the domain (the
+// :398, hex branch :421): Algorithm 4.3 fused with the Table-6 local index; one cube-id feeds
+// both lookups through the enc table.  For a hex the cube id is the local
+// index and the parent's type is 0.  Level-0 input is in the domain (the
 // family scan runs on every element): h = 2^L there, the cube-id of an
 // in-root anchor is 0, and the result is the element itself at level -1 —
 // exactly what the TPU kernel returns.
-template <int D>
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 parent_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
               const int32_t* __restrict__ stype, int32_t* __restrict__ p_anchor,
@@ -249,7 +376,7 @@ parent_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ le
               int32_t* __restrict__ iloc, int64_t n) {
   constexpr int L = Dim<D>::L, NC = 1 << D;
   __shared__ unsigned char enc[kTab];
-  load_table<D, kEnc>(enc);
+  if constexpr (EC == kSimplex) load_table<D, kEnc>(enc);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   const int lvl = level[i];
@@ -261,33 +388,39 @@ parent_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ le
     cid |= ((c & h) != 0) << k;
     p_anchor[i * D + k] = c & ~h;
   }
-  const int p = enc[(stype[i] * NC + cid) & (kTab - 1)];
   p_level[i] = lvl - 1;
-  p_stype[i] = p >> 3;
-  iloc[i] = p & 7;
+  if constexpr (EC == kHex) {
+    p_stype[i] = 0;
+    iloc[i] = cid;
+  } else {
+    const int p = enc[(stype[i] * NC + cid) & (kTab - 1)];
+    p_stype[i] = p >> 3;
+    iloc[i] = p & 7;
+  }
 }
 
 // Replaces children_kernel (src/repro/kernels/sfc.py:644, body
-// _children_body :430): Algorithm 4.5, all 2^D children in TM order, one
-// thread per (element, child); output rows are (n, 2^D[, D]) row-major, so
-// consecutive threads store consecutive addresses.  At level L the child
-// offset h/2 is 0 (the TPU kernel's h2 == 0), which is reproduced, not
-// guarded: Adapt never refines there, but the kernel takes every level.
-template <int D>
+// _children_body :430, hex branch :450): Algorithm 4.5, all 2^D children in TM order (Morton
+// order for a hex, whose j-th child's cube id is j), one thread per
+// (element, child); output rows are (n, 2^D[, D]) row-major, so consecutive
+// threads store consecutive addresses.  At level L the child offset h/2 is
+// 0 (the TPU kernel's h2 == 0), which is reproduced, not guarded: Adapt
+// never refines there, but the kernel takes every level.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 children_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
                 const int32_t* __restrict__ stype, int32_t* __restrict__ c_anchor,
                 int32_t* __restrict__ c_level, int32_t* __restrict__ c_stype, int64_t n) {
   constexpr int L = Dim<D>::L, NC = 1 << D;
   __shared__ unsigned char dec[kTab];
-  load_table<D, kDec>(dec);
+  if constexpr (EC == kSimplex) load_table<D, kDec>(dec);
   const int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (t >= n * NC) return;
   const int64_t e = t >> D;
   const int j = static_cast<int>(t & (NC - 1));
   const int lvl = level[e];
   const int h2 = (1 << (L - lvl)) >> 1;
-  const int p = dec[(stype[e] * NC + j) & (kTab - 1)];
+  const int p = EC == kHex ? j : dec[(stype[e] * NC + j) & (kTab - 1)];
   const int cid = p & 7;
 #pragma unroll
   for (int k = 0; k < D; ++k) c_anchor[t * D + k] = anchor[e * D + k] + h2 * ((cid >> k) & 1);
@@ -295,16 +428,18 @@ children_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ 
   c_stype[t] = p >> 3;
 }
 
-// One face of Algorithm 4.6 (_neighbor_expr, sfc.py:124): the same-level
-// neighbor across face f of the element with anchor c, cube side h =
-// 2^(L - level) and type b, from the packed neighbor table: its anchor nc,
-// type nb and dual face.  A face or type out of range reads a wrong entry of
-// the 32-entry shared copy, never out of bounds.
-template <int D>
+// One face of Algorithm 4.6 (_neighbor_expr, sfc.py:124; hex
+// _hex_neighbor_expr :195): the same-level neighbor across face f of the
+// element with anchor c, cube side h = 2^(L - level) and type b, from the
+// packed neighbor table of class EC (entry b * (D+1) + f, or f for a hex,
+// whose entries carry type 0 and dual face f ^ 1): its anchor nc, type nb
+// and dual face.  A face or type out of range reads a wrong entry of the
+// 32-entry shared copy, never out of bounds.
+template <int D, int EC>
 __device__ __forceinline__ void neighbor_across(const int (&c)[D], int h, int b, int f,
                                                 const unsigned short* nei, int (&nc)[D],
                                                 int& nb, int& dual) {
-  const int p = nei[(b * (D + 1) + f) & (kNei - 1)];
+  const int p = nei[(EC == kHex ? f : b * (D + 1) + f) & (kNei - 1)];
 #pragma unroll
   for (int k = 0; k < D; ++k) nc[k] = c[k] + (((p >> (6 + 2 * k)) & 3) - 1) * h;
   nb = p & 7;
@@ -312,51 +447,53 @@ __device__ __forceinline__ void neighbor_across(const int (&c)[D], int h, int b,
 }
 
 // Replaces face_sweep_kernel (src/repro/kernels/sfc.py:604, body
-// _face_sweep_body :300 with _neighbor_expr, _inside_expr :139 and
-// _encode_expr :100): for all D+1 faces of each element, the same-level
-// neighbor (Algorithm 4.6: anchor, type, dual face), whether it lies inside
-// the root simplex, and its level-padded key.  The element is read once;
-// face f's outputs go to plane f of the face-major (D+1, n) outputs, so
-// every store is contiguous across a warp.  Nothing is masked: a neighbor
-// outside the root gets its key and inside = 0 all the same.
-template <int D>
+// _face_sweep_body :300, hex branch :319, with _neighbor_expr, _inside_expr :139 and
+// _encode_expr :100; hex _hex_neighbor_expr :195, _hex_inside_expr :210 and
+// _hex_encode_expr :174): for all NF faces of each element (D+1 a simplex,
+// 2D a hex), the same-level neighbor (Algorithm 4.6: anchor, type, dual
+// face), whether it lies inside the root, and its level-padded key.  The
+// element is read once; face f's outputs go to plane f of the face-major
+// (NF, n) outputs, so every store is contiguous across a warp.  Nothing is
+// masked: a neighbor outside the root gets its key and inside = 0 all the
+// same.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 face_sweep_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
                   const int32_t* __restrict__ stype, int32_t* __restrict__ nb_anchor,
                   int32_t* __restrict__ nb_stype, int32_t* __restrict__ dual,
                   uint8_t* __restrict__ inside, int64_t* __restrict__ key, int64_t n) {
-  constexpr int L = Dim<D>::L, NF = D + 1;
+  constexpr int L = Dim<D>::L, NF = EC == kHex ? 2 * D : D + 1;
   __shared__ unsigned char enc[kTab];
   __shared__ unsigned short nei[kNei];
-  load_table<D, kEnc>(enc);
-  load_neighbor_table<D>(nei);
+  if constexpr (EC == kSimplex) load_table<D, kEnc>(enc);
+  load_neighbor_table<D, EC>(nei);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   int c[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
   const int lvl = level[i];
-  const int b = stype[i];
+  const int b = EC == kHex ? 0 : stype[i];
   const int h = 1 << (L - lvl);
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
     int nc[D], nb, du;
-    neighbor_across<D>(c, h, b, f, nei, nc, nb, du);
+    neighbor_across<D, EC>(c, h, b, f, nei, nc, nb, du);
     const int64_t o = f * n + i;
 #pragma unroll
     for (int k = 0; k < D; ++k) nb_anchor[o * D + k] = nc[k];
     nb_stype[o] = nb;
     dual[o] = du;
-    inside[o] = inside_root_of<D>(nc, lvl, nb) ? 1 : 0;
-    key[o] = encode_key<D>(nc, nb, enc);
+    inside[o] = element_inside<D, EC>(nc, lvl, nb) ? 1 : 0;
+    key[o] = element_key<D, EC>(nc, nb, enc);
   }
 }
 
 // Replaces face_neighbor_kernel (src/repro/kernels/sfc.py:588, body
-// _neighbor_body :279 with _neighbor_expr :124): Algorithm 4.6 across one
-// face per element, face[i] of element i, by the per-face step the face
-// sweep runs, so the two cannot drift.
-template <int D>
+// _neighbor_body :279, hex branch :289, with _neighbor_expr :124 or _hex_neighbor_expr :195):
+// Algorithm 4.6 across one face per element, face[i] of element i, by the
+// per-face step the face sweep runs, so the two cannot drift.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 face_neighbor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
                      const int32_t* __restrict__ stype, const int32_t* __restrict__ face,
@@ -364,20 +501,20 @@ face_neighbor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restri
                      int32_t* __restrict__ dual, int64_t n) {
   constexpr int L = Dim<D>::L;
   __shared__ unsigned short nei[kNei];
-  load_neighbor_table<D>(nei);
+  load_neighbor_table<D, EC>(nei);
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   int c[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
   int nc[D], nb, du;
-  neighbor_across<D>(c, 1 << (L - level[i]), stype[i], face[i], nei, nc, nb, du);
+  neighbor_across<D, EC>(c, 1 << (L - level[i]), EC == kHex ? 0 : stype[i], face[i], nei, nc,
+                         nb, du);
 #pragma unroll
   for (int k = 0; k < D; ++k) nb_anchor[i * D + k] = nc[k];
   nb_stype[i] = nb;
   dual[i] = du;
 }
-
 // The owner count of _owner_count_expr (sfc.py:504), which the TPU's
 // owner_rank and eval_route kernels share and so do these: the owner rank of
 // a lex (tree, key) is the number of the P lex-sorted partition markers
@@ -475,7 +612,8 @@ owner_rank_kernel(const int32_t* __restrict__ tree, const int64_t* __restrict__ 
 // element) pair of a face-major (nf, n) sweep, the end key of the
 // neighbor's interval, key | (2^(D(L - lvl)) - 1) (keys are span aligned),
 // and the first and last owner rank of the interval, those of (tree, key)
-// and (tree, end key).  Grid: x over elements, y over faces.  The span
+// and (tree, end key).  Grid: x over elements, y over the nf face planes
+// (d + 1 a simplex, 2d a hex: the TPU kernel reads nf off its tile).  The span
 // exponent is clamped to [0, 63], so the mask never shifts by 64: at d = 3,
 // level 0 it is 2^63 - 1.
 template <int D>
@@ -507,15 +645,16 @@ eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ k
 }
 
 // Replaces successor_kernel (src/repro/kernels/sfc.py:739, body
-// _successor_body :339): Algorithm 4.10 at the element's own level.  The
-// level-padded key (the encode walk) plus 2^(D(L - lvl)), the span of one
-// element of the level, in uint64 and masked to the D*L key bits, then the
-// decode walk at the same level.  The TPU kernel carries +1 through the
-// level's digits; the sum here carries the same way, and the carry out of
-// the top digit is masked off, so the last element of a level wraps to
-// element 0 and a level-0 element maps to the root, as there.  At d = 3 a
-// level-0 span is 2^63, which the uint64 sum holds and an int64 would not.
-template <int D>
+// _successor_body :339, hex branches from :346): Algorithm 4.10 at the element's own level.  The
+// level-padded key (the encode walk, or the hex interleave) plus
+// 2^(D(L - lvl)), the span of one element of the level, in uint64 and masked
+// to the D*L key bits, then the decode at the same level.  The TPU kernel
+// carries +1 through the level's digits; the sum here carries the same way,
+// and the carry out of the top digit is masked off, so the last element of a
+// level wraps to element 0 and a level-0 element maps to the root, as there.
+// At d = 3 a level-0 span is 2^63, which the uint64 sum holds and an int64
+// would not.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 successor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
                  const int32_t* __restrict__ stype, int32_t* __restrict__ o_anchor,
@@ -524,8 +663,10 @@ successor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__
   constexpr uint64_t kKeyBits = (uint64_t{1} << (D * L)) - 1;
   __shared__ unsigned char enc[kTab];
   __shared__ unsigned char dec[kTab];
-  load_table<D, kEnc>(enc);
-  load_table<D, kDec>(dec);
+  if constexpr (EC == kSimplex) {
+    load_table<D, kEnc>(enc);
+    load_table<D, kDec>(dec);
+  }
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   int c[D];
@@ -533,19 +674,21 @@ successor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
   const int lvl = level[i];
   const uint64_t span = uint64_t{1} << min(max(D * (L - lvl), 0), 63);
-  const uint64_t next = (static_cast<uint64_t>(encode_key<D>(c, stype[i], enc)) + span) & kKeyBits;
+  const int64_t key = element_key<D, EC>(c, EC == kHex ? 0 : stype[i], enc);
+  const uint64_t next = (static_cast<uint64_t>(key) + span) & kKeyBits;
   int xyz[D];
-  const int b = decode_walk<D>(next, lvl, dec, xyz);
+  const int b = decode_walk<D, EC>(next, lvl, dec, xyz);
 #pragma unroll
   for (int k = 0; k < D; ++k) o_anchor[i * D + k] = xyz[k];
   o_stype[i] = b;
 }
 
 // Replaces inside_root_kernel (src/repro/kernels/sfc.py:662, body
-// _inside_body :536): the Proposition-23 test against the root simplex,
+// _inside_body :536, hex branch :545): the Proposition-23 test against the root simplex,
 // one element a thread, with the level-0 rule of sfc.py:171 (a level-0
-// element is inside only if it is the root).
-template <int D>
+// element is inside only if it is the root); for a hex, box containment in
+// the root cube.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 inside_root_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
                    const int32_t* __restrict__ stype, uint8_t* __restrict__ inside, int64_t n) {
@@ -554,7 +697,7 @@ inside_root_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict
   int c[D];
 #pragma unroll
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
-  inside[i] = inside_root_of<D>(c, level[i], stype[i]) ? 1 : 0;
+  inside[i] = element_inside<D, EC>(c, level[i], EC == kHex ? 0 : stype[i]) ? 1 : 0;
 }
 
 // Replaces tree_transform_kernel (src/repro/kernels/sfc.py:678, body
@@ -562,19 +705,20 @@ inside_root_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict
 // thread, each across its own connection.  Per element: anchor'[k] =
 // anchor[ax_k] + c[k] on a + row, c[k] - anchor[ax_k] - h on a reflected
 // row (h = 2^(L - level)), type' = typemap[type], dual' = facemap[type][dual]
-// and the neighbor tree.  The TPU kernel bakes one connection's M, c and
-// typemap into each compiled program and looks the type up by a masked sum
-// (_lut); one launch over every crossing of a many-tree mesh needs the
-// connection as data instead, so each thread reads its row (packed by
-// repro_torch/core/cmesh.py:pack_connection, W = 2D + D! + D!(D+1) + 1
-// int32) from the table in global memory through the read-only cache: the
-// number of connections is unbounded, so the table does not go to shared
-// memory.  The arithmetic is done in uint32 and cast back, which is the
-// int32 ring arithmetic of the reference without signed overflow: at d = 2
-// periodic translations reach 2^31.  Connection, type and dual indices are
-// clamped to their tables, so a malformed input reads a wrong row, never
-// out of bounds.
-template <int D>
+// and the neighbor tree.  A hex keeps type 0 and reads its 2D-entry face map
+// from the row's first face-map slots (pack_connection).  The TPU kernel
+// bakes one connection's M, c and typemap into each compiled program and
+// looks the type up by a masked sum (_lut); one launch over every crossing
+// of a many-tree mesh needs the connection as data instead, so each thread
+// reads its row (packed by repro_torch/core/cmesh.py:pack_connection,
+// W = 2D + D! + D!(D+1) + 1 int32) from the table in global memory through
+// the read-only cache: the number of connections is unbounded, so the table
+// does not go to shared memory.  The arithmetic is done in uint32 and cast
+// back, which is the int32 ring arithmetic of the reference without signed
+// overflow: at d = 2 periodic translations reach 2^31.  Connection, type and
+// dual indices are clamped to their tables (the dual to the class's faces),
+// so a malformed input reads a wrong row or entry, never out of bounds.
+template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 tree_transform_kernel(const int32_t* __restrict__ conn, const int32_t* __restrict__ anchor,
                       const int32_t* __restrict__ level, const int32_t* __restrict__ stype,
@@ -582,8 +726,8 @@ tree_transform_kernel(const int32_t* __restrict__ conn, const int32_t* __restric
                       int num_conn, int32_t* __restrict__ o_anchor,
                       int32_t* __restrict__ o_stype, int32_t* __restrict__ o_dual,
                       int32_t* __restrict__ o_tree, int64_t n) {
-  constexpr int L = Dim<D>::L, NT = Dim<D>::NT, NF = D + 1;
-  constexpr int W = 2 * D + NT + NT * NF + 1;
+  constexpr int L = Dim<D>::L, NT = Dim<D>::NT, NF = EC == kHex ? 2 * D : D + 1;
+  constexpr int W = 2 * D + NT + NT * (D + 1) + 1;
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   const int64_t row = static_cast<int64_t>(min(max(conn[i], 0), num_conn - 1)) * W;
@@ -603,10 +747,15 @@ tree_transform_kernel(const int32_t* __restrict__ conn, const int32_t* __restric
     const uint32_t v = (code & 4) ? c - src - h : src + c;
     o_anchor[i * D + k] = static_cast<int32_t>(v);
   }
-  const int b = min(max(stype[i], 0), NT - 1);
   const int f = min(max(dual[i], 0), NF - 1);
-  o_stype[i] = __ldg(r + 2 * D + b);
-  o_dual[i] = __ldg(r + 2 * D + NT + b * NF + f);
+  if constexpr (EC == kHex) {
+    o_stype[i] = 0;
+    o_dual[i] = __ldg(r + 2 * D + NT + f);
+  } else {
+    const int b = min(max(stype[i], 0), NT - 1);
+    o_stype[i] = __ldg(r + 2 * D + b);
+    o_dual[i] = __ldg(r + 2 * D + NT + b * NF + f);
+  }
   o_tree[i] = __ldg(r + W - 1);
 }
 
@@ -618,38 +767,102 @@ inline size_t marker_smem_bytes(int num_markers) {
   return static_cast<size_t>(num_markers) * (sizeof(int64_t) + sizeof(int32_t));
 }
 
+// Calls Launch<d, eclass>::run(args...) for the four instantiated pairs and
+// returns cudaGetLastError() after it; an unknown pair launches nothing and
+// returns cudaErrorInvalidValue.
+template <template <int, int> class Launch, typename... Args>
+int launch_for(int d, int eclass, Args... args) {
+  if (d == 2 && eclass == kSimplex) Launch<2, kSimplex>::run(args...);
+  else if (d == 3 && eclass == kSimplex) Launch<3, kSimplex>::run(args...);
+  else if (d == 2 && eclass == kHex) Launch<2, kHex>::run(args...);
+  else if (d == 3 && eclass == kHex) Launch<3, kHex>::run(args...);
+  else return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+// One launcher per kernel with a body per class, for `launch_for`.
+template <int D, int EC> struct MortonKey {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* b, int64_t* k, int64_t n) {
+    morton_key_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, b, k, n);
+  }
+};
+template <int D, int EC> struct Decode {
+  static void run(cudaStream_t s, const int64_t* k, const int32_t* l, int32_t* a, int32_t* b,
+                  int64_t n) {
+    decode_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(k, l, a, b, n);
+  }
+};
+template <int D, int EC> struct Parent {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                  int32_t* pa, int32_t* pl, int32_t* pb, int32_t* pi, int64_t n) {
+    parent_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, pa, pl, pb, pi, n);
+  }
+};
+template <int D, int EC> struct Children {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                  int32_t* ca, int32_t* cl, int32_t* cb, int64_t n) {
+    children_kernel<D, EC><<<blocks_for(n << D), kThreads, 0, s>>>(a, l, b, ca, cl, cb, n);
+  }
+};
+template <int D, int EC> struct FaceSweep {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                  int32_t* na, int32_t* nb, int32_t* du, uint8_t* in, int64_t* k, int64_t n) {
+    face_sweep_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, na, nb, du, in, k, n);
+  }
+};
+template <int D, int EC> struct Successor {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                  int32_t* oa, int32_t* ob, int64_t n) {
+    successor_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, oa, ob, n);
+  }
+};
+template <int D, int EC> struct FaceNeighbor {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                  const int32_t* f, int32_t* na, int32_t* nb, int32_t* du, int64_t n) {
+    face_neighbor_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, f, na, nb, du, n);
+  }
+};
+template <int D, int EC> struct InsideRoot {
+  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                  uint8_t* in, int64_t n) {
+    inside_root_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, in, n);
+  }
+};
+template <int D, int EC> struct TreeTransform {
+  static void run(cudaStream_t s, const int32_t* cn, const int32_t* a, const int32_t* l,
+                  const int32_t* b, const int32_t* du, const int32_t* tb, int num_conn,
+                  int32_t* oa, int32_t* ob, int32_t* od, int32_t* ot, int64_t n) {
+    tree_transform_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(cn, a, l, b, du, tb,
+                                                                     num_conn, oa, ob, od, ot, n);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-int sfc_morton_key(int d, const void* anchor, const void* stype, void* key, int64_t n,
-                   void* stream) {
+int sfc_morton_key(int d, int eclass, const void* anchor, const void* stype, void* key,
+                   int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const int32_t*>(anchor);
   auto b = static_cast<const int32_t*>(stype);
   auto k = static_cast<int64_t*>(key);
-  if (d == 2) morton_key_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, b, k, n);
-  else if (d == 3) morton_key_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, b, k, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<MortonKey>(d, eclass, s, a, b, k, n);
 }
 
-int sfc_decode(int d, const void* key, const void* level, void* anchor, void* stype,
-               int64_t n, void* stream) {
+int sfc_decode(int d, int eclass, const void* key, const void* level, void* anchor,
+               void* stype, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto k = static_cast<const int64_t*>(key);
   auto l = static_cast<const int32_t*>(level);
   auto a = static_cast<int32_t*>(anchor);
   auto b = static_cast<int32_t*>(stype);
-  if (d == 2) decode_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(k, l, a, b, n);
-  else if (d == 3) decode_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(k, l, a, b, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<Decode>(d, eclass, s, k, l, a, b, n);
 }
 
-int sfc_parent(int d, const void* anchor, const void* level, const void* stype,
+int sfc_parent(int d, int eclass, const void* anchor, const void* level, const void* stype,
                void* p_anchor, void* p_level, void* p_stype, void* iloc, int64_t n,
                void* stream) {
   if (n <= 0) return cudaSuccess;
@@ -661,13 +874,10 @@ int sfc_parent(int d, const void* anchor, const void* level, const void* stype,
   auto pl = static_cast<int32_t*>(p_level);
   auto pb = static_cast<int32_t*>(p_stype);
   auto pi = static_cast<int32_t*>(iloc);
-  if (d == 2) parent_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, pa, pl, pb, pi, n);
-  else if (d == 3) parent_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, pa, pl, pb, pi, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<Parent>(d, eclass, s, a, l, b, pa, pl, pb, pi, n);
 }
 
-int sfc_children(int d, const void* anchor, const void* level, const void* stype,
+int sfc_children(int d, int eclass, const void* anchor, const void* level, const void* stype,
                  void* c_anchor, void* c_level, void* c_stype, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -677,13 +887,10 @@ int sfc_children(int d, const void* anchor, const void* level, const void* stype
   auto ca = static_cast<int32_t*>(c_anchor);
   auto cl = static_cast<int32_t*>(c_level);
   auto cb = static_cast<int32_t*>(c_stype);
-  if (d == 2) children_kernel<2><<<blocks_for(n << 2), kThreads, 0, s>>>(a, l, b, ca, cl, cb, n);
-  else if (d == 3) children_kernel<3><<<blocks_for(n << 3), kThreads, 0, s>>>(a, l, b, ca, cl, cb, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<Children>(d, eclass, s, a, l, b, ca, cl, cb, n);
 }
 
-int sfc_face_sweep(int d, const void* anchor, const void* level, const void* stype,
+int sfc_face_sweep(int d, int eclass, const void* anchor, const void* level, const void* stype,
                    void* nb_anchor, void* nb_stype, void* dual, void* inside, void* key,
                    int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
@@ -696,17 +903,15 @@ int sfc_face_sweep(int d, const void* anchor, const void* level, const void* sty
   auto du = static_cast<int32_t*>(dual);
   auto in = static_cast<uint8_t*>(inside);
   auto k = static_cast<int64_t*>(key);
-  if (d == 2) face_sweep_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, na, nb, du, in, k, n);
-  else if (d == 3) face_sweep_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, na, nb, du, in, k, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<FaceSweep>(d, eclass, s, a, l, b, na, nb, du, in, k, n);
 }
 
-int sfc_eval_route(int d, const void* tgt, const void* key, const void* level,
+int sfc_eval_route(int d, int nf, const void* tgt, const void* key, const void* level,
                    const void* marker_tree, const void* marker_key, int num_markers,
                    void* kend, void* first, void* last, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (num_markers < 1 || (d != 2 && d != 3)) return cudaErrorInvalidValue;
+  if (num_markers < 1 || (d != 2 && d != 3) || (nf != d + 1 && nf != 2 * d))
+    return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<const int32_t*>(tgt);
   auto k = static_cast<const int64_t*>(key);
@@ -716,7 +921,7 @@ int sfc_eval_route(int d, const void* tgt, const void* key, const void* level,
   auto ke = static_cast<int64_t*>(kend);
   auto f = static_cast<int32_t*>(first);
   auto la = static_cast<int32_t*>(last);
-  const dim3 grid(blocks_for(n), d + 1);
+  const dim3 grid(blocks_for(n), nf);
   const size_t shmem = marker_smem_bytes(num_markers);
   if (num_markers > kSharedMarkers) {
     if (d == 2) eval_route_kernel<2, false><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
@@ -747,7 +952,7 @@ int sfc_owner_rank(const void* tree, const void* key, const void* marker_tree,
   return cudaGetLastError();
 }
 
-int sfc_successor(int d, const void* anchor, const void* level, const void* stype,
+int sfc_successor(int d, int eclass, const void* anchor, const void* level, const void* stype,
                   void* o_anchor, void* o_stype, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -756,15 +961,12 @@ int sfc_successor(int d, const void* anchor, const void* level, const void* styp
   auto b = static_cast<const int32_t*>(stype);
   auto oa = static_cast<int32_t*>(o_anchor);
   auto ob = static_cast<int32_t*>(o_stype);
-  if (d == 2) successor_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, oa, ob, n);
-  else if (d == 3) successor_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, oa, ob, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<Successor>(d, eclass, s, a, l, b, oa, ob, n);
 }
 
-int sfc_face_neighbor(int d, const void* anchor, const void* level, const void* stype,
-                      const void* face, void* nb_anchor, void* nb_stype, void* dual, int64_t n,
-                      void* stream) {
+int sfc_face_neighbor(int d, int eclass, const void* anchor, const void* level,
+                      const void* stype, const void* face, void* nb_anchor, void* nb_stype,
+                      void* dual, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
   auto a = static_cast<const int32_t*>(anchor);
@@ -774,13 +976,10 @@ int sfc_face_neighbor(int d, const void* anchor, const void* level, const void* 
   auto na = static_cast<int32_t*>(nb_anchor);
   auto nb = static_cast<int32_t*>(nb_stype);
   auto du = static_cast<int32_t*>(dual);
-  if (d == 2) face_neighbor_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, f, na, nb, du, n);
-  else if (d == 3) face_neighbor_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, f, na, nb, du, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<FaceNeighbor>(d, eclass, s, a, l, b, f, na, nb, du, n);
 }
 
-int sfc_inside_root(int d, const void* anchor, const void* level, const void* stype,
+int sfc_inside_root(int d, int eclass, const void* anchor, const void* level, const void* stype,
                     void* inside, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   auto s = static_cast<cudaStream_t>(stream);
@@ -788,16 +987,13 @@ int sfc_inside_root(int d, const void* anchor, const void* level, const void* st
   auto l = static_cast<const int32_t*>(level);
   auto b = static_cast<const int32_t*>(stype);
   auto in = static_cast<uint8_t*>(inside);
-  if (d == 2) inside_root_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, in, n);
-  else if (d == 3) inside_root_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, in, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<InsideRoot>(d, eclass, s, a, l, b, in, n);
 }
 
-int sfc_tree_transform(int d, const void* conn, const void* anchor, const void* level,
-                       const void* stype, const void* dual, const void* table, int num_conn,
-                       void* o_anchor, void* o_stype, void* o_dual, void* o_tree, int64_t n,
-                       void* stream) {
+int sfc_tree_transform(int d, int eclass, const void* conn, const void* anchor,
+                       const void* level, const void* stype, const void* dual,
+                       const void* table, int num_conn, void* o_anchor, void* o_stype,
+                       void* o_dual, void* o_tree, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
   if (num_conn < 1) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
@@ -811,10 +1007,8 @@ int sfc_tree_transform(int d, const void* conn, const void* anchor, const void* 
   auto ob = static_cast<int32_t*>(o_stype);
   auto od = static_cast<int32_t*>(o_dual);
   auto ot = static_cast<int32_t*>(o_tree);
-  if (d == 2) tree_transform_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(cn, a, l, b, du, tb, num_conn, oa, ob, od, ot, n);
-  else if (d == 3) tree_transform_kernel<3><<<blocks_for(n), kThreads, 0, s>>>(cn, a, l, b, du, tb, num_conn, oa, ob, od, ot, n);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+  return launch_for<TreeTransform>(d, eclass, s, cn, a, l, b, du, tb, num_conn, oa, ob, od, ot,
+                                   n);
 }
 
 }  // extern "C"

@@ -4,12 +4,20 @@ eval and inside-root test (Balance -> Ghost -> validate), the tree
 transform that carries face neighbors across glued tree faces (cmesh), and
 the element queries owner rank, successor and single-face neighbor.
 
+Every kernel with a body per element class takes `eclass` (simplex by
+default) and passes it to the C entry point, which launches that class's
+body: the hex bodies never read the type column and write it as 0.
+`eval_route` reads its face count nf (d + 1 a simplex, 2d a hex) off its
+inputs and launches one grid row per face plane; `owner_rank` has one body
+for both classes.
+
 Each wrapper checks dtype, shape and contiguity, then dispatches by device:
 a CPU tensor goes to its plain version in `kernels.ref`; a CUDA tensor goes
 to the kernel, or the call raises — there is no fallback.  On the card a
 wrapper allocates the outputs with `torch.empty`, launches on
 `torch.cuda.current_stream()`, raises if the launch returns a nonzero
-`cudaError_t`, and adds one to `launch_counts` for the kernel.
+`cudaError_t`, and adds one to `launch_counts` for the kernel and to
+`class_launch_counts` for the kernel and the class ("simplex" or "hex").
 """
 
 from __future__ import annotations
@@ -19,33 +27,36 @@ import ctypes
 import torch
 
 from ..core.cmesh import conn_row_width
+from ..core.types import ECLASS_HEX, ECLASS_NAMES, ECLASS_SIMPLEX
 from . import ref
 from .build import library
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
            "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "class_launch_counts", "reset_launch_counts"]
 
 launch_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
                                  "face_sweep": 0, "eval_route": 0, "inside_root": 0,
                                  "tree_transform": 0, "owner_rank": 0, "successor": 0,
                                  "face_neighbor": 0}
+class_launch_counts: dict[str, dict[str, int]] = {
+    k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in launch_counts}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
+_I = ctypes.c_int
 _ARGTYPES = {
-    "sfc_morton_key": [ctypes.c_int, _P, _P, _P, _N, _P],
-    "sfc_decode": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
-    "sfc_parent": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _N, _P],
-    "sfc_children": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _N, _P],
-    "sfc_face_sweep": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _N, _P],
-    "sfc_eval_route": [ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P, _P, _N, _P],
-    "sfc_inside_root": [ctypes.c_int, _P, _P, _P, _P, _N, _P],
-    "sfc_tree_transform": [ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int,
-                           _P, _P, _P, _P, _N, _P],
-    "sfc_owner_rank": [_P, _P, _P, _P, ctypes.c_int, _P, _N, _P],
-    "sfc_successor": [ctypes.c_int, _P, _P, _P, _P, _P, _N, _P],
-    "sfc_face_neighbor": [ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_morton_key": [_I, _I, _P, _P, _P, _N, _P],
+    "sfc_decode": [_I, _I, _P, _P, _P, _P, _N, _P],
+    "sfc_parent": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_children": [_I, _I, _P, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_face_sweep": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_eval_route": [_I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _N, _P],
+    "sfc_inside_root": [_I, _I, _P, _P, _P, _P, _N, _P],
+    "sfc_tree_transform": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _N, _P],
+    "sfc_owner_rank": [_P, _P, _P, _P, _I, _P, _N, _P],
+    "sfc_successor": [_I, _I, _P, _P, _P, _P, _P, _N, _P],
+    "sfc_face_neighbor": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _N, _P],
 }
 _FNS: dict = {}
 
@@ -53,6 +64,7 @@ _FNS: dict = {}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+        class_launch_counts[k] = dict.fromkeys(ECLASS_NAMES.values(), 0)
 
 
 def _fn(name: str):
@@ -94,116 +106,145 @@ def _dim(anchor: torch.Tensor) -> int:
     return anchor.shape[1]
 
 
-def _launch(name: str, kernel: str, *args) -> None:
+def _class(eclass: int) -> int:
+    if eclass not in ECLASS_NAMES:
+        raise ValueError(f"unknown element class {eclass!r}")
+    return eclass
+
+
+def _nf(d: int, eclass: int) -> int:
+    """Faces of an element: d + 1 a simplex, 2d a hex."""
+    return 2 * d if eclass == ECLASS_HEX else d + 1
+
+
+def _launch(name: str, eclass: int, kernel: str, *args) -> None:
     """Call C entry point `kernel` with `args` (tensors as pointers) and the
-    current stream of the tensors' card."""
+    current stream of the tensors' card; count the launch for `eclass`."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    fn = _fn(kernel)
+    if len(ptrs) + 1 != len(fn.argtypes):     # ctypes would pass extras unconverted
+        raise TypeError(f"{kernel} takes {len(fn.argtypes)} arguments, got {len(ptrs) + 1}")
     with torch.cuda.device(dev):
-        err = _fn(kernel)(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError_t {err}")
     launch_counts[name] += 1
+    class_launch_counts[name][ECLASS_NAMES[eclass]] += 1
 
 
-def morton_key(anchor: torch.Tensor, stype: torch.Tensor) -> torch.Tensor:
-    """Level-padded int64 keys of (n, d) anchors and (n,) types."""
+def _elements(anchor: torch.Tensor, level: torch.Tensor | None, stype: torch.Tensor):
+    """Check an (n, d) anchor, (n,) level (unless None) and (n,) type
+    column; return (d, n)."""
     d, n = _dim(anchor), anchor.shape[0]
     _check(anchor, "anchor", torch.int32, (n, d))
+    if level is not None:
+        _check(level, "level", torch.int32, (n,))
     _check(stype, "stype", torch.int32, (n,))
+    return d, n
+
+
+def morton_key(anchor: torch.Tensor, stype: torch.Tensor,
+               eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
+    """Level-padded int64 keys of (n, d) anchors and (n,) types."""
+    d, n = _elements(anchor, None, stype)
+    ec = _class(eclass)
     if _on_cpu(anchor, stype):
-        return ref.morton_key(anchor, stype)
+        return ref.morton_key(anchor, stype, ec)
     key = torch.empty(n, dtype=torch.int64, device=anchor.device)
     if n:
-        _launch("morton_key", "sfc_morton_key", d, anchor, stype, key, n)
+        _launch("morton_key", ec, "sfc_morton_key", d, ec, anchor, stype, key, n)
     return key
 
 
-def decode(d: int, key: torch.Tensor, level: torch.Tensor):
+def decode(d: int, key: torch.Tensor, level: torch.Tensor, eclass: int = ECLASS_SIMPLEX):
     """Algorithm 4.8: (n,) int64 keys + int32 levels -> (anchor, type)."""
     if d not in (2, 3):
         raise ValueError(f"d must be 2 or 3, got {d}")
+    ec = _class(eclass)
     n = key.shape[0]
     _check(key, "key", torch.int64, (n,))
     _check(level, "level", torch.int32, (n,))
     if _on_cpu(key, level):
-        return ref.decode(d, key, level)
+        return ref.decode(d, key, level, ec)
     anchor = torch.empty((n, d), dtype=torch.int32, device=key.device)
     stype = torch.empty(n, dtype=torch.int32, device=key.device)
     if n:
-        _launch("decode", "sfc_decode", d, key, level, anchor, stype, n)
+        _launch("decode", ec, "sfc_decode", d, ec, key, level, anchor, stype, n)
     return anchor, stype
 
 
-def parent(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+def parent(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+           eclass: int = ECLASS_SIMPLEX):
     """Algorithm 4.3 + Table 6: (parent anchor, level, type, local index)."""
-    d, n = _dim(anchor), anchor.shape[0]
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     if _on_cpu(anchor, level, stype):
-        return ref.parent(anchor, level, stype)
+        return ref.parent(anchor, level, stype, ec)
     outs = (torch.empty((n, d), dtype=torch.int32, device=anchor.device),
             *(torch.empty(n, dtype=torch.int32, device=anchor.device) for _ in range(3)))
     if n:
-        _launch("parent", "sfc_parent", d, anchor, level, stype, *outs, n)
+        _launch("parent", ec, "sfc_parent", d, ec, anchor, level, stype, *outs, n)
     return outs
 
 
-def children(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+def children(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+             eclass: int = ECLASS_SIMPLEX):
     """Algorithm 4.5, all 2^d children in SFC order: anchor (n, 2^d, d),
     level and type (n, 2^d)."""
-    d, n = _dim(anchor), anchor.shape[0]
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     if _on_cpu(anchor, level, stype):
-        return ref.children(anchor, level, stype)
+        return ref.children(anchor, level, stype, ec)
     nc = 1 << d
     dev = anchor.device
     outs = (torch.empty((n, nc, d), dtype=torch.int32, device=dev),
             torch.empty((n, nc), dtype=torch.int32, device=dev),
             torch.empty((n, nc), dtype=torch.int32, device=dev))
     if n:
-        _launch("children", "sfc_children", d, anchor, level, stype, *outs, n)
+        _launch("children", ec, "sfc_children", d, ec, anchor, level, stype, *outs, n)
     return outs
 
 
-def face_sweep(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
-    """For all d+1 faces of (n,) elements: the same-level neighbor's anchor
-    (nf, n, d) int32, type and dual face (nf, n) int32, inside-root mask
-    (nf, n) bool and key (nf, n) int64, face-major."""
-    d, n = _dim(anchor), anchor.shape[0]
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
+def face_sweep(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+               eclass: int = ECLASS_SIMPLEX):
+    """For all nf faces of (n,) elements (d + 1 a simplex, 2d a hex): the
+    same-level neighbor's anchor (nf, n, d) int32, type and dual face
+    (nf, n) int32, inside-root mask (nf, n) bool and key (nf, n) int64,
+    face-major."""
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     if _on_cpu(anchor, level, stype):
-        return ref.face_sweep(anchor, level, stype)
-    nf, dev = d + 1, anchor.device
+        return ref.face_sweep(anchor, level, stype, ec)
+    nf, dev = _nf(d, ec), anchor.device
     outs = (torch.empty((nf, n, d), dtype=torch.int32, device=dev),
             torch.empty((nf, n), dtype=torch.int32, device=dev),
             torch.empty((nf, n), dtype=torch.int32, device=dev),
             torch.empty((nf, n), dtype=torch.bool, device=dev),
             torch.empty((nf, n), dtype=torch.int64, device=dev))
     if n:
-        _launch("face_sweep", "sfc_face_sweep", d, anchor, level, stype, *outs, n)
+        _launch("face_sweep", ec, "sfc_face_sweep", d, ec, anchor, level, stype, *outs, n)
     return outs
 
 
 def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor,
                marker_tree: torch.Tensor, marker_key: torch.Tensor):
-    """Over the pairs of a face-major (d+1, n) sweep — target tree int32 and
-    neighbor key int64 per pair, level int32 per element — against P
-    lex-sorted partition markers (tree int32, key int64), any P >= 1: the
-    interval end key (int64) and first and last owner rank (int32), each
-    (d+1, n).  On the card up to 4096 markers are scanned from shared
-    memory and more are binary searched in global memory; both count as
-    `eval_route` launches."""
+    """Over the pairs of a face-major (nf, n) sweep — nf = d + 1 (simplex)
+    or 2d (hex) read off `tgt`; target tree int32 and neighbor key int64
+    per pair, level int32 per element — against P lex-sorted partition
+    markers (tree int32, key int64), any P >= 1: the interval end key
+    (int64) and first and last owner rank (int32), each (nf, n).  On the
+    card up to 4096 markers are scanned from shared memory and more are
+    binary searched in global memory; both count as `eval_route` launches,
+    under the class whose face count nf is."""
     if d not in (2, 3):
         raise ValueError(f"d must be 2 or 3, got {d}")
     n, P = level.shape[0], marker_tree.shape[0]
-    _check(tgt, "tgt", torch.int32, (d + 1, n))
-    _check(key, "key", torch.int64, (d + 1, n))
+    nf = tgt.shape[0] if tgt.dim() == 2 else -1
+    if nf not in (d + 1, 2 * d):
+        raise ValueError(f"tgt must be (d + 1, n) or (2d, n), got {tuple(tgt.shape)}")
+    _check(tgt, "tgt", torch.int32, (nf, n))
+    _check(key, "key", torch.int64, (nf, n))
     _check(level, "level", torch.int32, (n,))
     _check(marker_tree, "marker_tree", torch.int32, (P,))
     _check(marker_key, "marker_key", torch.int64, (P,))
@@ -212,111 +253,112 @@ def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor
     if _on_cpu(tgt, key, level, marker_tree, marker_key):
         return ref.eval_route(d, tgt, key, level, marker_tree, marker_key)
     dev = key.device
-    kend = torch.empty((d + 1, n), dtype=torch.int64, device=dev)
-    first = torch.empty((d + 1, n), dtype=torch.int32, device=dev)
-    last = torch.empty((d + 1, n), dtype=torch.int32, device=dev)
+    kend = torch.empty((nf, n), dtype=torch.int64, device=dev)
+    first = torch.empty((nf, n), dtype=torch.int32, device=dev)
+    last = torch.empty((nf, n), dtype=torch.int32, device=dev)
     if n:
-        _launch("eval_route", "sfc_eval_route", d, tgt, key, level, marker_tree, marker_key,
-                P, kend, first, last, n)
+        ec = ECLASS_HEX if nf == 2 * d else ECLASS_SIMPLEX
+        _launch("eval_route", ec, "sfc_eval_route", d, nf, tgt, key, level, marker_tree,
+                marker_key, P, kend, first, last, n)
     return kend, first, last
 
 
-def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor) -> torch.Tensor:
+def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+                eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
     """Section 4.4 inside-root test of (n,) elements -> (n,) bool."""
-    d, n = _dim(anchor), anchor.shape[0]
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     if _on_cpu(anchor, level, stype):
-        return ref.inside_root(anchor, level, stype)
+        return ref.inside_root(anchor, level, stype, ec)
     inside = torch.empty(n, dtype=torch.bool, device=anchor.device)
     if n:
-        _launch("inside_root", "sfc_inside_root", d, anchor, level, stype, inside, n)
+        _launch("inside_root", ec, "sfc_inside_root", d, ec, anchor, level, stype, inside, n)
     return inside
 
 
 def tree_transform(conn: torch.Tensor, anchor: torch.Tensor, level: torch.Tensor,
-                   stype: torch.Tensor, dual: torch.Tensor, table: torch.Tensor):
+                   stype: torch.Tensor, dual: torch.Tensor, table: torch.Tensor,
+                   eclass: int = ECLASS_SIMPLEX):
     """(n,) elements, each across its own coarse-mesh connection: row
     conn[i] of the packed int32 connection table (C, W)
-    (`core.cmesh.pack_connection`).  Returns the element in the neighbor
-    tree's frame — anchor (n, d), type — its dual face renumbered by the
-    connection's face map, and the neighbor tree; all int32."""
-    d, n = _dim(anchor), anchor.shape[0]
+    (`core.cmesh.pack_connection`, rows of the elements' class).  Returns
+    the element in the neighbor tree's frame — anchor (n, d), type — its
+    dual face renumbered by the connection's face map, and the neighbor
+    tree; all int32."""
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     _check(conn, "conn", torch.int32, (n,))
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
     _check(dual, "dual", torch.int32, (n,))
     if table.dim() != 2 or table.shape[0] < 1:
         raise ValueError(f"table must hold at least one connection row, got {tuple(table.shape)}")
     _check(table, "table", torch.int32, (table.shape[0], conn_row_width(d)))
     if _on_cpu(conn, anchor, level, stype, dual, table):
-        return ref.tree_transform(conn, anchor, level, stype, dual, table)
+        return ref.tree_transform(conn, anchor, level, stype, dual, table, ec)
     dev = anchor.device
     outs = (torch.empty((n, d), dtype=torch.int32, device=dev),
             *(torch.empty(n, dtype=torch.int32, device=dev) for _ in range(3)))
     if n:
-        _launch("tree_transform", "sfc_tree_transform", d, conn, anchor, level, stype, dual,
-                table, table.shape[0], *outs, n)
+        _launch("tree_transform", ec, "sfc_tree_transform", d, ec, conn, anchor, level, stype,
+                dual, table, table.shape[0], *outs, n)
     return outs
 
 
 def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
-               marker_key: torch.Tensor) -> torch.Tensor:
+               marker_key: torch.Tensor, eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
     """The owner rank of each (n,) lex (tree int32, key int64) against P
     lex-sorted partition markers (tree int32, key int64): the number of
     markers lex-<= it, less one, clamped to 0; (n,) int32.  On the card,
     any P >= 1: up to 4096 markers are scanned from shared memory and more
-    are binary searched in global memory, both `owner_rank` launches."""
+    are binary searched in global memory, both `owner_rank` launches.  One
+    body for both classes; `eclass` names the launch count."""
+    ec = _class(eclass)
     n, P = tree.shape[0], marker_tree.shape[0]
     _check(tree, "tree", torch.int32, (n,))
     _check(key, "key", torch.int64, (n,))
     _check(marker_tree, "marker_tree", torch.int32, (P,))
     _check(marker_key, "marker_key", torch.int64, (P,))
     if _on_cpu(tree, key, marker_tree, marker_key):
-        return ref.owner_rank(tree, key, marker_tree, marker_key)
+        return ref.owner_rank(tree, key, marker_tree, marker_key, ec)
     if P < 1:
         raise ValueError(f"need at least 1 partition marker, got {P}")
     rank = torch.empty(n, dtype=torch.int32, device=key.device)
     if n:
-        _launch("owner_rank", "sfc_owner_rank", tree, key, marker_tree, marker_key, P,
+        _launch("owner_rank", ec, "sfc_owner_rank", tree, key, marker_tree, marker_key, P,
                 rank, n)
     return rank
 
 
-def successor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+def successor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+              eclass: int = ECLASS_SIMPLEX):
     """Algorithm 4.10: the next element along the curve at each element's
     own level, wrapping within the level (the last element's successor is
     element 0).  Returns (anchor (n, d), type), int32; the level is the
     input's."""
-    d, n = _dim(anchor), anchor.shape[0]
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     if _on_cpu(anchor, level, stype):
-        return ref.successor(anchor, level, stype)
+        return ref.successor(anchor, level, stype, ec)
     outs = (torch.empty((n, d), dtype=torch.int32, device=anchor.device),
             torch.empty(n, dtype=torch.int32, device=anchor.device))
     if n:
-        _launch("successor", "sfc_successor", d, anchor, level, stype, *outs, n)
+        _launch("successor", ec, "sfc_successor", d, ec, anchor, level, stype, *outs, n)
     return outs
 
 
 def face_neighbor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
-                  face: torch.Tensor):
-    """Algorithm 4.6 across face[i] of element i (face int32 (n,)): the
-    same-level neighbor's anchor (n, d) and type, and the dual face, all
-    int32.  The neighbor may lie outside the root."""
-    d, n = _dim(anchor), anchor.shape[0]
-    _check(anchor, "anchor", torch.int32, (n, d))
-    _check(level, "level", torch.int32, (n,))
-    _check(stype, "stype", torch.int32, (n,))
+                  face: torch.Tensor, eclass: int = ECLASS_SIMPLEX):
+    """Algorithm 4.6 across face[i] of element i (face int32 (n,), below
+    d + 1 for a simplex, 2d for a hex): the same-level neighbor's anchor
+    (n, d) and type, and the dual face, all int32.  The neighbor may lie
+    outside the root."""
+    d, n = _elements(anchor, level, stype)
+    ec = _class(eclass)
     _check(face, "face", torch.int32, (n,))
     if _on_cpu(anchor, level, stype, face):
-        return ref.face_neighbor(anchor, level, stype, face)
+        return ref.face_neighbor(anchor, level, stype, face, ec)
     outs = (torch.empty((n, d), dtype=torch.int32, device=anchor.device),
             *(torch.empty(n, dtype=torch.int32, device=anchor.device) for _ in range(2)))
     if n:
-        _launch("face_neighbor", "sfc_face_neighbor", d, anchor, level, stype, face, *outs, n)
+        _launch("face_neighbor", ec, "sfc_face_neighbor", d, ec, anchor, level, stype, face,
+                *outs, n)
     return outs

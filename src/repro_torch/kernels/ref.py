@@ -3,7 +3,12 @@
 Same signatures and outputs as the wrappers in `kernels.ops`; they run on the
 tensors' own device.  The wrappers call them for CPU tensors, the tests hold
 them against the JAX package, and `chip_smoke.py` holds the kernels against
-them on the card.  `call_counts` counts calls per function.
+them on the card.  Each function that has a body per element class takes
+`eclass` (simplex by default); hex elements have type 0, which no hex
+function reads and every hex function writes.  `eval_route` reads its
+face count off its inputs, and `owner_rank` does not depend on the class.
+`call_counts` counts calls per function, `class_call_counts` per function
+and class ("simplex" or "hex"; `owner_rank` under the class it is given).
 """
 
 from __future__ import annotations
@@ -13,66 +18,80 @@ import torch
 from ..core.keys import span_mask
 from ..core.ops import get_ops
 from ..core.tables import MAXLEVEL
-from ..core.types import Simplex
+from ..core.types import ECLASS_HEX, ECLASS_NAMES, ECLASS_SIMPLEX, Simplex
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
            "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
-           "call_counts", "reset_call_counts"]
+           "call_counts", "class_call_counts", "reset_call_counts"]
 
 call_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
                                "face_sweep": 0, "eval_route": 0, "inside_root": 0,
                                "tree_transform": 0, "owner_rank": 0, "successor": 0,
                                "face_neighbor": 0}
+class_call_counts: dict[str, dict[str, int]] = {
+    k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in call_counts}
 
 
 def reset_call_counts() -> None:
     for k in call_counts:
         call_counts[k] = 0
+        class_call_counts[k] = dict.fromkeys(ECLASS_NAMES.values(), 0)
 
 
-def morton_key(anchor: torch.Tensor, stype: torch.Tensor) -> torch.Tensor:
+def _called(name: str, eclass: int) -> None:
+    call_counts[name] += 1
+    class_call_counts[name][ECLASS_NAMES[eclass]] += 1
+
+
+def morton_key(anchor: torch.Tensor, stype: torch.Tensor,
+               eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
     """(n, d) anchor, (n,) type -> (n,) int64 level-padded keys.  The level
     plays no role in the padded key (the T_0-chain digits below an element's
-    level are zero), so the key is evaluated at MAXLEVEL."""
-    call_counts["morton_key"] += 1
-    o = get_ops(anchor.shape[-1])
+    level are zero; a hex key is the interleave of the anchor), so the key
+    is evaluated at MAXLEVEL."""
+    _called("morton_key", eclass)
+    o = get_ops(anchor.shape[-1], eclass)
     level = torch.full_like(stype, o.L)
     return o.morton_key(Simplex(anchor, level, stype))
 
 
-def decode(d: int, key: torch.Tensor, level: torch.Tensor):
+def decode(d: int, key: torch.Tensor, level: torch.Tensor, eclass: int = ECLASS_SIMPLEX):
     """(n,) int64 keys and int32 levels -> (anchor (n, d), type (n,))."""
-    call_counts["decode"] += 1
-    s = get_ops(d).decode_key(key, level)
+    _called("decode", eclass)
+    s = get_ops(d, eclass).decode_key(key, level)
     return s.anchor, s.stype
 
 
-def parent(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+def parent(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+           eclass: int = ECLASS_SIMPLEX):
     """-> (parent anchor, parent level, parent type, local index)."""
-    call_counts["parent"] += 1
-    o = get_ops(anchor.shape[-1])
+    _called("parent", eclass)
+    o = get_ops(anchor.shape[-1], eclass)
     s = Simplex(anchor, level, stype)
     p = o.parent(s)
     return p.anchor, p.level, p.stype, o.local_index(s)
 
 
-def children(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+def children(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+             eclass: int = ECLASS_SIMPLEX):
     """-> all 2^d children in SFC order: anchor (n, 2^d, d), level and type
     (n, 2^d)."""
-    call_counts["children"] += 1
-    kids = get_ops(anchor.shape[-1]).children_tm(Simplex(anchor, level, stype))
+    _called("children", eclass)
+    kids = get_ops(anchor.shape[-1], eclass).children_tm(Simplex(anchor, level, stype))
     return kids.anchor, kids.level, kids.stype
 
 
-def face_sweep(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
-    """For every face f of every element, composed per face from
-    `SimplexOps` as the JAX package's `face_sweep_ref` is: the same-level
-    neighbor (Algorithm 4.6), whether it lies inside the root, and its key.
-    Face-major outputs: neighbor anchor (nf, n, d) int32, type and dual face
-    (nf, n) int32, inside (nf, n) bool, key (nf, n) int64.  Keys and types
-    of neighbors outside the root are computed all the same."""
-    call_counts["face_sweep"] += 1
-    o = get_ops(anchor.shape[-1])
+def face_sweep(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+               eclass: int = ECLASS_SIMPLEX):
+    """For every face f of every element (nf = d+1 a simplex, 2d a hex),
+    composed per face from the element ops as the JAX package's
+    `face_sweep_ref` is: the same-level neighbor (Algorithm 4.6), whether
+    it lies inside the root, and its key.  Face-major outputs: neighbor
+    anchor (nf, n, d) int32, type and dual face (nf, n) int32, inside
+    (nf, n) bool, key (nf, n) int64.  Keys and types of neighbors outside
+    the root are computed all the same."""
+    _called("face_sweep", eclass)
+    o = get_ops(anchor.shape[-1], eclass)
     s = Simplex(anchor, level, stype)
     cols = [[] for _ in range(5)]
     for f in range(o.nf):
@@ -85,12 +104,14 @@ def face_sweep(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
 
 def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor,
                marker_tree: torch.Tensor, marker_key: torch.Tensor):
-    """Over the (face, element) pairs of a face-major (nf, n) sweep: the end
-    key of each neighbor's interval, key | (2^(d(L - level)) - 1) (keys are
-    span aligned; the exponent is clamped to [0, 63]), and the first and
-    last owner rank of the interval against the P partition markers.
-    Returns (end key int64, first int32, last int32), each (nf, n)."""
-    call_counts["eval_route"] += 1
+    """Over the (face, element) pairs of a face-major (nf, n) sweep, nf read
+    off the inputs: the end key of each neighbor's interval,
+    key | (2^(d(L - level)) - 1) (keys are span aligned; the exponent is
+    clamped to [0, 63]), and the first and last owner rank of the interval
+    against the P partition markers.  Returns (end key int64, first int32,
+    last int32), each (nf, n).  Counted under the class whose face count
+    nf is (2d a hex)."""
+    _called("eval_route", ECLASS_HEX if tgt.shape[0] == 2 * d else ECLASS_SIMPLEX)
     kend = key | span_mask(d, MAXLEVEL[d], level)[None, :]
     return (kend, _owner_count(tgt, key, marker_tree, marker_key),
             _owner_count(tgt, kend, marker_tree, marker_key))
@@ -118,58 +139,68 @@ _PAIRS_PER_SLICE = 1 << 27   # query-marker comparisons held at once
 
 
 def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
-               marker_key: torch.Tensor) -> torch.Tensor:
+               marker_key: torch.Tensor, eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
     """The rank whose partition range [marker_r, marker_{r+1}) holds each
     lex (tree, key): the number of the P lex-sorted markers lex-<= it, less
     one, clamped to 0 (keys before the first marker go to rank 0).  (n,)
-    int32."""
-    call_counts["owner_rank"] += 1
+    int32.  The same for every class; `eclass` only names the count."""
+    _called("owner_rank", eclass)
     return _owner_count(tree, key, marker_tree, marker_key)
 
 
-def successor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor):
+def successor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+              eclass: int = ECLASS_SIMPLEX):
     """Algorithm 4.10 at each element's own level, wrapping within the
     level (`ElementOps.successor`): (anchor (n, d), type)."""
-    call_counts["successor"] += 1
-    s = get_ops(anchor.shape[-1]).successor(Simplex(anchor, level, stype))
+    _called("successor", eclass)
+    s = get_ops(anchor.shape[-1], eclass).successor(Simplex(anchor, level, stype))
     return s.anchor, s.stype
 
 
 def face_neighbor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
-                  face: torch.Tensor):
+                  face: torch.Tensor, eclass: int = ECLASS_SIMPLEX):
     """Algorithm 4.6 across one face per element, face[i] of element i:
     the same-level neighbor's (anchor (n, d), type) and the dual face, all
     int32.  The neighbor may lie outside the root."""
-    call_counts["face_neighbor"] += 1
-    nb, dual = get_ops(anchor.shape[-1]).face_neighbor(Simplex(anchor, level, stype), face)
+    _called("face_neighbor", eclass)
+    nb, dual = get_ops(anchor.shape[-1], eclass).face_neighbor(Simplex(anchor, level, stype),
+                                                               face)
     return nb.anchor, nb.stype, dual
 
 
-def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor) -> torch.Tensor:
-    """Section 4.4: (n,) bool, does each element lie inside the root simplex."""
-    call_counts["inside_root"] += 1
-    return get_ops(anchor.shape[-1]).is_inside_root(Simplex(anchor, level, stype))
+def inside_root(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor,
+                eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
+    """Section 4.4: (n,) bool, does each element lie inside the root simplex
+    (the root cube for hexes)."""
+    _called("inside_root", eclass)
+    return get_ops(anchor.shape[-1], eclass).is_inside_root(Simplex(anchor, level, stype))
 
 
 def tree_transform(conn: torch.Tensor, anchor: torch.Tensor, level: torch.Tensor,
-                   stype: torch.Tensor, dual: torch.Tensor, table: torch.Tensor):
+                   stype: torch.Tensor, dual: torch.Tensor, table: torch.Tensor,
+                   eclass: int = ECLASS_SIMPLEX):
     """Each element (n,) across its own connection: row conn[i] of the
     packed connection table (`core.cmesh.pack_connection`) gives the
-    gluing's (M, c, typemap), applied by `SimplexOps.tree_transform`, the
-    face map that renumbers the dual face, and the neighbor tree.  Returns
-    (anchor (n, d), type, dual face, tree), int32."""
-    call_counts["tree_transform"] += 1
+    gluing's (M, c, typemap), applied by `ElementOps.tree_transform`, the
+    face map that renumbers the dual face (a hex row's 2d entries sit where
+    a simplex row's type-0 entries do), and the neighbor tree.  A hex keeps
+    type 0.  Returns (anchor (n, d), type, dual face, tree), int32."""
+    _called("tree_transform", eclass)
     n, d = anchor.shape
-    o = get_ops(d)
-    nt, nf = o.nt, o.nf
+    o = get_ops(d, eclass)
+    nt = get_ops(d).nt
     row = table[conn.long()].long()
     code = row[:, :d]
     sign = 1 - 2 * ((code >> 2) & 1)
     M = torch.zeros((n, d, d), dtype=torch.int64, device=anchor.device)
     M.scatter_(2, (code & 3)[:, :, None], sign[:, :, None])
-    s2 = o.tree_transform(Simplex(anchor, level, stype), M, row[:, d:2 * d],
-                          row[:, 2 * d:2 * d + nt])
-    facemap = row[:, 2 * d + nt:2 * d + nt + nt * nf].reshape(n, nt, nf)
-    b = stype.long()
-    dual2 = facemap[torch.arange(n, device=anchor.device), b, dual.long()]
+    if eclass == ECLASS_HEX:
+        stype = torch.zeros_like(stype)
+        typemap = torch.zeros((n, 1), dtype=torch.int64, device=anchor.device)
+        at = dual.long()
+    else:
+        typemap = row[:, 2 * d:2 * d + nt]
+        at = stype.long() * o.nf + dual.long()
+    s2 = o.tree_transform(Simplex(anchor, level, stype), M, row[:, d:2 * d], typemap)
+    dual2 = torch.gather(row[:, 2 * d + nt:-1], 1, at[:, None])[:, 0]
     return s2.anchor, s2.stype, dual2.to(torch.int32), row[:, -1].to(torch.int32)

@@ -103,14 +103,25 @@ def test_pack_wire_bytes_match_reference(n):
         np.testing.assert_array_equal(g, w)
 
 
-def test_unpack_wire_refuses_hex_entries():
-    """Hex entries are well-formed wire (the reference decodes them) but
-    belong to a later slice of the port."""
-    tree, key, level, _ = _wire_columns(6, seed=3)
-    buf = jtypes.pack_wire(tree, key, level, eclass=np.arange(6) % 2)
-    assert (jtypes.unpack_wire(buf, with_eclass=True)[3] == np.arange(6) % 2).all()
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ttypes.unpack_wire(buf)
+@pytest.mark.parametrize("extra", [False, True])
+def test_wire_hex_entries_match_reference(extra):
+    """Entries tagged with the hex class (bits 6-7 of the level byte), one
+    class for all or a column of both: the bytes the JAX package packs, and
+    its columns, class column included, when unpacked."""
+    tree, key, level, ex = _wire_columns(9, seed=3)
+    ex = ex if extra else None
+    for ec in (ttypes.ECLASS_HEX, np.arange(9) % 2):
+        want = jtypes.pack_wire(tree, key, level, extra=ex, eclass=ec)
+        got = ttypes.pack_wire(torch.from_numpy(tree), torch.from_numpy(key.astype(np.int64)),
+                               torch.from_numpy(level), extra=ex, eclass=ec)
+        assert got.tobytes() == want.tobytes()
+        for g, w in zip(ttypes.unpack_wire(want, with_extra=extra, with_eclass=True),
+                        jtypes.unpack_wire(want, with_extra=extra, with_eclass=True),
+                        strict=True):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError):
+        ttypes.pack_wire(tree, key, level, eclass=2)
 
 
 @pytest.mark.parametrize("mutate", ["truncate", "negative_tree", "eclass", "not_bytes"])

@@ -17,6 +17,7 @@ from repro_torch.core import cmesh as TC
 from repro_torch.core import forest as TF
 from repro_torch.core.keys import span_mask
 from repro_torch.core.tables import MAXLEVEL
+from repro_torch.core.types import ECLASS_HEX
 from repro_torch.kernels import ops as kops, ref as kref
 
 KERNELS = ["morton_key", "decode", "parent", "children", "face_sweep", "inside_root"]
@@ -140,18 +141,20 @@ def _cube_inputs(d, n, seed, dev):
     return tuple(torch.from_numpy(x).to(dev) for x in (anchor, level, stype))
 
 
-def _route_inputs(d, level, dev, P=4, seed=0):
-    """Per (face, element) pair a target tree and a span-aligned key at the
-    element's level; P lex-sorted markers with an empty rank (a repeated
-    marker) and a trailing (num_trees, 0) sentinel."""
+def _route_inputs(d, level, dev, P=4, seed=0, nf=None):
+    """Per (face, element) pair of nf faces (d + 1 by default) a target
+    tree and a span-aligned key at the element's level; P lex-sorted
+    markers with an empty rank (a repeated marker) and a trailing
+    (num_trees, 0) sentinel."""
     L = MAXLEVEL[d]
+    nf = d + 1 if nf is None else nf
     rng = np.random.default_rng(seed)
     n = level.shape[0]
     lv = level.cpu().numpy().astype(np.int64)
     shift = (d * (L - lv))[None, :]
-    raw = rng.integers(0, 1 << (d * L), (d + 1, n), dtype=np.uint64).astype(np.int64)
+    raw = rng.integers(0, 1 << (d * L), (nf, n), dtype=np.uint64).astype(np.int64)
     key = (raw >> shift) << shift
-    tgt = rng.integers(0, 4, (d + 1, n)).astype(np.int32)
+    tgt = rng.integers(0, 4, (nf, n)).astype(np.int32)
     mk = np.sort(rng.integers(0, 1 << (d * L), P - 1)).astype(np.int64)
     mt = np.array([0, 1, 1, 3][:P - 1] + [3], np.int32)
     mk = np.concatenate([[0], mk[1:], [0]])
@@ -438,3 +441,154 @@ def test_cuda_element_queries_match_cpu(d):
         outs.append([f.anchor, f.level, f.stype, f.tree])
     for a, b in zip(outs[-2], outs[-1], strict=True):
         assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------- hex bodies
+HEX_KERNELS = ["morton_key", "decode", "parent", "children", "face_sweep", "inside_root",
+               "successor", "face_neighbor"]
+
+
+def _hex_inputs(d, n, seed, dev):
+    """(key with garbage below each level, level, anchor, zero types, box
+    anchor, face) on `dev`: hexes of levels 0..L decoded from the keys, and
+    the same levels with h-aligned anchors anywhere in [-2^L, 2^L)^d, so
+    that neighbors leave the root on every side; one face of 2d each."""
+    L = MAXLEVEL[d]
+    rng = np.random.default_rng(seed)
+    level = rng.integers(0, L + 1, n).astype(np.int32)
+    level[:2] = np.array([0, L])[:n]
+    key = torch.from_numpy(rng.integers(0, 1 << (d * L), n, dtype=np.uint64).astype(np.int64))
+    h = (1 << (L - level.astype(np.int64)))[:, None]
+    box = (np.floor_divide(rng.integers(-(1 << L), 1 << L, (n, d)), h) * h).astype(np.int32)
+    face = rng.integers(0, 2 * d, n).astype(np.int32)
+    key, level = key.to(dev), torch.from_numpy(level).to(dev)
+    anchor, zero = kref.decode(d, key, level, ECLASS_HEX)
+    return (key, level, anchor, zero, torch.from_numpy(box).to(dev),
+            torch.from_numpy(face).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", HEX_KERNELS)
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n", [1, 1000, 300_001])
+def test_cuda_hex_kernel_matches_plain_version(name, d, n):
+    """Each hex body equals its plain version exactly — on hexes inside
+    the root and, for the sweep, inside-root test and single-face
+    neighbor, anywhere in a box twice the root cube — and the kernel's hex
+    launch count moves by one."""
+    dev = _card()
+    key, level, anchor, zero, box, face = _hex_inputs(d, n, seed=n + 10 * d, dev=dev)
+    H = ECLASS_HEX
+    if name == "morton_key":
+        args, kernel, plain = (box, zero), kops.morton_key, kref.morton_key
+    elif name == "decode":
+        args = (key, level)
+        kernel = lambda *a, eclass: kops.decode(d, *a, eclass)     # noqa: E731
+        plain = lambda *a, eclass: kref.decode(d, *a, eclass)      # noqa: E731
+    elif name in ("face_sweep", "inside_root"):
+        args, kernel, plain = (box, level, zero), getattr(kops, name), getattr(kref, name)
+    elif name == "face_neighbor":
+        args, kernel, plain = (box, level, zero, face), kops.face_neighbor, kref.face_neighbor
+    else:
+        args, kernel, plain = (anchor, level, zero), getattr(kops, name), getattr(kref, name)
+    before = dict(kops.class_launch_counts[name])
+    got, want = kernel(*args, eclass=H), plain(*args, eclass=H)
+    torch.cuda.synchronize()
+    assert kops.class_launch_counts[name] == dict(before, hex=before["hex"] + 1)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+def test_cuda_hex_tree_transform_crosses_every_face(d):
+    """Across every glued face of a periodic hex brick (each of the 2d
+    faces of each tree), the same-level outside neighbors of the tree's
+    boundary hexes map into the neighbor tree's root, with the dual face
+    through the hex face map: the kernel equals the plain version, and so
+    do synthetic rows with a permuted and reflected axis."""
+    dev = _card()
+    cm = TC.cmesh_hex_brick(d, (2,) * d, periodic=(True,) * d)
+    table = cm.gluing(dev).conn
+    L, lv = MAXLEVEL[d], 3
+    fs = TF.new_uniform(d, cm.num_trees, lv, TF.SimComm(1), cmesh=cm, device=dev)[0]
+    nb, _t, dual, inside, _k = kops.face_sweep(fs.anchor, fs.level, fs.stype, ECLASS_HEX)
+    fidx, eidx = torch.nonzero(~inside, as_tuple=True)
+    conn = (fs.tree[eidx].long() * cm.nf_max + fidx).to(torch.int32)
+    assert torch.unique(fidx).numel() == 2 * d
+    args = (conn, nb[fidx, eidx].contiguous(), fs.level[eidx], torch.zeros_like(conn),
+            dual[fidx, eidx].contiguous(), table)
+    got = kops.tree_transform(*args, eclass=ECLASS_HEX)
+    want = kref.tree_transform(*args, eclass=ECLASS_HEX)
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and torch.equal(g, w)
+    assert bool(kops.inside_root(got[0], args[2], got[1], ECLASS_HEX).all())
+    assert torch.equal(got[2], fidx.to(torch.int32) ^ 1)     # identity gluings: dual f ^ 1
+    rot = np.eye(d, dtype=np.int64)
+    rot[:2, :2] = [[0, -1], [1, 0]]
+    row = TC.pack_connection(d, rot, np.full(d, 1 << L), np.zeros(2 if d == 2 else 6),
+                             TC._hex_face_map(d, rot), 1, eclass=ECLASS_HEX)
+    one = torch.as_tensor(row, device=dev)[None]
+    zero = torch.zeros_like(conn)
+    args = (zero, args[1], args[2], zero, args[4], one)
+    for g, w in zip(kops.tree_transform(*args, eclass=ECLASS_HEX),
+                    kref.tree_transform(*args, eclass=ECLASS_HEX), strict=True):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("P", [4, 4097])
+def test_cuda_eval_route_over_hex_faces_matches_plain(d, P):
+    """eval_route over nf = 2d face planes equals its plain version, with
+    the markers in shared memory (P = 4) and binary searched (P = 4097)."""
+    dev = _card()
+    _anchor, level, _stype = _cube_inputs(d, 100_001, seed=P + 3, dev=dev)
+    tgt, key, mt, mk = _route_inputs(d, level, dev, P=4, seed=P, nf=2 * d)
+    if P > 4:
+        rng = np.random.default_rng(P)
+        mt = torch.from_numpy(np.sort(rng.integers(0, 4, P)).astype(np.int32)).to(dev)
+        mk = torch.from_numpy(np.sort(rng.integers(0, 1 << (d * MAXLEVEL[d]), P,
+                                                   dtype=np.uint64)).astype(np.int64)).to(dev)
+    before = kops.class_launch_counts["eval_route"]["hex"]
+    got = kops.eval_route(d, tgt, key, level, mt, mk)
+    want = kref.eval_route(d, tgt, key, level, mt, mk)
+    torch.cuda.synchronize()
+    assert kops.class_launch_counts["eval_route"]["hex"] == before + 1
+    assert got[0].shape == (2 * d, 100_001)
+    for g, w in zip(got, want, strict=True):
+        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["hex_brick_d2", "hex_brick_d3", "hybrid_d2", "hybrid_d3"])
+def test_cuda_hex_and_hybrid_pipeline_matches_cpu(name):
+    """New -> Adapt -> Partition -> Balance -> Ghost -> validate over a hex
+    brick and the hybrid pair on the card equals the CPU run, forest and
+    ghost field for field, with equal per-phase bytes; the hex bodies ran."""
+    dev = _card()
+    cm = {"hex_brick_d2": lambda: TC.cmesh_hex_brick(2, (2, 2), periodic=(True, True)),
+          "hex_brick_d3": lambda: TC.cmesh_hex_brick(3, (2, 2, 1)),
+          "hybrid_d2": lambda: TC.cmesh_hybrid_pair(2),
+          "hybrid_d3": lambda: TC.cmesh_hybrid_pair(3)}[name]()
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        kops.reset_launch_counts()
+        comm = TF.SimComm(3)
+        fs = TF.new_uniform(cm.d, cm.num_trees, 1, comm, cmesh=cm, device=device)
+        fs = [TF.adapt(f, lambda t, e: ((e.anchor.sum(1) == 0) & (e.level < 4)).int(),
+                       recursive=True) for f in fs]
+        fs = TF.balance(TF.partition(fs, comm), comm)
+        gh = TF.ghost(fs, comm)
+        assert TF.validate(fs, gh)
+        runs.append((fs, gh, comm.counters, dict(kops.class_launch_counts["face_sweep"])))
+    (fg, gg, cg, lg), (fc, gc, cc, _l) = runs
+    assert cg == cc and lg["hex"] > 0 and (lg["simplex"] > 0) == name.startswith("hybrid")
+    for a, b in zip(fg, fc, strict=True):
+        for k in ("anchor", "level", "stype", "tree", "keys"):
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k))
+    for a, b in zip(gg, gc, strict=True):
+        for k in ("anchor", "level", "stype", "tree", "owner"):
+            assert torch.equal(a[k].cpu(), b[k])

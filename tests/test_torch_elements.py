@@ -178,7 +178,8 @@ def test_nearest_common_ancestor_matches_reference(d):
 
 def test_types_helpers_match_reference(d, elems):
     """simplex, root, concat, take and the Remark-20 size at rest: 10 bytes
-    a triangle and 14 a tetrahedron; hex waits for slice 4."""
+    a triangle and 14 a tetrahedron, 9 a quad and 13 a hexahedron (no type
+    byte); the at-rest blobs of both classes as the JAX package packs them."""
     js, ts = elems
     r, jr = ttypes.root(d, device="cpu"), jtypes.root(d)
     _same(r, jr)
@@ -192,10 +193,19 @@ def test_types_helpers_match_reference(d, elems):
     _same(ttypes.concat([ts, ts, ts]), jtypes.concat([js, js, js]))
     idx = np.array([5, 0, N - 1, 5])
     _same(ttypes.take(ts, torch.from_numpy(idx)), jtypes.take(js, jnp.asarray(idx)))
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        ttypes.nbytes_at_rest(ts, ECLASS_HEX)
+    assert (ttypes.nbytes_at_rest(ts, ECLASS_HEX) == jtypes.nbytes_at_rest(js, ECLASS_HEX)
+            == N * (9 if d == 2 else 13))
+    for ec in (0, ECLASS_HEX):
+        got, want = ttypes.pack(ts, ec), jtypes.pack(js, ec)
+        assert set(got) == set(want) == ({"anchor", "level"} | ({"stype"} if ec == 0 else set()))
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+        _same(ttypes.unpack(got, "cpu"), jtypes.unpack(want))
     with pytest.raises(ValueError):
         ttypes.nbytes_at_rest(ts, 7)
+    with pytest.raises(ValueError):
+        ttypes.pack(ts, 7)
 
 
 def test_types_constructors_default_to_the_card(d, monkeypatch):

@@ -18,14 +18,15 @@ import pytest
 import torch
 
 from repro.core import batch as jbatch
+from repro.core import cmesh as JC
 from repro.core import comm as jcomm
 from repro.core import forest as JF
 from repro_torch import convert
 from repro_torch.core import batch as tbatch
 from repro_torch.core import comm as tcomm
 from repro_torch.core import forest as TF
-from repro_torch.core.cmesh import cmesh_unit_cube
-from repro_torch.core.ops import get_ops
+from repro_torch.core.cmesh import cmesh_hex_brick, cmesh_unit_cube
+from repro_torch.core.ops import HexOps, get_ops
 from repro_torch.core.types import ECLASS_HEX
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -241,21 +242,25 @@ def test_entry_points_default_to_the_card():
 
 
 def test_unported_features_and_bad_input_raise():
-    """Features of later slices raise NotImplementedError naming the slice
-    (ROADMAP.md's queue); bad input raises ValueError."""
+    """Bad input raises ValueError: a coarse mesh of other trees, an unknown
+    method or class, a hex tree in tables sized for simplices, a hex forest
+    without its coarse mesh, callbacks and weights of the wrong shape, a
+    level past MAXLEVEL.  (The hex class, which raised NotImplementedError
+    here before it was ported, is held against the JAX package by
+    `test_hex_entry_points_match_reference` and `tests/test_torch_hex_*.py`.)"""
     with pytest.raises(ValueError, match="does not match"):   # a cmesh of other trees
         TF.new_uniform(3, 1, 1, TF.SimComm(1), cmesh=cmesh_unit_cube(3), device="cpu")
     with pytest.raises(ValueError):
         TF.new_uniform(3, 1, 1, TF.SimComm(1), method="bogus", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        get_ops(3, ECLASS_HEX)
+    with pytest.raises(ValueError):
+        get_ops(3, 7)
     f = TF.new_uniform_rank(3, 1, 1, 0, 1, device="cpu")
     tables = convert.cmesh_to_reference(cmesh_unit_cube(3))
     tables["tree_eclass"][0] = ECLASS_HEX
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="expected shape"):
         convert.cmesh_from_reference(tables)
     arrays = convert.forest_to_reference(f)
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    with pytest.raises(ValueError, match="element class"):
         convert.forest_from_reference(dict(arrays, eclass=ECLASS_HEX), device="cpu")
     with pytest.raises(ValueError):
         TF.adapt(f, lambda tree, e: torch.ones(3, dtype=torch.int32))
@@ -265,6 +270,31 @@ def test_unported_features_and_bad_input_raise():
         TF.repartition([f], TF.LocalComm(), weights=[-np.ones(f.num_local)])
     with pytest.raises(ValueError):
         TF.new_uniform_rank(3, 1, 22, 0, 1, device="cpu")
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_hex_entry_points_match_reference(d):
+    """The entry points that refused the hex class before it was ported:
+    `get_ops(d, ECLASS_HEX)` is the port's `HexOps`, a coarse mesh of hex
+    trees is accepted and equals the JAX package's table for table, and a
+    JAX forest over it converts into the port and back unchanged."""
+    o = get_ops(d, ECLASS_HEX)
+    assert isinstance(o, HexOps) and (o.nf, o.nc, o.nt) == (2 * d, 1 << d, 1)
+    shape = (2,) + (1,) * (d - 1)
+    tcm, jcm = cmesh_hex_brick(d, shape), JC.cmesh_hex_brick(d, shape)
+    for k in convert.CMESH_FIELDS:
+        np.testing.assert_array_equal(getattr(tcm, k), getattr(jcm, k), err_msg=k)
+    with jbatch.use_backend("reference"):
+        jfs = JF.new_uniform(d, jcm.num_trees, 1, JF.SimComm(2), cmesh=jcm)
+    for jf in jfs:
+        arrays = {k: getattr(jf, k) for k in convert.FIELDS}
+        tf = convert.forest_from_reference(dict(arrays, eclass=jf.eclass), device="cpu")
+        assert tf.eclass == ECLASS_HEX and tf.cmesh.eclasses == (ECLASS_HEX,)
+        back = convert.forest_to_reference(tf)
+        for k in ("anchor", "level", "stype", "tree", "keys"):
+            np.testing.assert_array_equal(back[k], arrays[k], err_msg=k)
+        for k in convert.CMESH_FIELDS:
+            np.testing.assert_array_equal(back["cmesh"][k], getattr(jcm, k), err_msg=k)
 
 
 def test_more_ranks_than_elements_and_empty_ranks():
