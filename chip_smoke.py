@@ -6,12 +6,14 @@ Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
 Partition -> Balance -> Ghost -> validate path at full size on the card,
 without and with a coarse mesh of simplex trees and over a brick of hex
-trees, asks the paper's element queries of every leaf, and checks the card
-against the CPU.  Phases, in the order they run; any failure exits
-nonzero:
+trees, asks the paper's element queries of every leaf, serves the dense LM
+qwen3-1.7b at full width and depth, and checks the card against the CPU.
+Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
-     versions, the kernels' build from an empty build directory;
+     versions, the kernels' build from an empty build directory (both
+     sources, `sfc.cu` and `flash_attention.cu`, one nvcc each, started
+     together);
   2. kernel vs plain: each of the eleven kernels against its plain version
      on N = 2^22 random elements (every level 0..L, every type, every one
      of the d*L key bits set somewhere; for face_sweep, inside_root,
@@ -38,6 +40,15 @@ nonzero:
      tree_transform across every glued face of a periodic hex brick and
      rows with a permuted and reflected axis; no type column counted in
      the bytes of a body that does not read it;
+  2a. flash_attention (the LM's prefill attention) against its plain
+     version on the same card tensors, in bf16 and fp32: qwen3's prefill
+     shape (B 8, S 2048, H 16, KV 8, hd 128), S = 1, 127, 129 and 1000
+     (not multiples of the tile), H / KV = 1, 4 and H (MQA), hd = 32, 64
+     and 96, a window of 100 and one of 20 (below the tile); within 2e-2
+     (bf16) and 2e-5 (fp32); at qwen3's shape the kernel's time both ways,
+     the plain version's, torch's scaled_dot_product_attention's (the
+     `library_ms` yardstick, called only here) and the bound
+     max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s);
   3. main path at full size, no coarse mesh: d = 3, 8 trees on SimComm(4)
      (all four ranks on the card): New at level 6 (2,097,152 tets),
      recursive Adapt with the paper's Fig. 12 fractal callback to level 8
@@ -90,7 +101,19 @@ nonzero:
      hex brick, a 2 x 2 x 1 hex brick, and the hybrid pair (a hex tree
      beside a Kuhn cube) at d = 2 and 3 on 2 and 3 ranks, with tree 0's
      faces refined deeper — every forest and ghost field and every
-     per-phase byte count identical;
+     per-phase byte count identical; and the LM: reduced qwen3, olmo and
+     phi3 in fp32 on identical weights, prefill and 6 greedy decode steps,
+     equal tokens and logits within 1e-4;
+  6. serving qwen3-1.7b (28 layers, d 2048, 16/8 heads, hd 128, vocab
+     151,936, tied; weights drawn on the card from a seed) through
+     `launch/serve.py`'s steps: 6a, 8 requests of 2048 tokens prefilled
+     into a cache of 2304 slots and 128 greedy decode steps (walls, tokens
+     per second, peak memory, the decode floor of weights and cache read
+     once a step, and a profile of one prefill and one decode step); 6b,
+     8 requests at batch 1 (prompts of 1 to 2047 tokens) answering 16
+     tokens each; 6c, fp32 at full width: prefill 508 tokens and decode 4
+     against forward's logits at those positions, within 1e-3; every
+     logit finite;
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
@@ -99,7 +122,9 @@ nonzero:
      (`class_launch_counts`), no simplex body and no plain version there;
      over the hybrid pair, Balance and Ghost launch face_sweep and
      eval_route per class exactly as the class groups run on their own
-     (one launch per class per eval layer).
+     (one launch per class per eval layer); in phase 6, flash_attention
+     launched once a layer a prefill (6c: the prefill and forward) and no
+     plain version called.
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
@@ -110,7 +135,9 @@ of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
 `successor` and `face_neighbor`.  The `hex_*` keys are the hex body's:
 `hex_replaces` the Pallas kernel's hex branch, `hex_launches_phase3h` its
 launches in phase 3h and its queries, and its phase-2h times and bounds at
-d = 3 and (`_d2`) d = 2.  Without a card, or without the repository beside
+d = 3 and (`_d2`) d = 2.  The `flash_attention_kernel` entry has its
+launches in phase 6a (and 6b, 6c), its phase-2a numbers at qwen3's shape,
+and phase 6's serving facts under `serve`.  Without a card, or without the repository beside
 it, the script exits nonzero and prints no result.  It imports nothing of
 JAX.
 """
@@ -1420,6 +1447,381 @@ def hybrid_face_sweeps(kops) -> None:
               "the class groups' own runs (one launch per class per eval layer)", flush=True)
 
 
+# ------------------------------------------------ 2a, 4 and 6: the LM path
+# The LM path's constants: phase 6 serves qwen3-1.7b at full width and
+# depth; the attention kernel's bound uses the H100 SXM's dense bf16/fp16
+# tensor-core peak (NVIDIA's H100 data sheet, 700 W).
+SERVE_ARCH = "qwen3-1.7b"
+TC_FLOPS_PER_S = 989e12
+FLASH_REPLACES = "src/repro/kernels/flash_attention.py:69 flash_attention"
+FLASH_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# (B, S, H, KV, hd, window): qwen3's prefill shape of phase 6a first; S not
+# a multiple of the tile; G = H / KV of 1, 4 and H (MQA); hd 32, 64, 96;
+# a window of 100, and one of 20, below both tiles (64 keys bf16, 32 fp32)
+FLASH_CASES = [
+    (8, 2048, 16, 8, 128, None),
+    (1, 1, 16, 8, 128, None), (2, 127, 16, 8, 128, None), (2, 129, 16, 8, 128, None),
+    (1, 1000, 16, 8, 128, None),
+    (1, 512, 8, 8, 64, None), (1, 512, 16, 4, 128, None), (1, 512, 16, 1, 128, None),
+    (2, 300, 4, 2, 32, None), (2, 300, 8, 4, 64, None), (1, 700, 32, 32, 96, None),
+    (1, 1000, 16, 8, 128, 100), (1, 1000, 16, 8, 128, 20),
+]
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 2048, 2304, 128
+REQUEST_LENGTHS = (1, 127, 129, 300, 777, 1000, 1536, 2047)
+REQUEST_TOKENS = 16
+CONSIST_BATCH, CONSIST_S, CONSIST_DECODE = 2, 512, 4
+# Phase 6c: fp32 prefill + decode against forward at full width.  Both runs
+# are fp32 end to end (no TF32); they differ only in the order of sums
+# (cuBLAS picks kernels by shape: 2 x 508 and 2 x 512 rows, 2 at decode;
+# decode attends through the plain path, prefill through the kernel), each
+# about 1e-6 relative, over 28 layers: 1e-3 leaves some 100 times the
+# 1e-5 expected.
+CONSIST_TOL = 1e-3
+# Phase 4, reduced LMs card vs CPU, fp32 on identical weights: the kernel
+# against the plain version and cuBLAS against the CPU's BLAS sum in other
+# orders, about 1e-6 relative over 2 layers.
+LM_CPU_TOL = 1e-4
+
+
+def flash_pairs(S: int, window: int | None) -> int:
+    """Unmasked (query, key) pairs of one (b, h): causal, and with a window
+    min(q + 1, window) a query."""
+    if window is None:
+        return S * (S + 1) // 2
+    q = np.arange(S)
+    return int(np.minimum(q + 1, window).sum())
+
+
+def flash_bound(B: int, S: int, H: int, KV: int, hd: int, window, elsize: int) -> tuple:
+    """(bound ms, what bounds it, FLOPs, bytes): 4 hd FLOPs a pair over the
+    tensor cores' peak, against q and o once each and k and v once each
+    over the memory rate."""
+    flops = 4 * B * H * hd * flash_pairs(S, window)
+    moved = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elsize
+    f_ms, b_ms = flops / TC_FLOPS_PER_S * 1e3, moved / MEM_BYTES_PER_S * 1e3
+    return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"), flops, moved
+
+
+def flash_vs_plain(kops, kref) -> dict:
+    """Phase 2a: the attention kernel against its plain version on the same
+    card tensors, every case of FLASH_CASES in bf16 and fp32, within
+    FLASH_TOL (|got - want| <= tol + tol |want|); then, at qwen3's prefill
+    shape, its time both ways, the plain version's, SDPA's, and the bound.
+    Returns the row of the `kernels` line."""
+    import torch.nn.functional as tF
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    worst = {dt: 0.0 for dt in FLASH_TOL}
+    timed = {}
+    for B, S, H, KV, hd, window in FLASH_CASES:
+        for dt, tol in FLASH_TOL.items():
+            q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+            k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
+            v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
+            got = kops.flash_attention(q, k, v, window=window)
+            want = kref.flash_attention(q, k, v, window=window)
+            sync()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            excess = float((diff - tol * (1 + want.float().abs())).max())
+            label = f"B={B} S={S} H={H} KV={KV} hd={hd} window={window} {str(dt)[6:]}"
+            if got.dtype != dt or not torch.isfinite(got).all() or excess > 0:
+                raise AssertionError(f"flash_attention {label}: max |err| {err} beyond {tol}")
+            worst[dt] = max(worst[dt], err)
+            print(f"  flash_attention {label}: max |err| {err:.3g} (tolerance {tol})",
+                  flush=True)
+            if (B, S, H, KV, hd, window) == FLASH_CASES[0]:
+                timed[dt] = (q, k, v, err)
+            del q, k, v, got, want, diff
+    B, S, H, KV, hd, window = FLASH_CASES[0]
+    q, k, v, err = timed[torch.bfloat16]
+    kernel = lambda: kops.flash_attention(q, k, v)                      # noqa: E731
+    plain = lambda: kref.flash_attention(q, k, v)                       # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    library = lambda: tF.scaled_dot_product_attention(qt, kt, vt, is_causal=True,  # noqa: E731
+                                                      enable_gqa=True)
+    lib_err = float((library().transpose(1, 2).float() - plain().float()).abs().max())
+    ms, dev_ms = cuda_ms(kernel, 20), device_ms(kernel)
+    plain_ms, library_ms = cuda_ms(plain, 3), cuda_ms(library, 20)
+    library_dev_ms = device_ms(library)
+    bound_ms, bound_by, flops, moved = flash_bound(B, S, H, KV, hd, window, 2)
+    q32, k32, v32, err32 = timed[torch.float32]
+    ms32 = cuda_ms(lambda: kops.flash_attention(q32, k32, v32), 5)
+    plain_ms32 = cuda_ms(lambda: kref.flash_attention(q32, k32, v32), 3)
+    print(f"  flash_attention at qwen3's prefill shape (B={B} S={S} H={H} KV={KV} hd={hd}, "
+          f"bf16): kernel {ms:.4f} ms (device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"SDPA {library_ms:.4f} ms (device {library_dev_ms:.4f} ms; max |SDPA - plain| "
+          f"{lib_err:.3g}), bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, "
+          f"{moved} B), bound/kernel {bound_ms / ms:.1%} (device {bound_ms / dev_ms:.1%}), "
+          f"{flops / dev_ms / 1e9:.1f} TFLOP/s; fp32 kernel {ms32:.4f} ms, plain "
+          f"{plain_ms32:.4f} ms", flush=True)
+    del timed, q, k, v, qt, kt, vt, q32, k32, v32
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "max_abs_err_bf16_all": worst[torch.bfloat16],
+            "max_abs_err_fp32_all": worst[torch.float32], "max_abs_err_fp32": err32,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "flops": flops, "bytes": moved, "ms_fp32": ms32, "plain_ms_fp32": plain_ms32,
+            "shape": [B, S, H, KV, hd]}
+
+
+def lm_card_vs_cpu() -> None:
+    """Phase 4, the LM: reduced qwen3, olmo and phi3 in fp32 on identical
+    weights on both devices: a 37-token prefill (batch 2) and 6 greedy
+    decode steps give equal tokens and logits within LM_CPU_TOL."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("qwen3-1.7b", "olmo-1b", "phi3-mini-3.8b"):
+        cfg = replace(reduced(get_config(arch)), dtype="float32")
+        prompt = torch.from_numpy(np.random.default_rng(SEED).integers(0, cfg.vocab_size,
+                                                                       (2, 37)))
+        prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+        runs = []
+        for dev in ("cuda", "cpu"):
+            params = init_params(cfg, seed=SEED, device="cpu").to(dev)
+            logits, cache = prefill(params, {"tokens": prompt.to(dev)},
+                                    init_cache(cfg, 2, 48, device=dev))
+            out, toks = [logits.cpu()], []
+            for i in range(6):
+                tok = logits.argmax(-1, keepdim=True)
+                toks.append(tok.cpu())
+                logits, cache = step(params, cache, tok, 37 + i)
+                out.append(logits.cpu())
+            runs.append((torch.stack(out), torch.cat(toks, 1)))
+        (lg, tg), (lc, tc) = runs
+        err = float((lg - lc).abs().max())
+        if not torch.equal(tg, tc) or err > LM_CPU_TOL * (1 + float(lc.abs().max())):
+            raise AssertionError(f"{arch} reduced: card vs CPU tokens {tg.tolist()} vs "
+                                 f"{tc.tolist()}, max |logit err| {err}")
+        print(f"  {arch} reduced, fp32: card == CPU greedy tokens {tg[0].tolist()}; max "
+              f"|logit difference| {err:.3g} (tolerance {LM_CPU_TOL})", flush=True)
+
+
+def _finite(label: str, t: torch.Tensor) -> None:
+    if not torch.isfinite(t).all():
+        raise AssertionError(f"{label}: logits not finite")
+
+
+def serve_batched(cfg, params, serve) -> dict:
+    """Phase 6a: 8 requests of 2048 tokens prefilled into a cache of 2304
+    slots, then 128 greedy decode steps; walls on the host clock ending in
+    a synchronize, peak memory."""
+    from repro_torch.models import init_cache
+
+    dev = torch.device("cuda")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    cache = init_cache(cfg, SERVE_BATCH, SERVE_CACHE, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens}, cache)
+    sync()
+    t_prefill = time.perf_counter() - t
+    _finite("6a prefill", logits)
+    toks = []
+    t = time.perf_counter()
+    for i in range(SERVE_STEPS):
+        tok = logits.argmax(-1, keepdim=True)
+        toks.append(tok)
+        logits, cache = step(params, cache, tok, SERVE_PROMPT + i)
+    sync()
+    t_decode = time.perf_counter() - t
+    _finite("6a decode", logits)
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache["layers"].values())
+    floor_ms = (weight_bytes + cache_bytes) / MEM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    facts = {"prefill_s": t_prefill, "prefill_tok_s": SERVE_BATCH * SERVE_PROMPT / t_prefill,
+             "decode_ms_step": t_decode / SERVE_STEPS * 1e3,
+             "decode_tok_s": SERVE_BATCH * SERVE_STEPS / t_decode,
+             "decode_floor_ms": floor_ms, "weight_bytes": weight_bytes,
+             "cache_bytes": cache_bytes, "peak_bytes": peak,
+             "first_tokens": torch.cat(toks[:8], 1)[0].tolist()}
+    print(f"  6a: prefill {SERVE_BATCH} x {SERVE_PROMPT} tokens in {t_prefill:.4f} s "
+          f"({facts['prefill_tok_s']:.0f} tokens/s); {SERVE_STEPS} decode steps of "
+          f"{SERVE_BATCH} in {t_decode:.4f} s ({facts['decode_ms_step']:.3f} ms/step, "
+          f"{facts['decode_tok_s']:.1f} tokens/s) against a floor of {floor_ms:.3f} ms/step "
+          f"(weights {weight_bytes} B + cache {cache_bytes} B once a step); peak "
+          f"{peak} B; request 0's first tokens {facts['first_tokens']}", flush=True)
+    return facts
+
+
+def serve_requests(cfg, params, serve) -> dict:
+    """Phase 6b: requests at batch 1 with the prompt lengths of
+    REQUEST_LENGTHS, each prefilled into its own cache, answering
+    REQUEST_TOKENS greedy tokens."""
+    from repro_torch.models import init_cache
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    walls = []
+    sync()
+    t0 = time.perf_counter()
+    for n in REQUEST_LENGTHS:
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, n))).to(dev)
+        t = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompt},
+                                init_cache(cfg, 1, n + REQUEST_TOKENS, device=dev))
+        for i in range(REQUEST_TOKENS):
+            logits, cache = step(params, cache, logits.argmax(-1, keepdim=True), n + i)
+        sync()
+        _finite(f"6b request of {n}", logits)
+        walls.append(time.perf_counter() - t)
+    total = time.perf_counter() - t0
+    print(f"  6b: {len(REQUEST_LENGTHS)} requests (prompts {list(REQUEST_LENGTHS)}), "
+          f"{REQUEST_TOKENS} tokens each, in {total:.4f} s; per request "
+          f"{[round(w, 4) for w in walls]} s", flush=True)
+    return {"total_s": total, "walls_s": walls}
+
+
+def serve_consistency(cfg, serve) -> dict:
+    """Phase 6c: fp32 at full width (no TF32): prefill S - 4 tokens, decode
+    4, against forward's logits at those positions, within CONSIST_TOL."""
+    from dataclasses import replace
+
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.models.lm import unembed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    cfg32 = replace(cfg, dtype="float32")
+    params = init_params(cfg32, seed=SEED, device=dev)
+    B, S, n = CONSIST_BATCH, CONSIST_S, CONSIST_DECODE
+    tok = torch.from_numpy(np.random.default_rng(SEED + 2).integers(0, cfg.vocab_size,
+                                                                    (B, S))).to(dev)
+    hidden, _, _ = forward(cfg32, params, {"tokens": tok})
+    want = unembed(cfg32, params, hidden[:, S - n - 1:]).float()
+    logits, cache = serve.make_prefill_step(cfg32)(params, {"tokens": tok[:, :S - n]},
+                                                   init_cache(cfg32, B, S, device=dev))
+    got = [logits]
+    step = serve.make_decode_step(cfg32)
+    for pos in range(S - n, S):
+        logits, cache = step(params, cache, tok[:, pos:pos + 1], pos)
+        got.append(logits)
+    got = torch.stack(got, 1)
+    _finite("6c", got)
+    _finite("6c forward", want)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    print(f"  6c: fp32, B={B}, prefill {S - n} + decode {n} against forward at positions "
+          f"{S - n - 1}..{S - 1}: max |logit difference| {err:.3g} (max |logit| "
+          f"{scale:.3g}; tolerance {CONSIST_TOL})", flush=True)
+    if err > CONSIST_TOL:
+        raise AssertionError(f"6c: prefill/decode differ from forward by {err}")
+    return {"max_abs_err": err, "max_abs_logit": scale}
+
+
+def serve_breakdown(cfg, params, serve) -> dict:
+    """Where phase 6a's time goes, outside the counted run: one 8 x 2048
+    prefill and one decode step of 8 after it, each under torch.profiler —
+    the host's time to enqueue, the wall to a synchronize, the kernels'
+    device time summed, kernel launches and aten ops, and the three aten
+    ops with the most device time.  A decode step's device idle share is 1
+    - device / wall.  (`device_ms` cannot time a whole step: a step's
+    thousands of launches fill the launch queue behind its spinning kernel.)
+    A profile that sees no device time prints "not measured"."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import init_cache
+
+    dev = torch.device("cuda")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    cache = init_cache(cfg, SERVE_BATCH, SERVE_CACHE, device=dev)
+    holder = {}
+
+    def run_prefill():
+        holder["logits"], _ = prefill(params, {"tokens": tokens}, cache)
+
+    def run_decode():
+        step(params, cache, holder["logits"].argmax(-1, keepdim=True), SERVE_PROMPT)
+
+    out = {}
+    for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            host = time.perf_counter() - t
+            sync()
+            wall = time.perf_counter() - t
+        ka = prof.key_averages()
+        dev_ms = sum(e.self_device_time_total for e in ka
+                     if e.device_type == DeviceType.CUDA) / 1e3
+        launches = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernelEx"))
+        aten = sum(e.count for e in ka if e.key.startswith("aten::"))
+        top = sorted((e for e in ka if e.key.startswith("aten::")),
+                     key=lambda e: -e.self_device_time_total)[:3]
+        row = {"host_ms": host * 1e3, "wall_ms": wall * 1e3, "device_ms": dev_ms or None,
+               "launches": launches, "aten_ops": aten,
+               "top": {e.key: e.self_device_time_total / 1e3 for e in top}}
+        idle = f"device idle {1 - dev_ms / row['wall_ms']:.1%}" if dev_ms else "not measured"
+        print(f"  6a {name} under the profiler: host enqueue {row['host_ms']:.2f} ms, wall "
+              f"{row['wall_ms']:.2f} ms, kernels' device time "
+              f"{f'{dev_ms:.2f} ms' if dev_ms else 'not measured'} ({idle}); {launches} "
+              f"launches, {aten} aten ops; most device time: "
+              f"{', '.join(f'{k} {v:.2f} ms' for k, v in row['top'].items())}", flush=True)
+        out[name] = row
+    return out
+
+
+def serve_path(kops, kref) -> dict:
+    """Phase 6: qwen3-1.7b served at full width and depth on the card, from
+    random weights drawn on the card from a seed.  A warm-up (a prefill of
+    8 x 128 tokens and one decode step) runs first, uncounted; then each
+    sub-phase is counted on its own (`counted`).  Returns their facts and
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_config(SERVE_ARCH)
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=torch.device("cuda"))
+    sync()
+    n = sum(p.numel() for p in params.parameters())
+    if n != cfg.param_count() + (2 * cfg.num_layers + 1) * cfg.d_model + \
+            2 * cfg.num_layers * cfg.resolved_head_dim:
+        raise AssertionError(f"{SERVE_ARCH}: {n} parameters")
+    print(f"  {SERVE_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}, tied; {n:,} parameters ({cfg.param_count():,} without the "
+          f"norm scales), drawn on the card in {time.perf_counter() - t:.2f} s", flush=True)
+    warm = torch.zeros((SERVE_BATCH, 128), dtype=torch.int64, device=params.tok_embed.device)
+    logits, cache = serve.make_prefill_step(cfg)(params, {"tokens": warm},
+                                                 init_cache(cfg, SERVE_BATCH, 129))
+    serve.make_decode_step(cfg)(params, cache, logits.argmax(-1, keepdim=True), 128)
+    del cache
+    sync()
+    out = {}
+    for key, run in (("6a", lambda: serve_batched(cfg, params, serve)),
+                     ("6b", lambda: serve_requests(cfg, params, serve))):
+        facts, launches, plain, _cls = counted(kops, kref, run)
+        out[key] = (facts, launches, plain)
+        if key == "6a":
+            facts["breakdown"] = serve_breakdown(cfg, params, serve)
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    facts, launches, plain, _cls = counted(kops, kref, lambda: serve_consistency(cfg, serve))
+    out["6c"] = (facts, launches, plain)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1428,6 +1830,7 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops as kops, ref as kref
 
     print("== 1. card and build", flush=True)
@@ -1435,9 +1838,9 @@ def main() -> int:
     print(f"  {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
     t = time.perf_counter()
-    lib = build.build()
-    print(f"  built {lib.name} from an empty build directory in "
-          f"{time.perf_counter() - t:.2f} s", flush=True)
+    libs = build.build_all()
+    print(f"  built {', '.join(lib.name for lib in libs)} from an empty build directory, "
+          f"one nvcc each, started together, in {time.perf_counter() - t:.2f} s", flush=True)
     for log in sorted(build.BUILD_DIR.glob("*.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "error" in line.lower():
@@ -1450,6 +1853,10 @@ def main() -> int:
     print(f"== 2h. hex kernel vs plain (bound: bytes / {MEM_BYTES_PER_S / 1e12} TB/s; "
           f"card {smi})", flush=True)
     hex_rows = {d: hex_kernel_vs_plain(d, N_KERNEL, torch.device("cuda")) for d in (3, 2)}
+
+    print(f"== 2a. flash_attention vs plain (bound: max(FLOP / {TC_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s, bytes / {MEM_BYTES_PER_S / 1e12} TB/s); card {smi})", flush=True)
+    flash = flash_vs_plain(kops, kref)
 
     print("== 3. main path at full size", flush=True)
     sizes, originals = record_launch_sizes(kops)
@@ -1488,6 +1895,10 @@ def main() -> int:
 
     print("== 4. card vs CPU", flush=True)
     card_vs_cpu()
+    lm_card_vs_cpu()
+
+    print(f"== 6. serving {SERVE_ARCH} at full width and depth (card {smi})", flush=True)
+    served = serve_path(kops, kref)
 
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
@@ -1519,6 +1930,14 @@ def main() -> int:
         raise AssertionError(f"plain versions ran on the hex path: {plain_calls_h}, "
                              f"{plain_calls_hq}")
     hybrid_face_sweeps(kops)
+    prefills = {"6a": 1, "6b": len(REQUEST_LENGTHS), "6c": 2}     # 6c: prefill and forward
+    layers = get_config(SERVE_ARCH).num_layers
+    for key, (_facts, lc, pc) in served.items():
+        print(f"  phase {key}: kernel launches {lc}; plain calls {pc}", flush=True)
+        if lc["flash_attention"] != layers * prefills[key] or any(pc.values()):
+            raise AssertionError(f"phase {key}: flash_attention launched "
+                                 f"{lc['flash_attention']} times, want {layers} x "
+                                 f"{prefills[key]}; plain calls {pc}")
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows[3] if x["name"] == name)
@@ -1559,6 +1978,12 @@ def main() -> int:
                               f"hex_plain_ms{sfx}": m["plain_ms"],
                               f"hex_bound_ms{sfx}": m["bound_ms"]})
         kernels.append(entry)
+    kernels.append({
+        "name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
+        "replaces": FLASH_REPLACES, "launches": served["6a"][1]["flash_attention"],
+        "launches_phase6b": served["6b"][1]["flash_attention"],
+        "launches_phase6c": served["6c"][1]["flash_attention"], **flash,
+        "serve": {k: v[0] for k, v in served.items()}})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,11 @@ owner — host numpy in the JAX package, tensors here;
 `ghost_from_reference` and `ghost_to_reference` carry it across.  The
 element class of a forest's leaves is its coarse mesh's (`tree_eclass`,
 hex trees included); a forest without one holds simplices.
+
+An LM's state is its parameters: `lm_params_from_reference` loads the JAX
+package's parameter tree (`repro.models.init_params`, as numpy arrays)
+into the port's `models.lm.LM`, so both packages compute with the same
+weights.
 """
 
 from __future__ import annotations
@@ -29,10 +34,12 @@ from .core.cmesh import CMESH_FIELDS, Cmesh
 from .core.forest import Forest, resolve_device
 from .core.keys import from_u64, to_u64
 from .core.types import ECLASS_HEX, ECLASS_SIMPLEX, to_numpy
+from .models.config import ModelConfig
+from .models.lm import LM
 
 __all__ = ["FIELDS", "GHOST_FIELDS", "CMESH_FIELDS", "forest_from_reference",
            "forest_to_reference", "ghost_from_reference", "ghost_to_reference",
-           "cmesh_from_reference", "cmesh_to_reference"]
+           "cmesh_from_reference", "cmesh_to_reference", "lm_params_from_reference"]
 
 FIELDS = ("d", "num_trees", "rank", "num_ranks", "anchor", "level", "stype", "tree", "keys",
           "cmesh")
@@ -141,3 +148,42 @@ def ghost_to_reference(ghost: dict) -> dict:
     """The port's ghost layer as the JAX package holds it: host int32
     arrays."""
     return {name: to_numpy(ghost[name]).astype(np.int32) for name in GHOST_FIELDS}
+
+
+def lm_params_from_reference(cfg: ModelConfig, params: dict, device=None) -> LM:
+    """The port's `LM` holding the JAX package's parameters: `params` is the
+    JAX tree (tok_embed, out_head, final_norm, and layers with a leading
+    layer axis), as numpy arrays or anything `np.asarray` takes.  The
+    stacked layer axis is split into the blocks; every weight keeps JAX's
+    (in, out) layout, so no matrix is transposed.  Each leaf is cast to the
+    parameter's dtype (bf16 leaves go through fp32, exactly).  Raises if a
+    leaf is missing, left over or of another shape.  On `device`, the card
+    unless given."""
+    model = LM(cfg, 0, device)
+    for name, p in model.named_parameters():
+        path = name.split(".")
+        node = params["layers"] if path[0] == "layers" else params
+        for part in (path[2:] if path[0] == "layers" else path):
+            node = node[part]
+        leaf = np.asarray(node, np.float32)
+        if path[0] == "layers":
+            leaf = leaf[int(path[1])]
+        if leaf.shape != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {leaf.shape}, port {tuple(p.shape)}")
+        with torch.no_grad():
+            p.copy_(torch.tensor(leaf).to(p.dtype))
+    n_port = sum(1 for name, _ in model.named_parameters()
+                 if not name.startswith("layers.") or name.startswith("layers.0."))
+    n_ref = sum(1 for _ in _leaves(params))
+    if n_port != n_ref:
+        raise ValueError(f"the reference tree has {n_ref} leaves, the port {n_port}")
+    return model
+
+
+def _leaves(tree):
+    """The non-None leaves of a nested dict."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        elif v is not None:
+            yield v

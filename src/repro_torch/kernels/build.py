@@ -1,8 +1,10 @@
 """Build the CUDA kernels of `csrc/` and load them with ctypes.
 
-A `csrc/<stem>.cu` source is compiled by `nvcc` into a shared library with
-a plain C interface, at first use, into `_build/` beside this file (a
-directory that git ignores).  The packed lookup tables the kernels index,
+Two sources: `sfc.cu` (the element kernels) and `flash_attention.cu`
+(attention).  A `csrc/<stem>.cu` source is compiled by `nvcc` into a shared
+library with a plain C interface, at first use, into `_build/` beside this
+file (a directory that git ignores); `build_all` starts one `nvcc` a source,
+all together.  The packed lookup tables the kernels index,
 and the root simplex's containment constants, are generated from
 `core.tables` into `_build/sfc_tables.h` first, so no table is typed by
 hand.  A library is named after the hash of its source, the generated
@@ -25,7 +27,8 @@ from pathlib import Path
 from ..core.tables import MAXLEVEL, get_tables
 
 __all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "packed_tables", "neighbor_table",
-           "hex_neighbor_table", "root_containment", "table_header", "build", "library"]
+           "hex_neighbor_table", "root_containment", "table_header", "build", "build_all",
+           "library"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -134,11 +137,9 @@ def _target(src: Path, header: str) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(stem: str = "sfc") -> Path:
-    """Compile `csrc/<stem>.cu` unless an up-to-date library exists, and
-    return the library's path.  The compiler's output, register counts
-    included, goes to `_build/<stem>.log`.  Raises RuntimeError if `nvcc`
-    is missing or the build fails."""
+def _start(stem: str):
+    """Start `nvcc` on `csrc/<stem>.cu` unless an up-to-date library exists.
+    Returns (library path, running build or None)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     header = table_header()
     hpath = BUILD_DIR / "sfc_tables.h"
@@ -149,16 +150,45 @@ def build(stem: str = "sfc") -> Path:
     src = CSRC_DIR / f"{stem}.cu"
     lib = _target(src, header)
     if lib.exists():
-        return lib
+        return lib, None
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
     log = BUILD_DIR / f"{stem}.log"
     cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", str(tmp), str(src)]
     with log.open("w") as out:
-        rc = subprocess.run(cmd, stdout=out, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel build failed: {src.name} (nvcc exit {rc}, see {log})")
-    os.replace(tmp, lib)
+        proc = subprocess.Popen(cmd, stdout=out, stderr=subprocess.STDOUT)
+    return lib, (proc, tmp, log)
+
+
+def _finish(lib: Path, running) -> Path:
+    if running is not None:
+        proc, tmp, log = running
+        rc = proc.wait()
+        if rc != 0:
+            raise RuntimeError(f"CUDA kernel build failed: {log.stem}.cu (nvcc exit {rc}, "
+                               f"see {log})")
+        os.replace(tmp, lib)
     return lib
+
+
+def build(stem: str = "sfc") -> Path:
+    """Compile `csrc/<stem>.cu` unless an up-to-date library exists, and
+    return the library's path.  The compiler's output, register counts
+    included, goes to `_build/<stem>.log`.  Raises RuntimeError if `nvcc`
+    is missing or the build fails."""
+    return _finish(*_start(stem))
+
+
+def build_all() -> list[Path]:
+    """`build` every source of `csrc/`, all `nvcc` runs started together;
+    returns the libraries' paths in source order."""
+    started = [_start(src.stem) for src in sorted(CSRC_DIR.glob("*.cu"))]
+    try:
+        return [_finish(lib, running) for lib, running in started]
+    finally:
+        for _lib, running in started:       # a failed build leaves no compiler running
+            if running is not None and running[0].poll() is None:
+                running[0].kill()
+                running[0].wait()
 
 
 def library(stem: str) -> ctypes.CDLL:

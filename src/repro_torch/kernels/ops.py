@@ -2,7 +2,9 @@
 parent and children (New -> Adapt -> Partition), the face sweep, routing
 eval and inside-root test (Balance -> Ghost -> validate), the tree
 transform that carries face neighbors across glued tree faces (cmesh), and
-the element queries owner rank, successor and single-face neighbor.
+the element queries owner rank, successor and single-face neighbor; and
+around the attention kernel of `csrc/flash_attention.cu`, which the LM's
+prefill runs.
 
 Every kernel with a body per element class takes `eclass` (simplex by
 default) and passes it to the C entry point, which launches that class's
@@ -16,8 +18,9 @@ a CPU tensor goes to its plain version in `kernels.ref`; a CUDA tensor goes
 to the kernel, or the call raises — there is no fallback.  On the card a
 wrapper allocates the outputs with `torch.empty`, launches on
 `torch.cuda.current_stream()`, raises if the launch returns a nonzero
-`cudaError_t`, and adds one to `launch_counts` for the kernel and to
-`class_launch_counts` for the kernel and the class ("simplex" or "hex").
+`cudaError_t`, and adds one to `launch_counts` for the kernel and, for an
+element kernel, to `class_launch_counts` for the kernel and the class
+("simplex" or "hex").
 """
 
 from __future__ import annotations
@@ -33,14 +36,15 @@ from .build import library
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
            "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
-           "launch_counts", "class_launch_counts", "reset_launch_counts"]
+           "flash_attention", "FLASH_HEAD_DIMS", "launch_counts", "class_launch_counts",
+           "reset_launch_counts"]
 
-launch_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
-                                 "face_sweep": 0, "eval_route": 0, "inside_root": 0,
-                                 "tree_transform": 0, "owner_rank": 0, "successor": 0,
-                                 "face_neighbor": 0}
+_ELEMENT_KERNELS = ("morton_key", "decode", "parent", "children", "face_sweep",
+                    "eval_route", "inside_root", "tree_transform", "owner_rank", "successor",
+                    "face_neighbor")
+launch_counts: dict[str, int] = dict.fromkeys((*_ELEMENT_KERNELS, "flash_attention"), 0)
 class_launch_counts: dict[str, dict[str, int]] = {
-    k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in launch_counts}
+    k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in _ELEMENT_KERNELS}
 
 _P = ctypes.c_void_p
 _N = ctypes.c_int64
@@ -57,6 +61,8 @@ _ARGTYPES = {
     "sfc_owner_rank": [_P, _P, _P, _P, _I, _P, _N, _P],
     "sfc_successor": [_I, _I, _P, _P, _P, _P, _P, _N, _P],
     "sfc_face_neighbor": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _N, _P],
+    "fa_flash_attention": [_I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                           _N, _N, _N, _N, _N, _N, _P],
 }
 _FNS: dict = {}
 
@@ -64,13 +70,16 @@ _FNS: dict = {}
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in class_launch_counts:
         class_launch_counts[k] = dict.fromkeys(ECLASS_NAMES.values(), 0)
 
 
 def _fn(name: str):
+    """The C entry point `name`: `fa_*` from `csrc/flash_attention.cu`,
+    `sfc_*` from `csrc/sfc.cu`."""
     f = _FNS.get(name)
     if f is None:
-        f = getattr(library("sfc"), name)
+        f = getattr(library("flash_attention" if name.startswith("fa_") else "sfc"), name)
         f.argtypes = _ARGTYPES[name]
         f.restype = ctypes.c_int
         _FNS[name] = f
@@ -117,9 +126,10 @@ def _nf(d: int, eclass: int) -> int:
     return 2 * d if eclass == ECLASS_HEX else d + 1
 
 
-def _launch(name: str, eclass: int, kernel: str, *args) -> None:
+def _call(name: str, kernel: str, *args) -> None:
     """Call C entry point `kernel` with `args` (tensors as pointers) and the
-    current stream of the tensors' card; count the launch for `eclass`."""
+    current stream of the tensors' card, raise on a nonzero `cudaError_t`,
+    and count the launch under `name`."""
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     fn = _fn(kernel)
@@ -130,6 +140,11 @@ def _launch(name: str, eclass: int, kernel: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with cudaError_t {err}")
     launch_counts[name] += 1
+
+
+def _launch(name: str, eclass: int, kernel: str, *args) -> None:
+    """`_call` for an element kernel, also counted for `eclass`."""
+    _call(name, kernel, *args)
     class_launch_counts[name][ECLASS_NAMES[eclass]] += 1
 
 
@@ -362,3 +377,51 @@ def face_neighbor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor
         _launch("face_neighbor", ec, "sfc_face_neighbor", d, ec, anchor, level, stype, face,
                 *outs, n)
     return outs
+
+
+FLASH_HEAD_DIMS = (32, 64, 96, 128)
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention of q (B, S, H, hd) over k, v (B, S, KV, hd), H % KV == 0,
+    query head h reading KV head h // (H // KV), with scale 1/sqrt(hd); a
+    causal mask (kpos <= qpos) unless `causal` is False, and with `window`
+    also kpos > qpos - window.  Scores, softmax and p.v in fp32 (the kernel
+    rounds p to bf16/fp16 for the tensor cores); returns (B, S, H, hd) in
+    q's dtype.  The function of the JAX package's Pallas `flash_attention`,
+    for any S >= 1.
+
+    q, k and v are contiguous, of one dtype (float32, bfloat16 or float16),
+    with hd in FLASH_HEAD_DIMS — the kernel's domain, checked for CPU
+    tensors too, so both devices take the same inputs.  A CPU tensor goes
+    to the plain version (`kernels.ref.flash_attention`); a CUDA tensor to
+    the kernel of `csrc/flash_attention.cu` (float32 on CUDA cores,
+    bfloat16/float16 on the tensor cores), which reads the (B, S, H, hd)
+    layout in place through its strides."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, S, H, hd), got {tuple(q.shape)}")
+    B, S, H, hd = q.shape
+    KV = k.shape[2] if k.dim() == 4 else -1
+    if KV < 1 or H % KV:
+        raise ValueError(f"k must be (B, S, KV, hd) with H % KV == 0, got {tuple(k.shape)}")
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"q: no kernel for {q.dtype}")
+    if hd not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head dim {hd} not in {FLASH_HEAD_DIMS}")
+    if S < 1:
+        raise ValueError("need at least one position")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    _check(q, "q", q.dtype, (B, S, H, hd))
+    _check(k, "k", q.dtype, (B, S, KV, hd))
+    _check(v, "v", q.dtype, (B, S, KV, hd))
+    if _on_cpu(q, k, v):
+        return ref.flash_attention(q, k, v, causal=causal, window=window)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k and v must start on 16-byte boundaries (16-byte loads)")
+    o = torch.empty_like(q)
+    _call("flash_attention", "fa_flash_attention", _FLASH_DTYPES[q.dtype], B, S, H, KV, hd,
+          int(causal), window or 0, q, k, v, o, *q.stride()[:3], *k.stride()[:3])
+    return o

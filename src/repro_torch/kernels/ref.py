@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the CUDA kernels, delegating to `core.ops`.
+"""Plain PyTorch versions of the CUDA kernels: the element kernels,
+delegating to `core.ops`, and attention (`flash_attention`).
 
 Same signatures and outputs as the wrappers in `kernels.ops`; they run on the
 tensors' own device.  The wrappers call them for CPU tensors, the tests hold
@@ -7,11 +8,14 @@ them on the card.  Each function that has a body per element class takes
 `eclass` (simplex by default); hex elements have type 0, which no hex
 function reads and every hex function writes.  `eval_route` reads its
 face count off its inputs, and `owner_rank` does not depend on the class.
-`call_counts` counts calls per function, `class_call_counts` per function
-and class ("simplex" or "hex"; `owner_rank` under the class it is given).
+`call_counts` counts calls per function, `class_call_counts` per element
+function and class ("simplex" or "hex"; `owner_rank` under the class it is
+given).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -22,19 +26,21 @@ from ..core.types import ECLASS_HEX, ECLASS_NAMES, ECLASS_SIMPLEX, Simplex
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
            "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
-           "call_counts", "class_call_counts", "reset_call_counts"]
+           "flash_attention", "NEG_INF", "call_counts", "class_call_counts",
+           "reset_call_counts"]
 
-call_counts: dict[str, int] = {"morton_key": 0, "decode": 0, "parent": 0, "children": 0,
-                               "face_sweep": 0, "eval_route": 0, "inside_root": 0,
-                               "tree_transform": 0, "owner_rank": 0, "successor": 0,
-                               "face_neighbor": 0}
+_ELEMENT_FNS = ("morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
+                "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor")
+call_counts: dict[str, int] = dict.fromkeys((*_ELEMENT_FNS, "flash_attention"), 0)
 class_call_counts: dict[str, dict[str, int]] = {
-    k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in call_counts}
+    k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in _ELEMENT_FNS}
+NEG_INF = -1e30     # a masked score: finite, as in the JAX package
 
 
 def reset_call_counts() -> None:
     for k in call_counts:
         call_counts[k] = 0
+    for k in class_call_counts:
         class_call_counts[k] = dict.fromkeys(ECLASS_NAMES.values(), 0)
 
 
@@ -204,3 +210,26 @@ def tree_transform(conn: torch.Tensor, anchor: torch.Tensor, level: torch.Tensor
     s2 = o.tree_transform(Simplex(anchor, level, stype), M, row[:, d:2 * d], typemap)
     dual2 = torch.gather(row[:, 2 * d + nt:-1], 1, at[:, None])[:, 0]
     return s2.anchor, s2.stype, dual2.to(torch.int32), row[:, -1].to(torch.int32)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Attention of q (B, S, H, hd) over k, v (B, S, KV, hd), the function
+    of the attention kernel: scores q.k / sqrt(hd) in fp32, masked to the
+    finite NEG_INF (causal: kpos <= qpos; with `window` also
+    kpos > qpos - window), softmax, p.v in fp32, cast to q's dtype.  The
+    whole (S, S) score matrix at once, no online softmax."""
+    call_counts["flash_attention"] += 1
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, S, KV, H // KV, hd).float()
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * (1.0 / math.sqrt(hd))
+    pos = torch.arange(S, device=q.device)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window is not None:
+        mask &= pos[None, :] > pos[:, None] - window
+    p = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
+    return out.reshape(B, S, H, hd).to(q.dtype)

@@ -93,9 +93,10 @@ def test_cuda_wrappers_never_fall_back():
     kops.successor(anchor, level, stype)
     kops.face_neighbor(anchor, level, stype, tgt[0] & 3)
     assert kops.morton_key(anchor[:0], stype[:0]).shape == (0,)
-    assert kops.launch_counts == {k: 1 for k in KERNELS + ["eval_route", "tree_transform",
-                                                           "owner_rank", "successor",
-                                                           "face_neighbor"]}
+    assert kops.launch_counts == {**{k: 1 for k in KERNELS + ["eval_route", "tree_transform",
+                                                              "owner_rank", "successor",
+                                                              "face_neighbor"]},
+                                  "flash_attention": 0}
     assert not any(kref.call_counts.values())
     with pytest.raises(ValueError):
         kops.morton_key(anchor, stype.cpu())
@@ -592,3 +593,80 @@ def test_cuda_hex_and_hybrid_pipeline_matches_cpu(name):
     for a, b in zip(gg, gc, strict=True):
         for k in ("anchor", "level", "stype", "tree", "owner"):
             assert torch.equal(a[k].cpu(), b[k])
+
+
+# ---------------------------------------------------------------- attention
+FLASH_CASES = [
+    # (B, S, H, KV, hd, window): ragged S, G = 1, 2, 4 and H (MQA), every hd,
+    # a window of 100 and one smaller than a tile
+    (1, 1, 4, 2, 32, None),
+    (2, 127, 8, 8, 64, None),
+    (1, 129, 16, 4, 96, None),
+    (1, 1000, 16, 8, 128, None),
+    (1, 300, 16, 1, 128, 100),
+    (2, 200, 4, 2, 32, 20),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_cuda_flash_attention_matches_plain_version(case, dtype):
+    """The attention kernel against its plain version on the same card
+    tensors: 2e-5 in fp32 (CUDA cores, no TF32), 2e-2 in bf16/fp16 (p
+    rounded for the tensor cores, the output rounded to the dtype); one
+    launch, no plain call from the wrapper."""
+    dev = _card()
+    B, S, H, KV, hd, window = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(S + hd)
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+    k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
+    v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    got = kops.flash_attention(q, k, v, window=window)
+    assert kops.launch_counts["flash_attention"] == 1 and not any(kref.call_counts.values())
+    want = kref.flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    assert got.dtype == dt and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_serving_matches_cpu():
+    """Reduced qwen3 in fp32, the same weights on both devices: a prefill and
+    4 greedy decode steps give equal tokens and logits within 1e-4; the
+    kernel ran once a layer, no plain version."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    dev = _card()
+    cfg = replace(reduced(get_config("qwen3-1.7b")), dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 37)))
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        p = params.to(device)
+        kops.reset_launch_counts()
+        kref.reset_call_counts()
+        logits, cache = prefill(p, {"tokens": prompt.to(device)}, init_cache(cfg, 2, 48,
+                                                                           device=device))
+        out, toks = [logits.cpu()], []
+        for i in range(4):
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok.cpu())
+            logits, cache = step(p, cache, tok, 37 + i)
+            out.append(logits.cpu())
+        runs.append((out, toks, dict(kops.launch_counts), dict(kref.call_counts)))
+    (og, tg, lg, cg), (oc, tc, _l, _c) = runs
+    assert lg["flash_attention"] == cfg.num_layers and not any(cg.values())
+    for a, b in zip(tg, tc, strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(og, oc, strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -226,7 +226,8 @@ def test_import_leaves_jax_and_reference_out():
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert "repro_torch.core.forest" in mods and "repro_torch.kernels.build" in mods
+    assert {"repro_torch.core.forest", "repro_torch.kernels.build", "repro_torch.models.lm",
+            "repro_torch.launch.serve"} <= set(mods)
 
 
 def test_entry_points_default_to_the_card():

@@ -195,12 +195,15 @@ def test_tree_transform_across_every_hex_face_matches_pallas(d):
 
 
 def test_c_entry_points_take_the_wrappers_argument_counts():
-    """Every `extern "C"` entry point of `csrc/sfc.cu` has as many
-    parameters as `kernels.ops` declares for it."""
-    src = (build.CSRC_DIR / "sfc.cu").read_text()
-    body = src[src.index('extern "C"'):]
-    sigs = {m.group(1): len([p for p in m.group(2).split(",") if p.strip()])
-            for m in re.finditer(r"int (sfc_\w+)\((.*?)\)\s*\{", body, re.S)}
-    assert sigs and set(sigs) == set(kops._ARGTYPES)
+    """Every `extern "C"` entry point of every source in `csrc/` (`sfc.cu`
+    and `flash_attention.cu`) has as many parameters as `kernels.ops`
+    declares for it."""
+    sigs = {}
+    for path in sorted(build.CSRC_DIR.glob("*.cu")):
+        src = path.read_text()
+        body = src[src.index('extern "C"'):]
+        sigs.update({m.group(1): len([p for p in m.group(2).split(",") if p.strip()])
+                     for m in re.finditer(r"int ((?:sfc|fa)_\w+)\((.*?)\)\s*\{", body, re.S)})
+    assert sigs and set(sigs) == set(kops._ARGTYPES) and "fa_flash_attention" in sigs
     for name, count in sigs.items():
         assert len(kops._ARGTYPES[name]) == count, name
