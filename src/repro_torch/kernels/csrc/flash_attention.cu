@@ -7,81 +7,91 @@
 // masked score is the finite -1e30 (causal: kpos <= qpos; with a window w
 // also kpos > qpos - w; and kpos < S for the ragged last tile); an online
 // softmax with fp32 running max, sum and accumulator; out = acc / max(l,
-// 1e-30) in q's dtype.  Any S >= 1; hd 32, 64, 96 or 128.
+// 1e-30) in q's dtype.  Any S >= 1; hd 32, 64, 96 or 128; bf16, fp16, fp32.
 //
 // What bounds it: the multiply-adds.  A (b, h) pair needs 4 hd FLOPs per
 // unmasked (query, key) pair (q.k and p.v) but reads q, k, v and writes o
 // only once, so at the serving shapes (S in the thousands) the work is
-// compute-bound on the tensor cores: 989 TFLOP/s dense bf16/fp16 on an H100
-// SXM against 3.35 TB/s of device memory.
+// compute-bound on the tensor cores: at qwen3-1.7b's prefill (B 8, S 2048,
+// H 16, KV 8, hd 128, bf16) 1.375e11 FLOP over 989 TFLOP/s (dense
+// bf16/fp16 on an H100 SXM) = 0.139 ms, against 0.060 ms for its bytes at
+// 3.35 TB/s.
 //
-// What the design does about it (a simple first kernel; wgmma, TMA and warp
-// specialisation are for a later redesign):
-//  * bf16 / fp16: one block of 4 warps per (b, h, 64-query tile); each warp
-//    owns 16 query rows.  Q's fragments stay in registers for the whole
-//    loop; k/v tiles of 64 keys are staged in shared memory and both
-//    products run on the tensor cores through mma.sync m16n8k16
-//    with fp32 accumulation.  The score accumulators are reused in place as
-//    the A operand of p.v (rounded to bf16/fp16 there, as the TPU kernel's
-//    p @ v rounds on the MXU), so scores never leave registers.
+// What the design does about it (bf16 / fp16):
+//  * Both products on wgmma, fp32 accumulate.  S = Q K^T is m64n128k16
+//    with A = the Q tile and B = the K tile, both read from shared memory
+//    through descriptors (K stored [key][hd] is K-major for B).  O += P V
+//    takes A = P from registers: the fp32 S accumulator of a 64 x 128 tile,
+//    rounded in place to bf16/fp16 pairs, is wgmma's register-A layout (as
+//    the TPU kernel's p @ v rounds on the MXU), so scores never leave
+//    registers; B = the V tile [key][hd], MN-major, through the
+//    descriptor's transpose bit.
+//  * k/v reach shared memory by TMA (cp.async.bulk.tensor) into a ring of
+//    STAGES = 2 stages, each completed on mbarriers (k and v apart, so QK^T
+//    starts before v lands) and handed back on an "empty" mbarrier.  One
+//    producer warp (one thread issues) keeps the next tile's loads in
+//    flight while two consumer warpgroups of 64 query rows each compute.
+//    Tensor maps are encoded on the host each call over the (B, S, heads,
+//    hd) layout and its strides; TMA fills rows past S (and head-dim
+//    columns past hd) with zeros.
+//  * One layout everywhere: a TMA box is 64 head-dim columns (128 bytes) by
+//    the tile's rows, with the 128-byte swizzle, and the wgmma descriptors
+//    name the same layout (swizzle mode 1, 8-row groups 1024 bytes apart,
+//    a k16 step 32 bytes along a K-major row or 16 rows down an MN-major
+//    one, V's 64-column boxes one tile apart).  hd 128 is two boxes; hd 96
+//    two with the last 32 columns zero-filled, hd 32 one with 32 (the
+//    products see hd 128 and 64: a quarter and a half of their work is on
+//    zeros; qwen3's hd 128 has none).
+//  * The mask runs only where a tile needs it: the causal diagonal, the
+//    window's lower edge and the ragged last tile (judged per warpgroup's
+//    64 rows, as two key bounds a row); interior tiles only scale.  Tiles
+//    masked for the whole query tile are never loaded, so the work is
+//    S (S + 1) / 2 pairs a head, not S^2.  Tiles run in ascending key
+//    order: a row whose first visited tile is fully masked (a window
+//    smaller than the tile) accumulates p = 1 on the finite -1e30, which
+//    the first unmasked tile wipes with corr = exp(-1e30 - m) = 0, exactly
+//    as on the TPU.
+//  * A persistent grid, one block an SM: a block walks (b, h, query tile)
+//    items, a long causal band paired with a short one (`unit_item`), with
+//    two Q buffers, so that an item's Q and first k/v tiles load while the
+//    one before it finishes, and its output leaves by TMA store (which
+//    drops rows past S and columns past hd) from the warpgroup's own rows
+//    of the Q buffer while the next item computes.
+//  * Tiles: 128 query rows and 128 keys, 288 threads (warpgroups 0-1
+//    compute, warp 8 loads); shared memory (two Q buffers + 2 stages of K
+//    and V) 192 KB at hd 96/128 and 96 KB at hd 32/64, one block an SM.
+//    ptxas, bf16 hd 128 (-Xptxas -v, `_build/flash_attention.log`): "Used
+//    168 registers, used 16 barriers"; "0 bytes stack frame, 0 bytes spill
+//    stores, 0 bytes spill loads".  168 is ptxas's ceiling at 288 threads
+//    as at 384, and setmaxnreg did not raise it for the consumers' code, so
+//    the design keeps a consumer within 168: one S tile, P and O (64 + 32
+//    + 64 registers) and no second S tile in flight.
 //  * fp32: CUDA cores only (never TF32), so that it holds 2e-5 against the
 //    plain version.  One block of 8 warps per (b, h, 32-query tile); warp w
 //    owns rows w, w + 8, w + 16, w + 24, lane j owns key j of a 32-key tile,
-//    and the running max, sum and output stay in registers.
-//  * Both loop only over the k/v tiles that the causal (and window) band of
-//    their query tile touches: masked tiles are never loaded, so the work is
-//    S (S + 1) / 2 pairs a head, not S^2.  A row whose first visited tile is
-//    fully masked (a window smaller than the tile) accumulates p = 1 on the
-//    finite -1e30, which the first unmasked tile wipes with
-//    corr = exp(-1e30 - m) = 0, exactly as on the TPU.
-//  * The public layout (B, S, H, hd) is read in place through its strides,
-//    16 bytes a thread; rows past S are loaded as zeros and masked.
+//    and the running max, sum and output stay in registers; the public
+//    layout is read in place through its strides, rows past S loaded as
+//    zeros and masked.
 
+#include <cuda.h>   // CUtensorMap and its enums; the encoder is reached through the runtime
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ------------------------------------------------------------------ fp16 / bf16
-constexpr int TC_BQ = 64;        // query rows a block (16 a warp)
-constexpr int TC_BK = 64;        // keys a tile
-constexpr int TC_THREADS = 128;
-constexpr int TC_PAD = 8;        // 16 B of padding a shared row: conflict-free fragments
-
-template <typename T> struct Tc;
-template <> struct Tc<__nv_bfloat16> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
-template <> struct Tc<__half> {
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-  static __device__ __forceinline__ void mma(float* d, const uint32_t* a, uint32_t b0,
-                                             uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-};
+// 2^x on the special-function unit, denormal results flushed to zero.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
 struct Shape {
   int B, S, H, KV, causal, window;       // window <= 0: none
@@ -101,164 +111,482 @@ __device__ __forceinline__ bool unmasked(const Shape& sh, int qpos, int kpos) {
          (sh.window <= 0 || kpos > qpos - sh.window);
 }
 
-// Stage rows [row0, row0 + rows) of one head into shared memory (row stride
-// HD + TC_PAD), 16 bytes a thread, zeros past S.
+// ------------------------------------------------------------ fp16 / bf16
+constexpr int BQ = 128;          // query rows a block: two consumer warpgroups of 64
+constexpr int BK = 128;          // keys a k/v tile
+constexpr int BOX = 64;          // head-dim columns a TMA box: one 128-byte swizzled row
+constexpr int ROW = 128;         // bytes of a box row in shared memory
+constexpr int STAGES = 2;        // k/v ring
+constexpr int CONSUMERS = 256;   // warpgroups 0 and 1 compute
+constexpr int THREADS = CONSUMERS + 32;   // warp 8 loads
+
+template <int HD> struct Geo {
+  static constexpr int NB = (HD + BOX - 1) / BOX;   // boxes a row
+  static constexpr int HDP = NB * BOX;              // head dim the products see
+  static constexpr int QB = BQ * ROW;               // bytes of one box of the Q tile
+  static constexpr int KB = BK * ROW;               // ... of a K or V tile
+  static constexpr int Q_OFF = 0;                   // Q[buffer][box], two buffers
+  static constexpr int K_OFF = 2 * NB * QB;         // K[stage][box]
+  static constexpr int V_OFF = K_OFF + STAGES * NB * KB;
+  static constexpr int BAR_OFF = V_OFF + STAGES * NB * KB;
+  static constexpr int SMEM = BAR_OFF + 8 * (4 + 3 * STAGES) + 1024;   // + alignment slack
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 st;\nmbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Wait for the phase of `parity` to complete.  A barrier still open after
+// 2^22 polls and 4 s (a producer and its consumers disagreeing on the tile
+// count) traps, which fails the launch instead of hanging the card.  Polls
+// are made only while the kernel runs, so a context preempted or stopped
+// in a debugger does not trap, however long it waits; a correct wait lasts a
+// tile's work, microseconds.  A trap is a sticky error: it poisons the
+// caller's CUDA context, and the process cannot go on using the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  for (uint32_t polls = 1; !mbar_try_wait(bar, parity); ++polls)
+    if (polls >= (1u << 22) && global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// TMA: one box at coordinates (column, head, row, batch) into shared memory,
+// completing `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// A wgmma operand descriptor for the 128-byte swizzle (layout type 1): start
+// address, leading byte offset `lbo` (the distance between 64-column boxes
+// of an MN-major operand; unused K-major) and 1024 bytes between 8-row groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>(1024 >> 4) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <typename T> struct Wgmma;
+
+template <> struct Wgmma<__nv_bfloat16> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  // d (64 x 128) = a . b (+ d if scale_d): a 64 x 16 and b 16 x 128 in shared memory, K-major.
+  static __device__ __forceinline__ void ss128(float (&d)[64], uint64_t a, uint64_t b,
+                                               int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x N) += a . b: a 64 x 16 in registers, b 16 x N in shared memory, MN-major.
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+template <> struct Wgmma<__half> {
+  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+  static __device__ __forceinline__ void ss128(float (&d)[64], uint64_t a, uint64_t b,
+                                               int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keep the compiler from moving reads or writes of wgmma's registers across
+// its issue and wait.
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) asm volatile("" : "+r"(a[i][x])::"memory");
+}
+
+// A consumer thread's accumulators: element 4 j + 2 r + e is row r (of its
+// two rows, g and g + 8 of its warp's 16) and column 8 j + 2 tq + e, where
+// lane = 4 g + tq; S is 64 x BK a warpgroup, O 64 x HDP.
+
+// S = Q K^T of the tile in stage s for warpgroup cw: hd / 16 k-steps, 32
+// bytes apart along a box row; issued and committed, not waited.
 template <typename T, int HD>
-__device__ __forceinline__ void stage(T* dst, const T* src, int64_t s_stride, int row0,
-                                      int rows, int S) {
-  constexpr int PER_ROW = HD / 8;
-  for (int i = threadIdx.x; i < rows * PER_ROW; i += blockDim.x) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S)
-      val = __ldg(reinterpret_cast<const uint4*>(src + (int64_t)(row0 + r) * s_stride + c));
-    *reinterpret_cast<uint4*>(dst + r * (HD + TC_PAD) + c) = val;
+__device__ __forceinline__ void issue_s(float (&sc)[BK / 2], uint32_t q_s, uint32_t k_s, int cw,
+                                        int s) {
+  using G = Geo<HD>;
+  reg_fence(sc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < G::HDP / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(q_s + (kk / 4) * G::QB + cw * 64 * ROW + off, 16);
+    const uint64_t db = sw128_desc(k_s + (s * G::NB + kk / 4) * G::KB + off, 16);
+    Wgmma<T>::ss128(sc, da, db, kk > 0);
+  }
+  wgmma_commit();
+}
+
+// O += P V of the tile in stage s: BK / 16 k-steps, 16 rows (2048 bytes)
+// apart; V's boxes one tile (KB bytes) apart along N.  Not waited.
+template <typename T, int HD>
+__device__ __forceinline__ void issue_pv(float (&o)[Geo<HD>::HDP / 2], uint32_t (&p)[BK / 16][4],
+                                         uint32_t v_s, int s) {
+  using G = Geo<HD>;
+  reg_fence(o);
+  reg_fence(p);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Wgmma<T>::rs(o, p[kk], sw128_desc(v_s + s * G::NB * G::KB + kk * 16 * ROW, G::KB));
+  wgmma_commit();
+}
+
+// Scale the scores of the tile at key k0 into the log2 domain, masking only
+// a tile that reaches past the causal diagonal of a row in [row_lo,
+// row_hi], below its window, or past S; update the running max m and sum l
+// of the thread's rows qpos[0..1] (the four lanes of a quad hold a row's
+// BK scores between them); turn the scores into p; return each row's
+// correction of the accumulator in corr.
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Shape& sh, int k0,
+                                               int row_lo, int row_hi, const int (&qpos)[2],
+                                               int tq, float scale_log2, float (&m)[2],
+                                               float (&l)[2], float (&corr)[2]) {
+  const bool edge = (sh.causal && k0 + BK - 1 > row_lo) || k0 + BK > sh.S ||
+                    (sh.window > 0 && k0 <= row_hi - sh.window);
+  if (edge) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // row r sees keys [lo, hi]
+      const int hi = (sh.causal ? min(qpos[r], sh.S - 1) : sh.S - 1) - k0 - 2 * tq;
+      const int lo = (sh.window > 0 ? qpos[r] - sh.window + 1 : 0) - k0 - 2 * tq;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = sc[4 * j + 2 * r + e];
+          x = 8 * j + e >= lo && 8 * j + e <= hi ? x * scale_log2 : kNegInf;
+        }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    corr[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[4 * j + 2 * r + e];
+        x = ex2(x - m_new);
+        sum += x;
+      }
+    l[r] = l[r] * corr[r] + sum;        // this lane's share; summed over the quad at the end
   }
 }
 
+// P in wgmma's register-A layout: keys [16 kk, 16 kk + 16) are score
+// columns 2 kk and 2 kk + 1 of 8.
+template <typename T>
+__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&p)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) p[kk][x] = Wgmma<T>::pack(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
+}
+
+template <int N>
+__device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o[i] *= corr[(i / 2) % 2];
+}
+
+// The work of one launch: every (b, h, query tile).  A unit pairs query
+// tile j with tile n_qt - 1 - j of one (b, h) (the middle tile of an odd
+// n_qt alone), so that under the causal mask every unit holds n_qt + 1 k/v
+// tiles; block c of the persistent grid runs units c, c + G, c + 2G, ...,
+// the longer tile of a unit first.  Units run (b, h) by (b, h), so the
+// blocks in flight at a time read the k/v of a few heads, which stay in L2.
+struct Item {
+  int qt, h, b, t_lo, t_hi;
+};
+
+__device__ __forceinline__ bool unit_item(const Shape& sh, int u, int second, Item* it) {
+  const int n_qt = (sh.S + BQ - 1) / BQ, n_pairs = (n_qt + 1) / 2;
+  const int j = u % n_pairs, bh = u / n_pairs;
+  if (second && j == n_qt - 1 - j) return false;
+  it->qt = second ? j : n_qt - 1 - j;
+  it->h = bh % sh.H;
+  it->b = bh / sh.H;
+  const int q0 = it->qt * BQ;
+  tile_range(sh, q0, min(q0 + BQ, sh.S) - 1, BK, &it->t_lo, &it->t_hi);
+  return true;
+}
+
+__host__ __device__ __forceinline__ int num_units(int B, int S, int H) {
+  return B * H * (((S + BQ - 1) / BQ + 1) / 2);
+}
+
 template <typename T, int HD>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_tc_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, Shape sh, float scale_log2) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* q_s = reinterpret_cast<T*>(smem_raw);                 // [TC_BQ][HD + PAD]
-  T* k_s = q_s + TC_BQ * (HD + TC_PAD);                    // [TC_BK][HD + PAD]
-  T* v_s = k_s + TC_BK * (HD + TC_PAD);                    // [TC_BK][HD + PAD]
+__global__ void __launch_bounds__(THREADS, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap omap,
+                Shape sh, float scale_log2) {
+  using G = Geo<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;   // the swizzle's 1024-byte atoms
+  const uint32_t q_s = base + G::Q_OFF, k_s = base + G::K_OFF, v_s = base + G::V_OFF;
+  // Barriers: q_full[2], q_empty[2] (the two Q buffers), then k_full,
+  // v_full and empty of each k/v stage.
+  const uint32_t bars = base + G::BAR_OFF;
+  const auto q_full = [&](int qb) { return bars + 8 * qb; };
+  const auto q_empty = [&](int qb) { return bars + 8 * (2 + qb); };
+  const auto k_full = [&](int s) { return bars + 8 * (4 + s); };
+  const auto v_full = [&](int s) { return bars + 8 * (4 + STAGES + s); };
+  const auto empty = [&](int s) { return bars + 8 * (4 + 2 * STAGES + s); };
+  const int units = num_units(sh.B, sh.S, sh.H);
 
-  const int n_qt = (sh.S + TC_BQ - 1) / TC_BQ;
-  const int qt = n_qt - 1 - blockIdx.x;                    // longest bands first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (sh.H / sh.KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, tg = lane % 4;
-  const int q0 = qt * TC_BQ;
-
-  const T* qb = q + b * sh.qs_b + h * sh.qs_h;
-  const T* kb = k + b * sh.ks_b + kvh * sh.ks_h;
-  const T* vb = v + b * sh.ks_b + kvh * sh.ks_h;
-
-  stage<T, HD>(q_s, qb, sh.qs_s, q0, TC_BQ, sh.S);
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full(qb), 1);
+      mbar_init(q_empty(qb), 2);                    // one thread of each consumer warpgroup
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), CONSUMERS);               // every consumer thread hands a stage back
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // Q's A fragments for this warp's 16 rows, all hd chunks.
-  constexpr int KC = HD / 16;
-  uint32_t qf[KC][4];
-  {
-    const int r = warp * 16 + g;
+  // The role, read as a warp-uniform value: warpgroups 0 and 1 compute,
+  // warp 8 loads.
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == CONSUMERS / 128) {
+    // ------------------------------------------------------------ producer
+    // Item n's Q goes to buffer n % 2 once item n - 2's output has left it;
+    // k/v tile number `it` (counted over the items) to stage it % STAGES.
+    if (threadIdx.x == CONSUMERS) {
+      int n = 0, it = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x)
+        for (int second = 0; second < 2; ++second) {
+          Item item;
+          if (!unit_item(sh, u, second, &item)) continue;
+          const int qb = n % 2, kvh = item.h / (sh.H / sh.KV);
+          if (n >= 2) mbar_wait(q_empty(qb), (n / 2 - 1) & 1);
+          mbar_expect_tx(q_full(qb), G::NB * G::QB);
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      const int c = kc * 16 + tg * 2;
-      qf[kc][0] = *reinterpret_cast<const uint32_t*>(q_s + r * (HD + TC_PAD) + c);
-      qf[kc][1] = *reinterpret_cast<const uint32_t*>(q_s + (r + 8) * (HD + TC_PAD) + c);
-      qf[kc][2] = *reinterpret_cast<const uint32_t*>(q_s + r * (HD + TC_PAD) + c + 8);
-      qf[kc][3] = *reinterpret_cast<const uint32_t*>(q_s + (r + 8) * (HD + TC_PAD) + c + 8);
-    }
-  }
-
-  constexpr int NT = TC_BK / 8;         // score n-tiles of 8 keys
-  constexpr int OT = HD / 8;            // output n-tiles of 8 columns
-  float oacc[OT][4];
+          for (int c = 0; c < G::NB; ++c)
+            tma_load(q_s + (qb * G::NB + c) * G::QB, &qmap, q_full(qb), c * BOX, item.h,
+                     item.qt * BQ, item.b);
+          for (int t = item.t_lo; t <= item.t_hi; ++t, ++it) {
+            const int s = it % STAGES;
+            if (it >= STAGES) mbar_wait(empty(s), (it / STAGES - 1) & 1);
+            mbar_expect_tx(k_full(s), G::NB * G::KB);
 #pragma unroll
-  for (int n = 0; n < OT; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  const int qpos[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-
-  int t_lo, t_hi;
-  tile_range(sh, q0, min(q0 + TC_BQ, sh.S) - 1, TC_BK, &t_lo, &t_hi);
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * TC_BK;
-    __syncthreads();                    // the previous tile's reads are done
-    stage<T, HD>(k_s, kb, sh.ks_s, k0, TC_BK, sh.S);
-    stage<T, HD>(v_s, vb, sh.ks_s, k0, TC_BK, sh.S);
-    __syncthreads();
-
-    float s[NT][4];
+            for (int c = 0; c < G::NB; ++c)
+              tma_load(k_s + (s * G::NB + c) * G::KB, &kmap, k_full(s), c * BOX, kvh, t * BK,
+                       item.b);
+            mbar_expect_tx(v_full(s), G::NB * G::KB);
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const T* krow = k_s + (j * 8 + g) * (HD + TC_PAD) + tg * 2;
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kc * 16);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kc * 16 + 8);
-        Tc<T>::mma(s[j], qf[kc], b0, b1);
-      }
-    }
-
-    // Scale into the log2 domain, mask, and update the running max and sum
-    // of rows g (r = 0) and g + 8 (r = 1); the four lanes of a quad hold a
-    // row's 64 scores between them.
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + j * 8 + tg * 2 + e;
-          float& x = s[j][2 * r + e];
-          x = unmasked(sh, qpos[r], kpos) ? x * scale_log2 : kNegInf;
-          mx = fmaxf(mx, x);
+            for (int c = 0; c < G::NB; ++c)
+              tma_load(v_s + (s * G::NB + c) * G::KB, &vmap, v_full(s), c * BOX, kvh, t * BK,
+                       item.b);
+          }
+          ++n;
         }
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx);
-      const float corr = exp2f(m[r] - m_new);
-      m[r] = m_new;
-      float sum = 0.f;
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    const int cw = threadIdx.x / 128;               // rows [64 cw, 64 cw + 64) of a tile
+    const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+    constexpr int NO = G::HDP / 2;
+    float o[NO], sc[BK / 2];
+    uint32_t p[BK / 16][4];
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    int n = 0, it = 0;
+    for (int u = blockIdx.x; u < units; u += gridDim.x)
+      for (int second = 0; second < 2; ++second) {
+        Item item;
+        if (!unit_item(sh, u, second, &item)) continue;
+        const int qb = n % 2;
+        const uint32_t qbuf = q_s + qb * G::NB * G::QB;
+        const int row_lo = item.qt * BQ + 64 * cw, row_hi = min(row_lo + 63, sh.S - 1);
+        const int qpos[2] = {row_lo + 16 * warp + g, row_lo + 16 * warp + g + 8};
+        float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[j][2 * r + e];
-          x = exp2f(x - m_new);
-          sum += x;
+        for (int i = 0; i < NO; ++i) o[i] = 0.f;
+
+        mbar_wait(q_full(qb), (n / 2) & 1);
+        for (int t = item.t_lo; t <= item.t_hi; ++t, ++it) {
+          const int s = it % STAGES;
+          const uint32_t phase = (it / STAGES) & 1;
+          mbar_wait(k_full(s), phase);
+          issue_s<T, HD>(sc, qbuf, k_s, cw, s);
+          wgmma_wait_all();
+          reg_fence(sc);
+          online_softmax(sc, sh, t * BK, row_lo, row_hi, qpos, tq, scale_log2, m, l, corr);
+          rescale(o, corr);
+          pack_p<T>(sc, p);
+          mbar_wait(v_full(s), phase);
+          issue_pv<T, HD>(o, p, v_s, s);
+          wgmma_wait_all();
+          reg_fence(o);
+          mbar_arrive(empty(s));
         }
-      }
-      l[r] = l[r] * corr + sum;         // this lane's share; summed over the quad at the end
-#pragma unroll
-      for (int n = 0; n < OT; ++n) {
-        oacc[n][2 * r] *= corr;
-        oacc[n][2 * r + 1] *= corr;
-      }
-    }
 
-    // o += p . v: score tiles 2kk and 2kk + 1 are the A fragment of keys
-    // [16 kk, 16 kk + 16); v's B fragment pairs two keys of one column,
-    // read as 16-bit halves (conflict-free with the padded row stride).
-    const uint16_t* v16 = reinterpret_cast<const uint16_t*>(v_s);
+        // Epilogue: normalise, stage the rows in this warpgroup's own 64
+        // rows of the Q buffer (their last read is done) in the TMA box's
+        // swizzled layout, store them by TMA, and hand the buffer back once
+        // the store has read it.
+        float inv[2];
 #pragma unroll
-    for (int kk = 0; kk < TC_BK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = Tc<T>::pack(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = Tc<T>::pack(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = Tc<T>::pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = Tc<T>::pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        for (int r = 0; r < 2; ++r) {
+          float lsum = l[r];
+          lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+          lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+          inv[r] = 1.f / fmaxf(lsum, 1e-30f);
+        }
 #pragma unroll
-      for (int n = 0; n < OT; ++n) {
-        const uint16_t* vcol = v16 + (kk * 16 + tg * 2) * (HD + TC_PAD) + n * 8 + g;
-        const uint32_t b0 = vcol[0] | ((uint32_t)vcol[HD + TC_PAD] << 16);
-        const uint32_t b1 = vcol[8 * (HD + TC_PAD)] | ((uint32_t)vcol[9 * (HD + TC_PAD)] << 16);
-        Tc<T>::mma(oacc[n], pa, b0, b1);
+        for (int c = 0; c < NO / 4; ++c)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int row = 64 * cw + 16 * warp + g + 8 * r;
+            const uint32_t dst =
+                qbuf + (c / 8) * G::QB + row * ROW + (((c % 8) ^ (row % 8)) << 4) + 4 * tq;
+            asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst),
+                         "r"(Wgmma<T>::pack(o[4 * c + 2 * r] * inv[r], o[4 * c + 2 * r + 1] * inv[r]))
+                         : "memory");
+          }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+        if (threadIdx.x % 128 == 0) {
+          if (row_lo < sh.S) {
+#pragma unroll
+            for (int bx = 0; bx < G::NB; ++bx)
+              tma_store(&omap, qbuf + bx * G::QB + cw * 64 * ROW, bx * BOX, item.h, row_lo, item.b);
+            asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+            asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+          }
+          mbar_arrive(q_empty(qb));
+        }
+        ++n;
       }
-    }
-  }
-
-  T* ob = o + b * sh.qs_b + h * sh.qs_h;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float lsum = l[r];
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-    const float inv = 1.f / fmaxf(lsum, 1e-30f);
-    if (qpos[r] < sh.S) {
-      T* orow = ob + (int64_t)qpos[r] * sh.qs_s + tg * 2;
-#pragma unroll
-      for (int n = 0; n < OT; ++n)
-        *reinterpret_cast<uint32_t*>(orow + n * 8) =
-            Tc<T>::pack(oacc[n][2 * r] * inv, oacc[n][2 * r + 1] * inv);
-    }
+    if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
 }
 
@@ -373,18 +701,65 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // -------------------------------------------------------------------- launchers
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (libcuda), looked up through the CUDA runtime's
+// entry-point query so that the library needs no -lcuda; null if missing.
+EncodeTiled encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over one (B, S, heads, hd) tensor of 16-bit elements (strides
+// in elements), boxes of BOX columns by `rows` rows of one head, 128-byte
+// swizzle, zeros outside the tensor.
+bool tensor_map(CUtensorMap* map, EncodeTiled enc, CUtensorMapDataType dt, const void* ptr,
+                int B, int S, int heads, int hd, int64_t s_b, int64_t s_s, int64_t s_h,
+                int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_h * 2, (cuuint64_t)s_s * 2, (cuuint64_t)s_b * 2};
+  const cuuint32_t box[4] = {BOX, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, dt, 4, const_cast<void*>(ptr), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename T, int HD>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, const Shape& sh,
                       cudaStream_t stream) {
-  const size_t smem = sizeof(T) * (size_t)(TC_BQ + 2 * TC_BK) * (HD + TC_PAD);
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qm, km, vm, om;
+  if (!tensor_map(&qm, enc, dt, q, sh.B, sh.S, sh.H, HD, sh.qs_b, sh.qs_s, sh.qs_h, BQ) ||
+      !tensor_map(&km, enc, dt, k, sh.B, sh.S, sh.KV, HD, sh.ks_b, sh.ks_s, sh.ks_h, BK) ||
+      !tensor_map(&vm, enc, dt, v, sh.B, sh.S, sh.KV, HD, sh.ks_b, sh.ks_s, sh.ks_h, BK) ||
+      !tensor_map(&om, enc, dt, o, sh.B, sh.S, sh.H, HD, sh.qs_b, sh.qs_s, sh.qs_h, BQ / 2))
+    return cudaErrorInvalidValue;
+  const int smem = Geo<HD>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(flash_tc_kernel<T, HD>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((sh.S + TC_BQ - 1) / TC_BQ, sh.H, sh.B);
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int grid = min(sms, num_units(sh.B, sh.S, sh.H));   // persistent: one block an SM
   const float scale_log2 = kLog2e / sqrtf((float)HD);
-  flash_tc_kernel<T, HD><<<grid, TC_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), sh, scale_log2);
+  flash_tc_kernel<T, HD><<<grid, THREADS, smem, stream>>>(qm, km, vm, om, sh, scale_log2);
   return cudaGetLastError();
 }
 

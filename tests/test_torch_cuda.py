@@ -605,6 +605,22 @@ FLASH_CASES = [
     (1, 1000, 16, 8, 128, None),
     (1, 300, 16, 1, 128, 100),
     (2, 200, 4, 2, 32, 20),
+    # the 128-query, 128-key tiles of the bf16/fp16 body: S = 127, 128, 129,
+    # 255, 257; windows of 128 and 129 and one longer than S; 3 x 16 x 9 =
+    # 432 blocks (3 waves of 132 and a partial one); hd 32, 64, 96 at the
+    # tile's edges
+    (1, 127, 16, 8, 128, None),
+    (2, 128, 16, 8, 128, None),
+    (1, 129, 16, 8, 128, None),
+    (1, 255, 16, 8, 128, None),
+    (1, 257, 16, 8, 128, None),
+    (1, 1000, 16, 8, 128, 128),
+    (1, 1000, 16, 8, 128, 129),
+    (1, 300, 16, 8, 128, 5000),
+    (3, 1100, 16, 8, 128, None),
+    (2, 257, 8, 4, 32, None),
+    (1, 255, 8, 2, 64, 128),
+    (1, 129, 4, 4, 96, 5000),
 ]
 
 
@@ -614,8 +630,10 @@ FLASH_CASES = [
 def test_cuda_flash_attention_matches_plain_version(case, dtype):
     """The attention kernel against its plain version on the same card
     tensors: 2e-5 in fp32 (CUDA cores, no TF32), 2e-2 in bf16/fp16 (p
-    rounded for the tensor cores, the output rounded to the dtype); one
-    launch, no plain call from the wrapper."""
+    rounded for the tensor cores, the output rounded to the dtype), and
+    each output row within 1e-5 / 1e-2 / 3e-3 (fp32 / bf16 / fp16) of its
+    own norm, which small late rows of a long band would pass under the
+    absolute floor; one launch, no plain call from the wrapper."""
     dev = _card()
     B, S, H, KV, hd, window = case
     dt = getattr(torch, dtype)
@@ -632,6 +650,9 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
     tol = 2e-5 if dtype == "float32" else 2e-2
     assert got.dtype == dt and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    row_tol = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 3e-3}[dtype]
+    rows = (got.float() - want.float()).norm(dim=-1) / want.float().norm(dim=-1)
+    assert float(rows.max()) <= row_tol
 
 
 @pytest.mark.cuda
