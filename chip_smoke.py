@@ -22,7 +22,10 @@ Phases, in the order they run; any failure exits nonzero:
      face) pair; for eval_route and owner_rank P = 4 markers with an empty
      rank, and again P = 8192, past the 4096 the kernels keep in shared
      memory; for successor element 0 and the last element of every level,
-     which wraps to element 0; for
+     which wraps to element 0, and, untimed (they mix its constant-time
+     branch and its walk), N more of eight kinds: carries stopping at every
+     level 1..L, elements outside the root, levels 0 and L, and anchors
+     with bits finer than their level, for the simplex and hex bodies; for
      tree_transform a face neighbor of each element, just outside the root,
      across every glued face of a periodic brick, and sigma = -1
      crossings, with anchor words that wrap past 2^31 - 1 at d = 2), d = 2
@@ -47,7 +50,9 @@ Phases, in the order they run; any failure exits nonzero:
      (MQA), hd = 32, 64 and 96 (also at the tile's edges), windows of 20
      (below the tile), 100, 128 and 129 (the tile and one past it) and one
      longer than S, and 3 x 16 x 9 = 432 query tiles (past 3 waves of
-     132); within 2e-2 (bf16, fp16) and 2e-5 (fp32); the Hopper
+     132); and causal=False at ragged S (1, 2, 3 and 8 query tiles), G = 1,
+     2, 4 and MQA, and windows of 20, 100 and 129; within 2e-2 (bf16,
+     fp16) and 2e-5 (fp32); the Hopper
      instructions counted in the built library's SASS (`cuobjdump`:
      HGMMA and UTMALDG, each at least one) and the bf16 hd-128 body's
      ptxas register and spill lines; at qwen3's shape the kernel's time
@@ -424,6 +429,92 @@ def kernel_cases(d: int, n: int, device) -> dict:
     }
 
 
+SUCCESSOR_KINDS = 8
+
+
+def successor_classes(d: int, n: int, device):
+    """Phase 2's untimed successor inputs, which mix the kernel's two
+    branches: (anchor, level, type, kind, carry level), row i of kind i % 8:
+    0 an element inside the root simplex at a level 0..L (rows 0 and 8 at
+    levels 0 and L), 1 element 0 of its level, 2 its level's last element,
+    3 and 7 an element whose +1 carries from its level up to level i, i = 1,
+    2, ..., L in turn (its key digits of levels i + 1..level are 2^d - 1,
+    digit i is not), 4 an element anywhere in the root cube, of any type
+    (most outside the root simplex), 5 and 6 the anchors of kinds 0 and 4
+    with random bits finer than their level.  The carry level is 0 outside
+    kinds 3 and 7."""
+    from repro_torch.core.keys import span_mask
+    from repro_torch.core.tables import MAXLEVEL
+    from repro_torch.kernels import ref as kref
+
+    L, nc = MAXLEVEL[d], 1 << d
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 30 * d)
+    row = torch.arange(n, device=device)
+    kind = row % SUCCESSOR_KINDS
+    level = torch.randint(0, L + 1, (n,), generator=gen, device=device)
+    level[0], level[8] = 0, L
+    carry = (kind == 3) | (kind == 7)
+    i = torch.where(carry, 1 + (row // 4) % L, 0)     # rows 3, 7, 11, ...: i = 1, 2, 3, ...
+    u = torch.rand(n, generator=gen, device=device)
+    level = torch.where(carry, i + (u * (L + 1 - i)).long().clamp(max=L - i), level)
+    lvl = level.to(torch.int32)
+    hi = torch.randint(0, 1 << 31, (n,), generator=gen, device=device, dtype=torch.int64)
+    lo = torch.randint(0, 1 << 32, (n,), generator=gen, device=device, dtype=torch.int64)
+    key = ((hi << 32) | lo) & ((1 << (d * L)) - 1)
+    below = span_mask(d, L, lvl)                      # the digits below the level
+    at_i = d * (L - i.clamp(min=1))                   # the bit of level i's digit
+    top = torch.full_like(at_i, nc - 1)
+    digit = ((key >> at_i) & (nc - 1)) % (nc - 1)
+    ones = (torch.bitwise_left_shift(torch.ones_like(at_i), at_i) - 1) & ~below
+    key = torch.where(carry, (key & ~torch.bitwise_left_shift(top, at_i))
+                      | torch.bitwise_left_shift(digit, at_i) | ones, key)
+    key = torch.where(kind == 1, 0, torch.where(kind == 2, (1 << (d * L)) - 1, key)) & ~below
+    anchor, stype = kref.decode(d, key, lvl)
+    h = torch.bitwise_left_shift(torch.ones_like(level), L - level)[:, None]
+    cube = (kind == 4) | (kind == 6)
+    c_anchor = torch.randint(0, 1 << L, (n, d), generator=gen, device=device) // h * h
+    anchor = torch.where(cube[:, None], c_anchor.to(torch.int32), anchor)
+    stype = torch.where(cube, torch.randint(0, 2 if d == 2 else 6, (n,), generator=gen,
+                                            device=device, dtype=torch.int32), stype)
+    fine = ((kind == 5) | (kind == 6))[:, None]
+    noise = torch.randint(0, 1 << L, (n, d), generator=gen, device=device) % h
+    anchor = torch.where(fine, anchor | noise.to(torch.int32), anchor).contiguous()
+    return anchor, lvl, stype.contiguous(), kind, i
+
+
+def successor_every_class(d: int, n: int, device) -> str:
+    """Phase 2, untimed: the successor kernel against its plain version on
+    `successor_classes`, exact, for the simplex and (on the same anchors,
+    fine bits included) the hex body; checks that the carries stop at every
+    level 1..L, that kind 4 holds elements outside the root and that kinds
+    5 and 6 hold fine bits.  Returns the coverage text."""
+    from repro_torch.core.tables import MAXLEVEL
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    L = MAXLEVEL[d]
+    anchor, level, stype, kind, carry_level = successor_classes(d, n, device)
+    carries = torch.unique(carry_level[(kind == 3) | (kind == 7)]).tolist()
+    inside = kref.inside_root(anchor, level, stype)
+    outside = int((~inside[kind == 4]).sum())
+    h = torch.bitwise_left_shift(torch.ones_like(level), L - level)[:, None]
+    fine = int(((anchor % h) != 0).any(1)[(kind == 5) | (kind == 6)].sum())
+    if carries != list(range(1, L + 1)) or not bool(inside[kind == 0].all()) or not outside:
+        raise AssertionError(f"successor d={d}: carries stop at levels {carries}, "
+                             f"{outside} elements outside the root")
+    compare_exact(f"successor d={d}, every input class",
+                  lambda: kops.successor(anchor, level, stype),
+                  lambda: kref.successor(anchor, level, stype))
+    zero = torch.zeros_like(stype)
+    compare_exact(f"hex successor d={d}, every input class",
+                  lambda: kops.successor(anchor, level, zero, ECLASS_HEX),
+                  lambda: kref.successor(anchor, level, zero, ECLASS_HEX))
+    del anchor, level, stype, inside, zero
+    return (f"; untimed, {n} more of {SUCCESSOR_KINDS} kinds, kernel == plain for both "
+            f"classes: carries stopping at each of levels 1..{L}, {outside} elements outside "
+            f"the root, {fine} anchors with bits finer than their level")
+
+
 @functools.lru_cache(maxsize=None)
 def hex_transform_connections(d: int, device):
     """The hex connections phase 2 crosses: every glued face of a periodic
@@ -687,7 +778,8 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
             if lv != L + 1 or bool(want[0][last].any()) or bool(want[1][last].any()):
                 raise AssertionError(f"successor d={d}: last elements over {lv} levels, their "
                                      "successors not all element 0")
-            cover = f"; the last element of each of {lv} levels wraps to element 0"
+            cover = (f"; the last element of each of {lv} levels wraps to element 0"
+                     + successor_every_class(d, n, device))
         elif name == "face_neighbor":
             anchor_in, _lvl, b, f = inputs
             pairs = torch.unique(b * (d + 1) + f).numel()
@@ -1474,23 +1566,36 @@ FLASH_ROW_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2, torch.float16: 3e-3}
 # §6, row 12, "NVIDIA H100 80GB HBM3, 700.00 W"), printed beside the new
 # time; not re-measured: that body is gone.
 FLASH_EARLIER_DEVICE_MS = 1.5954
-# (B, S, H, KV, hd, window): qwen3's prefill shape of phase 6a first; S not
-# a multiple of the tile; G = H / KV of 1, 4 and H (MQA); hd 32, 64, 96;
-# a window of 100, and one of 20, below every tile (128 keys bf16/fp16, 32
-# fp32); then the 128 x 128 tiles' edges: S = 128, 255, 257, windows of 128
-# and 129 and one longer than S, 3 x 16 x 9 = 432 blocks (3 waves of 132
-# and a partial one), and hd 32, 64, 96 around a tile
+# (B, S, H, KV, hd, window, causal): qwen3's prefill shape of phase 6a
+# first; S not a multiple of the tile; G = H / KV of 1, 4 and H (MQA); hd
+# 32, 64, 96; a window of 100, and one of 20, below every tile (128 keys
+# bf16/fp16, 32 fp32); then the 128 x 128 tiles' edges: S = 128, 255, 257,
+# windows of 128 and 129 and one longer than S, 3 x 16 x 9 = 432 blocks (3
+# waves of 132 and a partial one), and hd 32, 64, 96 around a tile; then
+# causal=False (`attention_core` sends only causal attention to the kernel,
+# but the wrapper takes the flag): 1, 2, 3 and 8 query tiles (the
+# persistent grid runs an odd count's middle tile alone), G = 1, 2, 4 and
+# MQA, and windows below, at and past the tile
 FLASH_CASES = [
-    (8, 2048, 16, 8, 128, None),
-    (1, 1, 16, 8, 128, None), (2, 127, 16, 8, 128, None), (2, 129, 16, 8, 128, None),
-    (1, 1000, 16, 8, 128, None),
-    (1, 512, 8, 8, 64, None), (1, 512, 16, 4, 128, None), (1, 512, 16, 1, 128, None),
-    (2, 300, 4, 2, 32, None), (2, 300, 8, 4, 64, None), (1, 700, 32, 32, 96, None),
-    (1, 1000, 16, 8, 128, 100), (1, 1000, 16, 8, 128, 20),
-    (2, 128, 16, 8, 128, None), (1, 255, 16, 8, 128, None), (1, 257, 16, 8, 128, None),
-    (1, 1000, 16, 8, 128, 128), (1, 1000, 16, 8, 128, 129), (1, 300, 16, 8, 128, 5000),
-    (3, 1100, 16, 8, 128, None),
-    (2, 257, 8, 4, 32, None), (1, 255, 8, 2, 64, 128), (1, 129, 4, 4, 96, 5000),
+    (8, 2048, 16, 8, 128, None, True),
+    (1, 1, 16, 8, 128, None, True), (2, 127, 16, 8, 128, None, True),
+    (2, 129, 16, 8, 128, None, True), (1, 1000, 16, 8, 128, None, True),
+    (1, 512, 8, 8, 64, None, True), (1, 512, 16, 4, 128, None, True),
+    (1, 512, 16, 1, 128, None, True),
+    (2, 300, 4, 2, 32, None, True), (2, 300, 8, 4, 64, None, True),
+    (1, 700, 32, 32, 96, None, True),
+    (1, 1000, 16, 8, 128, 100, True), (1, 1000, 16, 8, 128, 20, True),
+    (2, 128, 16, 8, 128, None, True), (1, 255, 16, 8, 128, None, True),
+    (1, 257, 16, 8, 128, None, True),
+    (1, 1000, 16, 8, 128, 128, True), (1, 1000, 16, 8, 128, 129, True),
+    (1, 300, 16, 8, 128, 5000, True),
+    (3, 1100, 16, 8, 128, None, True),
+    (2, 257, 8, 4, 32, None, True), (1, 255, 8, 2, 64, 128, True),
+    (1, 129, 4, 4, 96, 5000, True),
+    (2, 127, 8, 8, 64, None, False), (1, 129, 16, 4, 96, None, False),
+    (1, 1000, 16, 8, 128, None, False), (1, 257, 16, 8, 128, None, False),
+    (1, 300, 16, 1, 128, 100, False), (2, 200, 4, 2, 32, 20, False),
+    (1, 1000, 16, 8, 128, 129, False),
 ]
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 2048, 2304, 128
 REQUEST_LENGTHS = (1, 127, 129, 300, 777, 1000, 1536, 2047)
@@ -1570,19 +1675,21 @@ def flash_vs_plain(kops, kref) -> dict:
     worst = {dt: 0.0 for dt in FLASH_TOL}
     worst_row = {dt: 0.0 for dt in FLASH_TOL}
     timed = {}
-    for B, S, H, KV, hd, window in FLASH_CASES:
+    for case in FLASH_CASES:
+        B, S, H, KV, hd, window, causal = case
         for dt, tol in FLASH_TOL.items():
             q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
             v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
-            got = kops.flash_attention(q, k, v, window=window)
-            want = kref.flash_attention(q, k, v, window=window)
+            got = kops.flash_attention(q, k, v, causal=causal, window=window)
+            want = kref.flash_attention(q, k, v, causal=causal, window=window)
             sync()
             diff = (got.float() - want.float()).abs()
             err = float(diff.max())
             excess = float((diff - tol * (1 + want.float().abs())).max())
             row = float((diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)).max())
-            label = f"B={B} S={S} H={H} KV={KV} hd={hd} window={window} {str(dt)[6:]}"
+            label = (f"B={B} S={S} H={H} KV={KV} hd={hd} window={window}"
+                     f"{'' if causal else ' causal=False'} {str(dt)[6:]}")
             if got.dtype != dt or not torch.isfinite(got).all() or excess > 0:
                 raise AssertionError(f"flash_attention {label}: max |err| {err} beyond {tol}")
             if row > FLASH_ROW_TOL[dt]:
@@ -1593,10 +1700,10 @@ def flash_vs_plain(kops, kref) -> dict:
             print(f"  flash_attention {label}: max |err| {err:.3g} (tolerance {tol}), "
                   f"a row's relative error {row:.3g} (tolerance {FLASH_ROW_TOL[dt]})",
                   flush=True)
-            if (B, S, H, KV, hd, window) == FLASH_CASES[0]:
+            if case == FLASH_CASES[0]:
                 timed[dt] = (q, k, v, err)
             del q, k, v, got, want, diff
-    B, S, H, KV, hd, window = FLASH_CASES[0]
+    B, S, H, KV, hd, window, _causal = FLASH_CASES[0]
     q, k, v, err = timed[torch.bfloat16]
     kernel = lambda: kops.flash_attention(q, k, v)                      # noqa: E731
     plain = lambda: kref.flash_attention(q, k, v)                       # noqa: E731

@@ -37,7 +37,8 @@ import torch
 from .tables import MAXLEVEL, get_tables
 from .types import ECLASS_HEX, ECLASS_SIMPLEX, Simplex
 
-__all__ = ["ElementOps", "SimplexOps", "HexOps", "get_ops"]
+__all__ = ["ElementOps", "SimplexOps", "HexOps", "get_ops", "ops2d", "ops3d", "hexops2d",
+           "hexops3d"]
 
 
 def _wrap_i32(a: torch.Tensor) -> torch.Tensor:
@@ -487,15 +488,23 @@ class HexOps(ElementOps):
         return Simplex(anchor, level, torch.zeros(shape, dtype=torch.int32, device=index.device))
 
 
-_OPS: dict = {}
+# Singletons, one per (dimension, class), as in the JAX package.
+ops2d = SimplexOps(2)
+ops3d = SimplexOps(3)
+hexops2d = HexOps(2)
+hexops3d = HexOps(3)
+
+_OPS = {
+    (2, ECLASS_SIMPLEX): ops2d,
+    (3, ECLASS_SIMPLEX): ops3d,
+    (2, ECLASS_HEX): hexops2d,
+    (3, ECLASS_HEX): hexops3d,
+}
 
 
 def get_ops(d: int, eclass: int = ECLASS_SIMPLEX) -> ElementOps:
     """The element ops of dimension `d` (2 or 3) and class `eclass`."""
-    cls = {ECLASS_SIMPLEX: SimplexOps, ECLASS_HEX: HexOps}.get(eclass)
-    if cls is None or d not in (2, 3):
-        raise ValueError(f"no element ops for d={d}, eclass={eclass}")
     o = _OPS.get((d, eclass))
     if o is None:
-        o = _OPS[(d, eclass)] = cls(d)
+        raise ValueError(f"no element ops for d={d}, eclass={eclass}")
     return o

@@ -418,8 +418,13 @@ __device__ __forceinline__ void rescale(float (&o)[N], const float (&corr)[2]) {
 // tile j with tile n_qt - 1 - j of one (b, h) (the middle tile of an odd
 // n_qt alone), so that under the causal mask every unit holds n_qt + 1 k/v
 // tiles; block c of the persistent grid runs units c, c + G, c + 2G, ...,
-// the longer tile of a unit first.  Units run (b, h) by (b, h), so the
-// blocks in flight at a time read the k/v of a few heads, which stay in L2.
+// the longer tile of a unit first.  The pairing alone covers every query
+// tile exactly once, causal or not: unit j < ceil(n_qt / 2) runs tile
+// n_qt - 1 - j, the upper half down to the middle, and tile j, the lower
+// half, unless j is that middle tile; the mask only sets each tile's k/v
+// range (`tile_range`: without it, every key tile up to S).  Units run
+// (b, h) by (b, h), so the blocks in flight at a time read the k/v of a few
+// heads, which stay in L2.
 struct Item {
   int qt, h, b, t_lo, t_hi;
 };

@@ -88,9 +88,10 @@
 // eval_route and owner_rank read up to 4096 partition markers into shared
 // memory once per block and scan them from there, and binary search more of
 // them in global memory; tree_transform reads its connection rows through
-// the read-only cache; successor runs the encode and the decode walks of
-// one element back to back in registers, and face_neighbor is one table
-// lookup.
+// the read-only cache; successor finds a simplex's carry level from the
+// trailing bits its coordinates share and reads one entry of each packed
+// table (the walks remain for elements outside the root), and
+// face_neighbor is one table lookup.
 //
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() after the launch.
@@ -644,16 +645,75 @@ eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ k
   last[o] = r[1];
 }
 
+// The successor of a simplex inside the root simplex, at a level in 1..L,
+// in constant time: its anchor c (no bits finer than the level) and type b
+// become the next element's.  Digit i of the key (the local index at level
+// i) is 2^D - 1 exactly where the cube id at level i is 2^D - 1, every
+// coordinate's bit L - i set, and there the parent type is the child's
+// (the tables give parent_type[2^D - 1, b] = b).  So the run of trailing
+// levels whose bits all coordinates share, the trailing ones of their AND,
+// is the run of digits the +1 carries through, and the type at the carry
+// level i = lvl - run is still b.  One enc entry at (b, cube id) gives the
+// parent type p and the local index l < 2^D - 1; one dec entry at (p, l + 1)
+// gives the new cube id and type at level i; below it the digits become 0,
+// child 0, whose cube id is 0 and whose type is its parent's.  A run over
+// every level is the level's last element, whose successor is element 0.
+// Returns the new type and updates c.
+template <int D>
+__device__ __forceinline__ int successor_in_root(int (&c)[D], int lvl, int b,
+                                                 const unsigned char* enc,
+                                                 const unsigned char* dec) {
+  constexpr int L = Dim<D>::L, NC = 1 << D;
+  unsigned shared_bits = ~0u;
+#pragma unroll
+  for (int k = 0; k < D; ++k) shared_bits &= static_cast<unsigned>(c[k]);
+  // Inside the root every coordinate lies below 2^L, so the shifted AND lies
+  // below 2^lvl, its complement has bit lvl set, and run <= lvl.
+  const int run = __ffs(static_cast<int>(~(shared_bits >> (L - lvl)))) - 1;
+  if (run == lvl) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) c[k] = 0;
+    return 0;
+  }
+  const int s = L - lvl + run;               // the carry level's bit, L - i
+  int cid = 0;
+#pragma unroll
+  for (int k = 0; k < D; ++k) cid |= ((c[k] >> s) & 1) << k;
+  const int up = enc[(b * NC + cid) & (kTab - 1)];                     // l | p << 3
+  const int next = dec[((up >> 3) * NC + (up & 7) + 1) & (kTab - 1)];  // cid' | b' << 3
+  const unsigned coarser = ~((2u << s) - 1);  // the bits of levels above i
+#pragma unroll
+  for (int k = 0; k < D; ++k)
+    c[k] = static_cast<int>((static_cast<unsigned>(c[k]) & coarser) |
+                            (static_cast<unsigned>((next >> k) & 1) << s));
+  return next >> 3;
+}
+
 // Replaces successor_kernel (src/repro/kernels/sfc.py:739, body
-// _successor_body :339, hex branches from :346): Algorithm 4.10 at the element's own level.  The
-// level-padded key (the encode walk, or the hex interleave) plus
-// 2^(D(L - lvl)), the span of one element of the level, in uint64 and masked
-// to the D*L key bits, then the decode at the same level.  The TPU kernel
-// carries +1 through the level's digits; the sum here carries the same way,
-// and the carry out of the top digit is masked off, so the last element of a
-// level wraps to element 0 and a level-0 element maps to the root, as there.
-// At d = 3 a level-0 span is 2^63, which the uint64 sum holds and an int64
-// would not.
+// _successor_body :339, hex branches from :346): Algorithm 4.10 at the
+// element's own level, wrapping within the level (the last element's
+// successor is element 0).
+//
+// A simplex first drops the anchor bits finer than its level, as the JAX
+// package's `SimplexOps.successor` does (it shifts them out of the key);
+// the TPU kernel's encode walk reads them instead, so on such anchors it
+// gives another element (ROADMAP, faults of the reference).  Inside the
+// root simplex, at a level in 1..L and a type below d!, `successor_in_root`
+// reads one enc and one dec entry and walks no levels.  At level 0 every
+// element's successor is the root, anchor 0 and type 0, the walk's answer
+// too, given here without the walk, which one lane would make its whole
+// warp run.  Any other element (outside the root, where the decode from the
+// root type does not retrace its type chain; a level or type out of range)
+// takes the walk: the level-padded key plus 2^(D(L - lvl)), the span of one
+// element of the level, in uint64 and masked to the D*L key bits, then the
+// decode at the same level.  The TPU kernel carries +1 through the level's
+// digits; the sum carries the same way, and the carry out of the top digit
+// is masked off, so the last element of a level wraps to element 0 and a
+// level-0 element maps to the root, as there.  At d = 3 a level-0 span is
+// 2^63, which the uint64 sum holds and an int64 would not.  A hex always
+// takes the walk over its interleaved key, which keeps bits finer than the
+// level below the span: the sum never carries out of them and the decode
+// masks them off.
 template <int D, int EC>
 __global__ void __launch_bounds__(kThreads)
 successor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ level,
@@ -673,11 +733,32 @@ successor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__
 #pragma unroll
   for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
   const int lvl = level[i];
+  int b = EC == kHex ? 0 : stype[i];
+  if constexpr (EC == kSimplex) {
+    const int fine = (1 << (L - min(max(lvl, 0), L))) - 1;
+#pragma unroll
+    for (int k = 0; k < D; ++k) c[k] &= ~fine;
+    const bool root = lvl == 0;
+    if (root || (lvl >= 1 && lvl <= L && b >= 0 && b < Dim<D>::NT &&
+                 inside_root_of<D>(c, lvl, b))) {
+      if (root) {
+#pragma unroll
+        for (int k = 0; k < D; ++k) c[k] = 0;
+        b = 0;
+      } else {
+        b = successor_in_root<D>(c, lvl, b, enc, dec);
+      }
+#pragma unroll
+      for (int k = 0; k < D; ++k) o_anchor[i * D + k] = c[k];
+      o_stype[i] = b;
+      return;
+    }
+  }
   const uint64_t span = uint64_t{1} << min(max(D * (L - lvl), 0), 63);
-  const int64_t key = element_key<D, EC>(c, EC == kHex ? 0 : stype[i], enc);
+  const int64_t key = element_key<D, EC>(c, b, enc);
   const uint64_t next = (static_cast<uint64_t>(key) + span) & kKeyBits;
   int xyz[D];
-  const int b = decode_walk<D, EC>(next, lvl, dec, xyz);
+  b = decode_walk<D, EC>(next, lvl, dec, xyz);
 #pragma unroll
   for (int k = 0; k < D; ++k) o_anchor[i * D + k] = xyz[k];
   o_stype[i] = b;

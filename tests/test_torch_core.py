@@ -224,3 +224,60 @@ def test_target_ranks_match_reference(seed):
         got = tplacement.target_ranks_np(cum, P, float(w.sum()))
         np.testing.assert_array_equal(got, jplacement.target_ranks_np(cum, P, float(w.sum())))
         assert (np.diff(got) >= 0).all()
+
+
+# ---------------------------------------------------------- package surface
+# Names of `repro.core.__all__` that `repro_torch.core` leaves out, and why.
+CORE_OMISSIONS = {
+    "u64": "keys are native int64; the uint32-pair emulation is not ported",
+    "get_backend": "no backend knob: a tensor's device picks kernel or plain version",
+    "set_backend": "no backend knob",
+    "use_backend": "no backend knob",
+    "DistComm": "the multi-process comm is not ported yet",
+}
+
+
+def test_core_exports_the_reference_names_but_the_listed_omissions():
+    """`repro_torch.core` exports what `repro.core` does, less
+    CORE_OMISSIONS, and each name resolves; the singletons are those
+    `get_ops` returns."""
+    import repro.core as jcore
+    import repro_torch.core as tcore
+    from repro_torch.core import ops as tops
+    from repro_torch.core.types import ECLASS_HEX
+
+    assert set(CORE_OMISSIONS) <= set(jcore.__all__)
+    assert sorted(tcore.__all__) == sorted(set(jcore.__all__) - set(CORE_OMISSIONS))
+    assert all(hasattr(tcore, name) for name in tcore.__all__)
+    assert tcore.ops2d is tcore.get_ops(2) and tcore.ops3d is tcore.get_ops(3)
+    assert tops.hexops2d is tcore.get_ops(2, ECLASS_HEX)
+    assert tops.hexops3d is tcore.get_ops(3, ECLASS_HEX)
+    with pytest.raises(ValueError):
+        tcore.get_ops(4)
+
+
+def test_every_module_of_the_port_imports_first():
+    """Whichever module a program imports first, the package loads whole
+    (`core` imports `batch`, which imports `kernels.ops`, whose `build`
+    imports `core.tables`): each in a fresh interpreter state."""
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    import repro_torch
+
+    mods = ["repro_torch", "repro_torch.core", "repro_torch.core.tables",
+            "repro_torch.core.batch", "repro_torch.core.forest", "repro_torch.kernels",
+            "repro_torch.kernels.build", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
+            "repro_torch.convert", "repro_torch.launch.serve"]
+    code = f"""
+import importlib, sys
+for m in {mods!r}:
+    for k in [k for k in sys.modules if k.split(".")[0] == "repro_torch"]:
+        del sys.modules[k]
+    importlib.import_module(m)
+    from repro_torch.core import ops3d, SimComm, cmesh_brick, get_tables
+    from repro_torch.kernels.build import library
+"""
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=src, timeout=300)

@@ -370,28 +370,78 @@ def test_cuda_owner_rank_matches_plain(d, P, n):
     assert got.device.type == "cuda" and got.dtype == torch.int32 and torch.equal(got, want)
 
 
+SUCCESSOR_KINDS = 8
+
+
+def _successor_inputs(d, n, seed, dev):
+    """(anchor, level, stype, kind, carry level) on `dev`, kind i % 8 of row
+    i: 0 an element inside the root simplex at a level 0..L (rows 0 and 8 at
+    levels 0 and L), 1 element 0 of its level, 2 its level's last element
+    (whose successor wraps to element 0), 3 and 7 an element whose +1
+    carries from its level up to level i, i = 1, 2, ..., L in turn (its key
+    digits of levels i + 1..level are 2^d - 1, digit i is not), 4 an
+    element anywhere in the root cube, of any type (most outside the root
+    simplex), 5 and 6 the anchors of kinds 0 and 4 with random bits finer
+    than their level.  The carry level is 0 outside kinds 3 and 7."""
+    L, nc = MAXLEVEL[d], 1 << d
+    rng = np.random.default_rng(seed)
+    kind = np.arange(n) % SUCCESSOR_KINDS
+    level = rng.integers(0, L + 1, n)
+    level[:1], level[8:9] = 0, L
+    carry = (kind == 3) | (kind == 7)
+    i = np.zeros(n, np.int64)
+    i[carry] = 1 + np.arange(carry.sum()) % L
+    level[carry] = rng.integers(i[carry], L + 1)
+    key = rng.integers(0, 1 << (d * L), n, dtype=np.uint64).astype(np.int64)
+    at_i = d * (L - np.maximum(i, 1))                 # bit of level i's digit
+    lvl = torch.from_numpy(level.astype(np.int32))
+    below = span_mask(d, L, lvl).numpy()               # the digits below the level
+    digit = ((key >> at_i) & (nc - 1)) % (nc - 1)
+    ones = ((1 << at_i) - 1) & ~below
+    key = np.where(carry, (key & ~((nc - 1) << at_i)) | (digit << at_i) | ones, key)
+    key = np.where(kind == 1, 0, np.where(kind == 2, (1 << (d * L)) - 1, key)) & ~below
+    anchor, stype = (x.numpy().copy() for x in kref.decode(d, torch.from_numpy(key), lvl))
+    h = (1 << (L - level))[:, None]
+    cube = (kind == 4) | (kind == 6)
+    anchor[cube] = rng.integers(0, 1 << L, (int(cube.sum()), d)) // h[cube] * h[cube]
+    stype[cube] = rng.integers(0, 2 if d == 2 else 6, int(cube.sum()))
+    fine = (kind == 5) | (kind == 6)
+    anchor[fine] |= (rng.integers(0, 1 << L, (int(fine.sum()), d)) % h[fine]).astype(np.int32)
+    return (torch.from_numpy(anchor).to(dev), lvl.to(dev), torch.from_numpy(stype).to(dev),
+            kind, i)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("n", [1, 1000, 300_001])
 def test_cuda_successor_matches_plain(d, n):
     """successor equals its plain version at levels 0..L, element 0 and the
-    last element of a level (which wraps to element 0) included."""
+    last element of a level (which wraps to element 0) included, on
+    elements whose carry stops at every level 1..L (the constant-time
+    branch), outside the root simplex and at level 0 (the walk), and on
+    anchors with bits finer than their level, which both drop; the hex
+    body on the same anchors too."""
     dev = _card()
-    key, level, _a, _b = _inputs(d, max(n, 2), seed=n + 5 * d, dev=dev)
-    key, level = key[:n], level[:n]
-    span1 = span_mask(d, MAXLEVEL[d], level)
-    pick = torch.arange(n, device=dev) % 3
-    key = torch.where(pick == 1, 0, torch.where(pick == 2, ((1 << (d * MAXLEVEL[d])) - 1) ^ span1,
-                                                key))
-    anchor, stype = kref.decode(d, key, level)
+    anchor, level, stype, kind, carry_level = _successor_inputs(d, n, seed=n + 5 * d, dev=dev)
+    if n >= 1000:
+        assert set(carry_level[(kind == 3) | (kind == 7)]) == set(range(1, MAXLEVEL[d] + 1))
+        inside = kref.inside_root(anchor, level, stype).cpu().numpy()
+        assert inside[kind == 0].all() and 0 < inside[kind == 4].mean() < 1
+        fine = (anchor.cpu().numpy() % (1 << (MAXLEVEL[d] - level.cpu().numpy()))[:, None]).any(1)
+        assert fine[(kind == 5) | (kind == 6)].mean() > 0.9
     before = kops.launch_counts["successor"]
     got, want = kops.successor(anchor, level, stype), kref.successor(anchor, level, stype)
     torch.cuda.synchronize()
     assert kops.launch_counts["successor"] == before + 1
-    last = pick == 2
+    last = torch.from_numpy(kind == 2).to(dev)
     assert not bool(want[0][last].any()) and not bool(want[1][last].any())
     for g, w in zip(got, want, strict=True):
         assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+    zero = torch.zeros_like(stype)
+    got = kops.successor(anchor, level, zero, ECLASS_HEX)
+    want = kref.successor(anchor, level, zero, ECLASS_HEX)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -597,30 +647,41 @@ def test_cuda_hex_and_hybrid_pipeline_matches_cpu(name):
 
 # ---------------------------------------------------------------- attention
 FLASH_CASES = [
-    # (B, S, H, KV, hd, window): ragged S, G = 1, 2, 4 and H (MQA), every hd,
-    # a window of 100 and one smaller than a tile
-    (1, 1, 4, 2, 32, None),
-    (2, 127, 8, 8, 64, None),
-    (1, 129, 16, 4, 96, None),
-    (1, 1000, 16, 8, 128, None),
-    (1, 300, 16, 1, 128, 100),
-    (2, 200, 4, 2, 32, 20),
+    # (B, S, H, KV, hd, window, causal): ragged S, G = 1, 2, 4 and H (MQA),
+    # every hd, a window of 100 and one smaller than a tile
+    (1, 1, 4, 2, 32, None, True),
+    (2, 127, 8, 8, 64, None, True),
+    (1, 129, 16, 4, 96, None, True),
+    (1, 1000, 16, 8, 128, None, True),
+    (1, 300, 16, 1, 128, 100, True),
+    (2, 200, 4, 2, 32, 20, True),
     # the 128-query, 128-key tiles of the bf16/fp16 body: S = 127, 128, 129,
     # 255, 257; windows of 128 and 129 and one longer than S; 3 x 16 x 9 =
     # 432 blocks (3 waves of 132 and a partial one); hd 32, 64, 96 at the
     # tile's edges
-    (1, 127, 16, 8, 128, None),
-    (2, 128, 16, 8, 128, None),
-    (1, 129, 16, 8, 128, None),
-    (1, 255, 16, 8, 128, None),
-    (1, 257, 16, 8, 128, None),
-    (1, 1000, 16, 8, 128, 128),
-    (1, 1000, 16, 8, 128, 129),
-    (1, 300, 16, 8, 128, 5000),
-    (3, 1100, 16, 8, 128, None),
-    (2, 257, 8, 4, 32, None),
-    (1, 255, 8, 2, 64, 128),
-    (1, 129, 4, 4, 96, 5000),
+    (1, 127, 16, 8, 128, None, True),
+    (2, 128, 16, 8, 128, None, True),
+    (1, 129, 16, 8, 128, None, True),
+    (1, 255, 16, 8, 128, None, True),
+    (1, 257, 16, 8, 128, None, True),
+    (1, 1000, 16, 8, 128, 128, True),
+    (1, 1000, 16, 8, 128, 129, True),
+    (1, 300, 16, 8, 128, 5000, True),
+    (3, 1100, 16, 8, 128, None, True),
+    (2, 257, 8, 4, 32, None, True),
+    (1, 255, 8, 2, 64, 128, True),
+    (1, 129, 4, 4, 96, 5000, True),
+    # causal=False: ragged S (1, 2, 3 and 8 query tiles of 128: the
+    # persistent grid pairs tile j with n_qt - 1 - j and runs an odd n_qt's
+    # middle tile alone), G = 1, 2, 4 and H (MQA), and windows below, at and
+    # past the tile with no causal bound on the keys
+    (2, 127, 8, 8, 64, None, False),
+    (1, 129, 16, 4, 96, None, False),
+    (1, 1000, 16, 8, 128, None, False),
+    (1, 257, 16, 8, 128, None, False),
+    (1, 300, 16, 1, 128, 100, False),
+    (2, 200, 4, 2, 32, 20, False),
+    (1, 1000, 16, 8, 128, 129, False),
 ]
 
 
@@ -635,7 +696,7 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
     own norm, which small late rows of a long band would pass under the
     absolute floor; one launch, no plain call from the wrapper."""
     dev = _card()
-    B, S, H, KV, hd, window = case
+    B, S, H, KV, hd, window, causal = case
     dt = getattr(torch, dtype)
     gen = torch.Generator(device=dev).manual_seed(S + hd)
     q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
@@ -643,9 +704,9 @@ def test_cuda_flash_attention_matches_plain_version(case, dtype):
     v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
     kops.reset_launch_counts()
     kref.reset_call_counts()
-    got = kops.flash_attention(q, k, v, window=window)
+    got = kops.flash_attention(q, k, v, causal=causal, window=window)
     assert kops.launch_counts["flash_attention"] == 1 and not any(kref.call_counts.values())
-    want = kref.flash_attention(q, k, v, window=window)
+    want = kref.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     tol = 2e-5 if dtype == "float32" else 2e-2
     assert got.dtype == dt and got.shape == q.shape

@@ -7,8 +7,9 @@ package's Pallas `flash_attention` in interpret mode and against its
 fp32 (the same function, the sums in another order) and 2e-2 in bf16 (the
 output rounded to bf16, whose spacing is 2^-7 relative).  The Pallas kernel
 asserts S % 128 == 0, so S = 1, 129 and 200 go against `_plain_attention`
-only.  Inputs come from numpy with a fixed seed; each JAX result is computed
-once.  The kernel itself is held against the same plain version on the card
+only.  Every case is causal but two against the Pallas kernel, with and
+without a window (the kernel's `causal=False` branch).  Inputs come from
+numpy with a fixed seed; each JAX result is computed once.  The kernel itself is held against the same plain version on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py` phase 2a).
 """
 
@@ -27,12 +28,14 @@ from repro.models import layers as jly
 from repro_torch.kernels import build, ops as kops, ref as kref
 from repro_torch.models import layers as ly
 
-# (B, S, H, KV, hd, dtype, window)
+# (B, S, H, KV, hd, dtype, window, causal)
 PALLAS_CASES = [
-    (1, 256, 2, 1, 32, "float32", None),
-    (2, 256, 4, 2, 64, "float32", None),
-    (1, 256, 4, 2, 32, "float32", 100),
-    (1, 256, 4, 4, 32, "bfloat16", None),
+    (1, 256, 2, 1, 32, "float32", None, True),
+    (2, 256, 4, 2, 64, "float32", None, True),
+    (1, 256, 4, 2, 32, "float32", 100, True),
+    (1, 256, 4, 4, 32, "bfloat16", None, True),
+    (1, 256, 4, 2, 32, "float32", None, False),
+    (1, 256, 4, 2, 64, "float32", 100, False),
 ]
 RAGGED_CASES = [
     (1, 1, 4, 2, 32, "float32", None),
@@ -60,9 +63,9 @@ def _torch(arrs, dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_plain(B, S, H, KV, hd, dtype, window):
+def _jax_plain(B, S, H, KV, hd, dtype, window, causal=True):
     q, k, v = _jax(_inputs(B, S, H, KV, hd), dtype)
-    out = jly._plain_attention(q, k, v, causal=True, window=window, q_offset=0,
+    out = jly._plain_attention(q, k, v, causal=causal, window=window, q_offset=0,
                                scale=1 / math.sqrt(hd))
     return np.asarray(out, np.float32)
 
@@ -73,11 +76,12 @@ def _close(got: torch.Tensor, want: np.ndarray, dtype: str):
 
 @pytest.mark.parametrize("case", PALLAS_CASES)
 def test_plain_version_matches_pallas_kernel_and_oracle(case):
-    B, S, H, KV, hd, dtype, window = case
+    B, S, H, KV, hd, dtype, window, causal = case
     q, k, v = _jax(_inputs(B, S, H, KV, hd), dtype)
-    want = np.asarray(pallas_flash(q, k, v, causal=True, window=window, interpret=True),
+    want = np.asarray(pallas_flash(q, k, v, causal=causal, window=window, interpret=True),
                       np.float32)
-    got = kops.flash_attention(*_torch(_inputs(B, S, H, KV, hd), dtype), window=window)
+    got = kops.flash_attention(*_torch(_inputs(B, S, H, KV, hd), dtype), causal=causal,
+                               window=window)
     assert got.dtype == getattr(torch, dtype) and got.shape == (B, S, H, hd)
     _close(got, want, dtype)
     _close(got, _jax_plain(*case), dtype)
