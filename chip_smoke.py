@@ -6,8 +6,10 @@ Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
 Partition -> Balance -> Ghost -> validate path at full size on the card,
 without and with a coarse mesh of simplex trees and over a brick of hex
-trees, asks the paper's element queries of every leaf, serves the dense LM
-qwen3-1.7b at full width and depth, and checks the card against the CPU.
+trees, holds Balance and Ghost against the global-table oracles there,
+checkpoints and restores those forests and runs Iterate over them, asks
+the paper's element queries of every leaf, serves the dense LM qwen3-1.7b
+at full width and depth, and checks the card against the CPU.
 Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
@@ -102,6 +104,24 @@ Phases, in the order they run; any failure exits nonzero:
      as in phase 3c; then the queries of phase 3d on every balanced leaf
      over 2d faces, and face_neighbor of the largest rank against its plain
      version outside the counted run;
+  3o. on phase 3's and 3c's forests (after 3c), and on 3h's (after its
+     queries): `balance_oracle` of the forests Balance started from equals
+     the balanced forests on every rank, and `ghost_oracle` of those the
+     message-based Ghost's layers; each oracle's wall and rounds, and its
+     `bytes_for` beside Balance's and Ghost's (every round allgathers the
+     whole leaf table);
+  3k. the same balanced forests through `save_forest` into a temporary
+     directory (its wall, bytes on disk, 14 B a tet and 13 a hex at rest)
+     and `load_forest` onto the card: at P = 4 the saved forests with their
+     partition markers; onto 1 and 3 ranks the same global sequence, valid,
+     per-rank counts within 1; with the weights 1 + (level == max level),
+     `repartition`'s forests; one flipped anchor byte refused
+     (`CheckpointIntegrityError`); each load's wall;
+  3i. `iterate` over each one-rank restore of 3k: S same-level and H
+     hanging pairs, and, counted apart by a lex-search range, V faces with
+     a neighbor and C coarse faces with finer leaves across, with V = 2S +
+     H + C and H = 2^(d-1) C; and the uniform level-5 brick of 48 trees
+     periodic on every axis (1,572,864 tets) gives exactly 2N pairs;
   3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3,
      3d and 3c launched them with (the smallest, two between and the
      largest, per kernel); New's "decode" and "successor" methods on
@@ -113,7 +133,9 @@ Phases, in the order they run; any failure exits nonzero:
      hex brick, a 2 x 2 x 1 hex brick, and the hybrid pair (a hex tree
      beside a Kuhn cube) at d = 2 and 3 on 2 and 3 ranks, with tree 0's
      faces refined deeper — every forest and ghost field and every
-     per-phase byte count identical; and the LM: reduced qwen3, olmo and
+     per-phase byte count identical, and so both oracles' results and
+     bytes, Iterate's pairs on every rank and the bytes `save_forest`
+     writes; and the LM: reduced qwen3, olmo and
      phi3 in fp32 on identical weights, prefill and 6 greedy decode steps,
      equal tokens and logits within 1e-4;
   6. serving qwen3-1.7b (28 layers, d 2048, 16/8 heads, hd 128, vocab
@@ -134,7 +156,11 @@ Phases, in the order they run; any failure exits nonzero:
      (`class_launch_counts`), no simplex body and no plain version there;
      over the hybrid pair, Balance and Ghost launch face_sweep and
      eval_route per class exactly as the class groups run on their own
-     (one launch per class per eval layer); in phase 6, flash_attention
+     (one launch per class per eval layer); phases 3o and 3i launch
+     face_sweep (3o also decode, for ghost_oracle's candidates), 3k
+     morton_key and inside_root, across tree faces tree_transform and
+     morton_key, on the hex phase hex bodies only, and none calls a plain
+     version; in phase 6, flash_attention
      launched once a layer a prefill (6c: the prefill and forward) and no
      plain version called.
 
@@ -144,7 +170,9 @@ line, `launches_phase3`, `launches_phase3c` and `launches_phase3d` are
 each kernel's launches in those phases, and `launches` is those of the
 first of phases 3, 3c and 3d that runs it: phase 3 for the eight kernels
 of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
-`successor` and `face_neighbor`.  The `hex_*` keys are the hex body's:
+`successor` and `face_neighbor`; `launches_phase3o`, `_phase3k` and
+`_phase3i` are its launches in those phases, summed over the forests they
+ran on.  The `hex_*` keys are the hex body's:
 `hex_replaces` the Pallas kernel's hex branch, `hex_launches_phase3h` its
 launches in phase 3h and its queries, and its phase-2h times and bounds at
 d = 3 and (`_d2`) d = 2.  The `flash_attention_kernel` entry has its
@@ -162,6 +190,7 @@ import math
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1095,8 +1124,10 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
     return fs, gh, comm, facts
 
 
-def main_path() -> dict:
-    """Phase 3: the full-size run on the card."""
+def main_path() -> tuple[dict, list, object, list]:
+    """Phase 3: the full-size run on the card.  Returns (facts, with the
+    forests Balance started from under "unbalanced"; the balanced forests;
+    the communicator; their ghosts)."""
     d, trees, level, max_level, P = 3, 8, 6, 8, 4
     half = trees // 2
     per_tree_fine = fractal_count(d, 1, level, max_level)
@@ -1108,7 +1139,7 @@ def main_path() -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     fs, gh, comm, facts = run_path(d, trees, level, max_level, P, torch.device("cuda"),
-                                   report=True)
+                                   report=True, keep_unbalanced=True)
     wall = time.perf_counter() - t0
     for k, v in want.items():
         if sum(facts["per_rank"][k]) != v:
@@ -1149,9 +1180,8 @@ def main_path() -> dict:
     print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
           flush=True)
     facts["peak_bytes"] = peak
-    del gh
     torch.cuda.empty_cache()
-    return facts, fs, comm
+    return facts, fs, comm, gh
 
 
 def element_queries(fs: list, comm) -> dict:
@@ -1276,10 +1306,11 @@ def new_uniform_methods(reps: int = 3) -> dict:
     return walls
 
 
-def cmesh_path() -> tuple[dict, list, list]:
+def cmesh_path() -> tuple[dict, list, list, list, object]:
     """Phase 3c: the coarse-mesh path at full size on the card.  Returns
-    (facts, the forests Balance started from, the balanced forests) for
-    `check_level_jumps`, which runs after the launch counts are read."""
+    (facts, the forests Balance started from, the balanced forests, their
+    ghosts, the coarse mesh) for `check_level_jumps`, which runs after the
+    launch counts are read, and for phases 3o, 3k and 3i."""
     from repro_torch.core.cmesh import cmesh_brick
 
     cm = cmesh_brick(3, (2, 2, 2), periodic=(True, True, False))
@@ -1331,19 +1362,19 @@ def cmesh_path() -> tuple[dict, list, list]:
     print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
           flush=True)
     facts["peak_bytes"] = peak
-    del gh
-    return facts, facts.pop("unbalanced"), fs
+    return facts, facts.pop("unbalanced"), fs, gh, cm
 
 
-def hex_path() -> tuple[dict, list, list, object]:
+def hex_path() -> tuple[dict, list, list, object, list, object]:
     """Phase 3h: the hex path at full size on the card: the 8 hex trees of
     cmesh_hex_brick(3, (2, 2, 2), periodic=(True, True, False)) on
     SimComm(4), New at level 6, the parity fractal to level 8, trees 4-7
     coarsened, Partition (more than 5 M hexes migrating), the weighted
     repartition, tree 0's faces to level 9, Balance, Ghost, validate.
     Returns (facts, the forests Balance started from, the
-    balanced forests, the communicator) for `check_level_jumps` and the
-    queries, which run after the launch counts are read."""
+    balanced forests, the communicator, their ghosts, the coarse mesh) for
+    `check_level_jumps` and the queries, which run after the launch counts
+    are read, and for phases 3o, 3k and 3i."""
     from repro_torch.core.cmesh import cmesh_hex_brick
 
     cm = cmesh_hex_brick(3, (2, 2, 2), periodic=(True, True, False))
@@ -1404,8 +1435,7 @@ def hex_path() -> tuple[dict, list, list, object]:
     print(f"  wall {wall:.3f} s; peak device memory {peak:,} B ({peak / 2**30:.3f} GiB)",
           flush=True)
     facts["peak_bytes"] = peak
-    del gh
-    return facts, facts.pop("unbalanced"), fs, comm
+    return facts, facts.pop("unbalanced"), fs, comm, gh, cm
 
 
 def check_level_jumps(unbalanced: list, balanced: list, deep: int) -> None:
@@ -1432,15 +1462,45 @@ def check_level_jumps(unbalanced: list, balanced: list, deep: int) -> None:
     torch.cuda.empty_cache()
 
 
+def forest_extras(unbalanced: list, P: int) -> dict:
+    """Phase 4's products of the oracles, Iterate and checkpoints on one
+    device: `balance_oracle` of the forests Balance started from,
+    `ghost_oracle` of its result, and their byte counters; `iterate`'s pair
+    tensor on every rank; the bytes of every file `save_forest` writes."""
+    from repro_torch.checkpoint import save_forest
+    from repro_torch.core import forest as F
+
+    comm = F.SimComm(P)
+    ob = F.balance_oracle(unbalanced, comm)
+    og = F.ghost_oracle(ob, comm)
+    pairs = [F.iterate(f, face_fn=lambda ff, p: p)[0] for f in ob]
+    with tempfile.TemporaryDirectory() as tmp:
+        step = save_forest(tmp, ob, comm)
+        files = {p.name: p.read_bytes() for p in sorted(step.iterdir())}
+    return {"forests": ob, "ghosts": og, "pairs": pairs, "files": files,
+            "counters": comm.counters}
+
+
 def same_on_card_and_cpu(label: str, d: int, trees: int, P: int, cmesh=None,
                          tree_faces: int | None = None) -> None:
     """The pipeline at small size (level 1 -> 3, tree 0's faces then to
     level `tree_faces` when given) on the card and on the CPU: every forest
-    and ghost field, and every per-phase byte count, identical."""
+    and ghost field, and every per-phase byte count, identical; and so the
+    global-table oracles' forests, layers and bytes, Iterate's pairs on
+    every rank and the bytes `save_forest` writes (`forest_extras`)."""
     (fg, gg, cg, ng), (fc, gc, cc, nc) = [
         run_path(d, trees, 1, 3, P, torch.device(dev), cmesh=cmesh,
-                 tree_faces=tree_faces)
+                 tree_faces=tree_faces, keep_unbalanced=True)
         for dev in ("cuda", "cpu")]
+    xg, xc = forest_extras(ng.pop("unbalanced"), P), forest_extras(nc.pop("unbalanced"), P)
+    assert_same_forests(f"{label}: balance_oracle card vs CPU", xg["forests"], xc["forests"])
+    assert_same_forests(f"{label}: balance_oracle vs balance", xg["forests"], fg)
+    assert_same_ghosts(f"{label}: ghost_oracle card vs CPU", xg["ghosts"], xc["ghosts"])
+    if xg["counters"] != xc["counters"] or xg["files"] != xc["files"]:
+        raise AssertionError(f"{label}: oracle bytes or checkpoint files differ card vs CPU")
+    for a, b in zip(xg["pairs"], xc["pairs"], strict=True):
+        if a.device.type != "cuda" or not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{label}: iterate's pairs differ card vs CPU")
     if ng["per_rank"] != nc["per_rank"]:
         raise AssertionError(f"{label}: counts differ, card {ng['per_rank']} vs CPU "
                              f"{nc['per_rank']}")
@@ -1462,7 +1522,11 @@ def same_on_card_and_cpu(label: str, d: int, trees: int, P: int, cmesh=None,
     print(f"  {label}: {sum(ng['per_rank']['adapt fractal'])} -> "
           f"{sum(ng['per_rank']['adapt coarsen'])} -> {sum(ng['per_rank']['balance'])} "
           f"elements, ghosts {ng['per_rank']['ghost']} on SimComm({P}); card == CPU "
-          f"forest and ghost field for field; bytes_for {ng['bytes']} equal", flush=True)
+          f"forest and ghost field for field; bytes_for {ng['bytes']} equal; oracles "
+          f"({ {k: v['allgather_bytes'] for k, v in xg['counters'].items()} } B), "
+          f"{sum(p.shape[0] for p in xg['pairs'])} iterate pairs and "
+          f"{sum(len(v) for v in xg['files'].values()):,} B of checkpoint files equal",
+          flush=True)
 
 
 def card_vs_cpu() -> None:
@@ -1544,6 +1608,277 @@ def hybrid_face_sweeps(kops) -> None:
                                  f"{per_b}; ghost {mixed_g} vs {per_g}")
         print(f"  hybrid pair d={d}: balance launches {mixed_b}, ghost {mixed_g}: equal to "
               "the class groups' own runs (one launch per class per eval layer)", flush=True)
+
+
+# ------------------------------ 3o, 3k, 3i: oracles, checkpoints, Iterate
+FOREST_FIELDS = ("anchor", "level", "stype", "tree", "keys")
+GHOST_FIELDS = ("anchor", "level", "stype", "tree", "owner")
+# At rest (paper Remark 20): int32 coordinates, an int8 level and, for a
+# simplex, an int8 type, so 14 B a tetrahedron and 13 a hexahedron.
+AT_REST_BYTES = {"simplex": 14, "hex": 13}
+
+
+def assert_same_forests(label: str, got: list, want: list) -> None:
+    """Two lists of forests equal rank for rank and field for field (the
+    second's tensors moved to the first's device)."""
+    for a, b in zip(got, want, strict=True):
+        if (a.rank, a.num_ranks) != (b.rank, b.num_ranks):
+            raise AssertionError(f"{label}: rank {a.rank}/{a.num_ranks} vs {b.rank}/{b.num_ranks}")
+        for k in FOREST_FIELDS:
+            x, y = getattr(a, k), getattr(b, k)
+            if x.dtype != y.dtype or not torch.equal(x, y.to(x.device)):
+                raise AssertionError(f"{label}: rank {a.rank}'s {k} differs")
+
+
+def assert_same_ghosts(label: str, got: list, want: list) -> None:
+    for r, (a, b) in enumerate(zip(got, want, strict=True)):
+        for k in GHOST_FIELDS:
+            if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k].to(a[k].device)):
+                raise AssertionError(f"{label}: rank {r}'s ghost {k} differs")
+
+
+def oracles(label: str, unbalanced: list, balanced: list, ghosts: list, P: int,
+            message_bytes: dict) -> dict:
+    """Phase 3o on one full-size phase's forests: `balance_oracle` of the
+    forests Balance started from must equal the balanced forests on every
+    rank, and `ghost_oracle` of the balanced forests the message-based
+    Ghost's layers; the wall of each (host clock, ending in a synchronize),
+    the oracle's rounds, and its bytes beside the message-based phase's."""
+    from repro_torch.core import forest as F
+
+    comm = F.SimComm(P)
+    sync()
+    t = time.perf_counter()
+    ob = F.balance_oracle(unbalanced, comm)
+    sync()
+    wb = time.perf_counter() - t
+    assert_same_forests(f"3o {label}: balance_oracle vs balance", ob, balanced)
+    del ob
+    t = time.perf_counter()
+    og = F.ghost_oracle(balanced, comm)
+    sync()
+    wg = time.perf_counter() - t
+    assert_same_ghosts(f"3o {label}: ghost_oracle vs ghost", og, ghosts)
+    del og
+    rounds = comm.counters["balance_oracle"]["allgather_calls"] // 2   # table + changed
+    ob_bytes, og_bytes = comm.bytes_for("balance_oracle"), comm.bytes_for("ghost_oracle")
+    print(f"  {label}: balance_oracle == balance on every rank ({F.count_global(unbalanced):,} -> "
+          f"{F.count_global(balanced):,}) in {rounds} rounds, {wb:.3f} s; ghost_oracle == "
+          f"ghost field for field ({sum(len(g['level']) for g in ghosts):,} entries), "
+          f"{wg:.3f} s", flush=True)
+    print(f"  {label}: bytes_for balance_oracle {ob_bytes:,} B against balance "
+          f"{message_bytes['balance']:,} B ({ob_bytes / message_bytes['balance']:.1f} times); "
+          f"ghost_oracle {og_bytes:,} B against ghost {message_bytes['ghost']:,} B "
+          f"({og_bytes / message_bytes['ghost']:.1f} times)", flush=True)
+    return {"balance_oracle_s": wb, "ghost_oracle_s": wg, "rounds": rounds,
+            "bytes": {"balance_oracle": ob_bytes, "ghost_oracle": og_bytes, **message_bytes}}
+
+
+def checkpoints(label: str, balanced: list, P: int, cmesh, max_level: int,
+                eclass: str) -> tuple[dict, list]:
+    """Phase 3k on one full-size phase's balanced forests, in a temporary
+    directory: `save_forest` (its wall, bytes on disk, at-rest bytes an
+    element, exactly `AT_REST_BYTES[eclass]`); `load_forest` onto the
+    card at the saved rank count equal to the saved forests with the same
+    partition markers; onto 1 and 3 ranks the same global sequence, valid,
+    per-rank counts within 1; with weights 1 + (level == max_level) equal
+    to `repartition` with them; one byte flipped in the anchor column
+    refused.  Returns (facts, the one-rank restore)."""
+    from repro_torch.checkpoint import load_forest, save_forest
+    from repro_torch.core import forest as F
+    from repro_torch.core.errors import CheckpointIntegrityError
+
+    n = F.count_global(balanced)
+    facts = {"load_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        sync()
+        t = time.perf_counter()
+        step = save_forest(tmp, balanced, F.SimComm(P))
+        facts["save_s"] = time.perf_counter() - t
+        facts["disk_bytes"] = sum(p.stat().st_size for p in step.iterdir())
+        manifest = json.loads((step / "manifest.json").read_text())
+        names = sorted(manifest["meta"]["crc32"])         # the leaves' order
+        leaves = dict(zip(names, manifest["leaves"], strict=True))
+        rest = sum(math.prod(leaves[k]["shape"]) * np.dtype(leaves[k]["dtype"]).itemsize
+                   for k in ("anchor", "level", "stype") if k in leaves)
+        facts["at_rest_per_element"] = rest / n
+        if rest != AT_REST_BYTES[eclass] * n:
+            raise AssertionError(f"3k {label}: {rest} B at rest for {n} elements, want "
+                                 f"{AT_REST_BYTES[eclass]} B an element")
+
+        def load(ranks: int, name: str, **kw):
+            sync()
+            t = time.perf_counter()
+            out = load_forest(tmp, F.SimComm(ranks), cmesh=cmesh, **kw)
+            sync()
+            facts["load_s"][name] = time.perf_counter() - t
+            return out
+
+        exact = load(P, f"exact P={P}")
+        assert_same_forests(f"3k {label}: exact restore", exact, balanced)
+        marks = [F.partition_markers(fs, F.SimComm(P)) for fs in (exact, balanced)]
+        if not all(np.array_equal(a, b) for a, b in zip(*marks, strict=True)):
+            raise AssertionError(f"3k {label}: the restore's partition markers differ")
+        del exact
+        want_t, want_k = (torch.cat([getattr(f, k) for f in balanced]) for k in ("tree", "keys"))
+        elastic = {}
+        for ranks in (1, 3):
+            out = load(ranks, f"elastic P={ranks}")
+            counts = [f.num_local for f in out]
+            if (not torch.equal(torch.cat([f.tree for f in out]), want_t)
+                    or not torch.equal(torch.cat([f.keys for f in out]), want_k)
+                    or not F.validate(out) or max(counts) - min(counts) > 1):
+                raise AssertionError(f"3k {label}: the restore onto {ranks} ranks differs, "
+                                     f"fails validate or is unbalanced: {counts}")
+            elastic[ranks] = out
+        del want_t, want_k
+        w = level_weights(balanced, max_level)
+        weighted = load(P, f"weighted P={P}", weights=torch.cat(w))
+        assert_same_forests(f"3k {label}: weighted restore vs repartition", weighted,
+                            F.repartition(balanced, F.SimComm(P), weights=w))
+        del weighted, w
+        col = step / leaves["anchor"]["file"]
+        raw = bytearray(col.read_bytes())
+        raw[len(raw) // 2] ^= 1
+        col.write_bytes(bytes(raw))
+        try:
+            load_forest(tmp, F.SimComm(P), cmesh=cmesh)
+            refused = False
+        except CheckpointIntegrityError:
+            refused = True
+        if not refused:
+            raise AssertionError(f"3k {label}: a flipped anchor byte was not refused")
+    one = elastic[1]
+    print(f"  {label}: save_forest of {n:,} elements in {facts['save_s']:.3f} s, "
+          f"{facts['disk_bytes']:,} B on disk, {facts['at_rest_per_element']:g} B an element "
+          f"at rest; loads (s) " + ", ".join(f"{k} {v:.3f}" for k, v in facts["load_s"].items()),
+          flush=True)
+    print(f"  {label}: exact restore == saved forests with the same markers; onto 1 and 3 "
+          f"ranks the same global sequence, valid, per rank {[f.num_local for f in elastic[3]]}; "
+          f"weighted == repartition; a flipped anchor byte raised CheckpointIntegrityError",
+          flush=True)
+    return facts, one
+
+
+def iterate_identity(label: str, f) -> dict:
+    """Phase 3i on one rank holding a whole 2:1-balanced forest: `iterate`
+    with an `elem_fn` and a `face_fn`, its wall, S same-level and H
+    hanging pairs; then V, the (element, face) slots with a neighbor, and
+    C, the slots whose neighbor region holds finer leaves (a lex-search
+    range and its level maximum, independent of Iterate), must satisfy
+    V = 2S + H + C and H = 2^(d-1) C."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.batch import RangeMax, lex_search
+    from repro_torch.core.keys import span_mask
+
+    sync()
+    t = time.perf_counter()
+    seen, pairs = F.iterate(f, elem_fn=lambda tree, e: int(e.level.numel()),
+                            face_fn=lambda ff, p: p)
+    sync()
+    wall = time.perf_counter() - t
+    fine, coarse = f.level[pairs[:, 0]], f.level[pairs[:, 1]]
+    S, H = int((fine == coarse).sum()), int((fine == coarse + 1).sum())
+    self_pairs = int((pairs[:, 0] == pairs[:, 1]).sum())
+    cross = int((f.tree[pairs[:, 0]] != f.tree[pairs[:, 1]]).sum())
+    if seen != f.num_local or S + H != pairs.shape[0]:
+        raise AssertionError(f"3i {label}: elem_fn saw {seen} of {f.num_local}; "
+                             f"{pairs.shape[0] - S - H} pairs neither same-level nor hanging")
+    del fine, coarse, pairs
+    lay = F.face_sweep_layer(f, f.tree, f.simplices())
+    V = int(lay.valid.sum())
+    lo = lex_search(f.tree, f.keys, lay.tgt, lay.nkey)
+    hi = lex_search(f.tree, f.keys, lay.tgt,
+                    lay.nkey | span_mask(f.d, f.ops.L, f.level)[None, :], right=True)
+    C = int((lay.valid & (RangeMax(f.level).query(lo, hi) > f.level[None, :])).sum())
+    del lay, lo, hi
+    half = 1 << (f.d - 1)
+    print(f"  {label}: iterate over {f.num_local:,} elements on one rank in {wall:.3f} s: "
+          f"S {S:,} same-level pairs ({cross:,} across tree faces, {self_pairs} self-pairs), "
+          f"H {H:,} hanging; V {V:,} faces with a neighbor, C {C:,} coarse faces with finer "
+          f"leaves across: V == 2S + H + C is {V == 2 * S + H + C}, H == {half} C is "
+          f"{H == half * C}", flush=True)
+    if V != 2 * S + H + C or H != half * C:
+        raise AssertionError(f"3i {label}: V {V}, S {S}, H {H}, C {C}")
+    return {"wall_s": wall, "S": S, "H": H, "V": V, "C": C, "cross_tree": cross,
+            "self_pairs": self_pairs}
+
+
+def iterate_periodic_brick() -> dict:
+    """Phase 3i's closed form: the uniform level-5 forest of cmesh_brick(3,
+    (2, 2, 2)) periodic on every axis (48 trees, 1,572,864 tets) on one
+    rank has no boundary face, so exactly nf N / 2 = 2N pairs, all
+    same-level."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.cmesh import cmesh_brick
+
+    cm = cmesh_brick(3, (2, 2, 2), periodic=(True, True, True))
+    f = F.new_uniform(3, cm.num_trees, 5, F.SimComm(1), cmesh=cm, device=torch.device("cuda"))[0]
+    sync()
+    t = time.perf_counter()
+    pairs = F.iterate(f, face_fn=lambda ff, p: p)[0]
+    sync()
+    wall = time.perf_counter() - t
+    n, m = f.num_local, pairs.shape[0]
+    print(f"  periodic brick (48 trees, level 5): iterate over {n:,} tets in {wall:.3f} s: "
+          f"{m:,} pairs == 2N: {m == 2 * n}", flush=True)
+    if n != 1_572_864 or m != 2 * n or bool((f.level[pairs[:, 0]] != f.level[pairs[:, 1]]).any()):
+        raise AssertionError(f"3i periodic brick: {m} pairs over {n} tets")
+    return {"wall_s": wall, "pairs": m, "N": n}
+
+
+def forest_phases(runs: dict, kops, kref) -> dict:
+    """Phases 3o, 3k and 3i on the full-size phases in `runs` ({label:
+    {unbalanced, balanced, ghosts, P, cmesh, max_level, eclass, bytes}}),
+    each sub-phase counted on its own.  Returns {phase: [(label, launches,
+    plain calls, launches per class)]}."""
+    counts = {"3o": [], "3k": [], "3i": []}
+    print(f"== 3o. the global-table oracles against Balance and Ghost ({', '.join(runs)})",
+          flush=True)
+    for label, r in runs.items():
+        _f, lc, pc, cls = counted(kops, kref, lambda r=r, label=label: oracles(
+            label, r["unbalanced"], r["balanced"], r["ghosts"], r["P"], r["bytes"]))
+        counts["3o"].append((label, lc, pc, cls))
+        r.pop("unbalanced")
+        torch.cuda.empty_cache()
+    print(f"== 3k. forest checkpoints ({', '.join(runs)})", flush=True)
+    restored = {}
+    for label, r in runs.items():
+        (_f, restored[label]), lc, pc, cls = counted(kops, kref, lambda r=r, label=label: checkpoints(
+            label, r["balanced"], r["P"], r["cmesh"], r["max_level"], r["eclass"]))
+        counts["3k"].append((label, lc, pc, cls))
+        torch.cuda.empty_cache()
+    print(f"== 3i. Iterate on one rank ({', '.join(runs)}; the periodic brick)", flush=True)
+    for label in runs:
+        _f, lc, pc, cls = counted(kops, kref, lambda label=label: iterate_identity(
+            label, restored[label][0]))
+        counts["3i"].append((label, lc, pc, cls))
+        del restored[label]
+        torch.cuda.empty_cache()
+    if "phase 3" in runs:
+        _f, lc, pc, cls = counted(kops, kref, iterate_periodic_brick)
+        counts["3i"].append(("periodic brick", lc, pc, cls))
+    return counts
+
+
+def check_forest_phase_launches(counts: dict) -> None:
+    """Phase 5 for 3o, 3k and 3i: each ran face_sweep as a kernel, 3o also
+    decode (ghost_oracle's candidates); on the coarse-mesh phases
+    tree_transform and morton_key carried the crossings; the hex phase ran
+    hex bodies only; no plain version was called."""
+    for phase, rows in counts.items():
+        for label, lc, pc, cls in rows:
+            print(f"  phase {phase} ({label}): kernel launches {lc}; plain calls {pc}",
+                  flush=True)
+            need = {"3o": ["face_sweep", "decode"], "3i": ["face_sweep"],
+                    "3k": ["morton_key", "inside_root"]}[phase]
+            if label in ("phase 3c", "phase 3h") and phase != "3k":
+                need += ["tree_transform", "morton_key"]
+            if not all(lc[k] > 0 for k in need) or any(pc.values()):
+                raise AssertionError(f"phase {phase} ({label}): want {need} launched and no "
+                                     f"plain call: {lc}, {pc}")
+            if label == "phase 3h" and any(v["simplex"] for v in cls.values()):
+                raise AssertionError(f"phase {phase} ({label}): a simplex body ran")
 
 
 # ------------------------------------------------ 2a, 4 and 6: the LM path
@@ -2031,33 +2366,46 @@ def main() -> int:
 
     print("== 3. main path at full size", flush=True)
     sizes, originals = record_launch_sizes(kops)
-    (_facts, fs, comm), launches, plain_calls, _cls = counted(kops, kref, main_path)
+    (facts3, fs, comm, gh), launches, plain_calls, _cls = counted(kops, kref, main_path)
+    runs = {"phase 3": {"unbalanced": facts3.pop("unbalanced"), "balanced": fs, "ghosts": gh,
+                        "P": 4, "cmesh": None, "max_level": 8, "eclass": "simplex",
+                        "bytes": {k: facts3["bytes"][k] for k in ("balance", "ghost")}}}
     print("== 3d. element queries on phase 3's forests", flush=True)
     _walls, launches_d, plain_calls_d, _cls = counted(kops, kref,
                                                       lambda: element_queries(fs, comm))
     face_neighbor_vs_plain(max(fs, key=lambda f: f.num_local), kops, kref)
-    del fs
+    del fs, gh
     torch.cuda.empty_cache()
     print("== 3c. the coarse-mesh path at full size", flush=True)
-    (_facts, unbalanced, balanced), launches_c, plain_calls_c, _cls = counted(kops, kref,
-                                                                              cmesh_path)
+    (facts_c, unbalanced, balanced, gh, cm), launches_c, plain_calls_c, _cls = counted(
+        kops, kref, cmesh_path)
     for name, fn in originals.items():
         setattr(kops, name, fn)
     check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
-    del unbalanced, balanced
+    runs["phase 3c"] = {"unbalanced": unbalanced, "balanced": balanced, "ghosts": gh, "P": 4,
+                        "cmesh": cm, "max_level": 7, "eclass": "simplex",
+                        "bytes": {k: facts_c["bytes"][k] for k in ("balance", "ghost")}}
+    del unbalanced, balanced, gh
+    forest_counts = forest_phases(runs, kops, kref)
+    del runs
     torch.cuda.empty_cache()
 
     print("== 3h. the hex path at full size", flush=True)
-    (_facts, unbalanced, balanced, comm_h), launches_h, plain_calls_h, cls_h = counted(
+    (facts_h, unbalanced, balanced, comm_h, gh, cm), launches_h, plain_calls_h, cls_h = counted(
         kops, kref, hex_path)
     check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
-    del unbalanced
     torch.cuda.empty_cache()
     print("== 3h. element queries on phase 3h's forests", flush=True)
     _walls, launches_hq, plain_calls_hq, cls_hq = counted(
         kops, kref, lambda: element_queries(balanced, comm_h))
     face_neighbor_vs_plain(max(balanced, key=lambda f: f.num_local), kops, kref)
-    del balanced
+    runs = {"phase 3h": {"unbalanced": unbalanced, "balanced": balanced, "ghosts": gh, "P": 4,
+                         "cmesh": cm, "max_level": 8, "eclass": "hex",
+                         "bytes": {k: facts_h["bytes"][k] for k in ("balance", "ghost")}}}
+    del unbalanced, balanced, gh
+    for phase, counts_h in forest_phases(runs, kops, kref).items():
+        forest_counts[phase] += counts_h
+    del runs
     torch.cuda.empty_cache()
 
     print(f"== 3b. kernels at the sizes phases 3, 3c and 3d launched (card {smi})", flush=True)
@@ -2100,6 +2448,7 @@ def main() -> int:
     if any(plain_calls_h.values()) or any(plain_calls_hq.values()):
         raise AssertionError(f"plain versions ran on the hex path: {plain_calls_h}, "
                              f"{plain_calls_hq}")
+    check_forest_phase_launches(forest_counts)
     hybrid_face_sweeps(kops)
     prefills = {"6a": 1, "6b": len(REQUEST_LENGTHS), "6c": 2}     # 6c: prefill and forward
     layers = get_config(SERVE_ARCH).num_layers
@@ -2119,6 +2468,8 @@ def main() -> int:
             "launches": launches[name] or launches_c[name] or launches_d[name],
             "launches_phase3": launches[name], "launches_phase3c": launches_c[name],
             "launches_phase3d": launches_d[name],
+            **{f"launches_phase{ph}": sum(row[1][name] for row in forest_counts[ph])
+               for ph in ("3o", "3k", "3i")},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "d": 3, "n": r["n"],

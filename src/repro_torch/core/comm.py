@@ -362,6 +362,10 @@ class Comm:
                 payload_nbytes(x) for q, x in enumerate(send[i]) if q != g)
         return self._ialltoallv([list(row) for row in send])
 
+    def barrier(self) -> None:
+        """Wait until every rank reaches this point (a no-op in one
+        process: `SimComm` and `LocalComm` host every rank here)."""
+
     def _allgather(self, per_local: list) -> list:
         raise NotImplementedError
 

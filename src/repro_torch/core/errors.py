@@ -1,13 +1,14 @@
-"""Structured errors of the port's wire codecs.
+"""Structured errors of the port's wire codecs and forest checkpoints.
 
-A dependency-free module so the element wire format (`core.types`) and the
-payload codec (`core.comm`) raise the same exception types as the JAX
+A dependency-free module so the element wire format (`core.types`), the
+payload codec (`core.comm`) and the forest checkpoints
+(`checkpoint.forest_io`) raise the same exception types as the JAX
 package's `repro.core.errors`, without import cycles.
 """
 
 from __future__ import annotations
 
-__all__ = ["ResilienceError", "WireFormatError"]
+__all__ = ["ResilienceError", "WireFormatError", "CheckpointIntegrityError"]
 
 
 class ResilienceError(RuntimeError):
@@ -21,3 +22,12 @@ class WireFormatError(ResilienceError, ValueError):
     truncated, trailing-garbage, or structurally invalid buffers — never a
     bare `struct.error`, `KeyError`, or a silently misaligned column
     decode."""
+
+
+class CheckpointIntegrityError(ResilienceError):
+    """A forest checkpoint is unreadable, corrupted, or invalid on restore.
+
+    Raised by `checkpoint.forest_io.load_forest` when a payload blob is
+    truncated/garbage, a stored CRC32 disagrees with the bytes on disk, the
+    element count contradicts the manifest, or the restored global forest
+    fails `forest.validate`."""

@@ -41,9 +41,15 @@ decoded by it, Balance and Ghost per class (one fused face sweep per class
 per eval layer), validate's inside-root and key checks per class.  A mesh
 of one class takes the one-class path directly.
 
+Iterate (`iterate`) runs callbacks over a rank's elements and its local
+face pairs, found in batch from one face sweep per class group and one lex
+search.  The global-table oracles (`balance_oracle`, `ghost_oracle`) are the
+JAX package's test oracles and wire-volume baseline: every rank allgathers
+the full leaf table, and the message-based Balance and Ghost must equal
+their results.
+
 Entry points run on `cuda` unless the caller passes `device="cpu"`; without
 a card they raise.  Everything else follows the forests' device.
-`iterate` and the global-table oracles are not ported yet.
 """
 
 from __future__ import annotations
@@ -79,8 +85,11 @@ __all__ = [
     "partition_markers",
     "count_global",
     "balance",
+    "balance_oracle",
     "BalanceNonConvergence",
     "ghost",
+    "ghost_oracle",
+    "iterate",
     "validate",
     "face_kind",
     "face_kinds",
@@ -235,6 +244,33 @@ def _merge_class_groups(base: Forest, parts: list[Forest]) -> Forest:
         base, anchor=torch.cat([p.anchor for p in parts])[order],
         level=torch.cat([p.level for p in parts])[order],
         stype=torch.cat([p.stype for p in parts])[order], tree=tree[order], keys=keys[order])
+
+
+def _forests_per_class(forests: list[Forest], run) -> list[Forest]:
+    """`run(forests, eclass)` of the one-class pipeline, once per class
+    group in ascending class order over a mesh of two classes (on each
+    rank's leaves of that class), each rank's results merged back into
+    stored (tree, key) order."""
+    classes = _forest_classes(forests)
+    if len(classes) == 1:
+        return run(forests, classes[0])
+    parts: list[list] = [[] for _ in forests]
+    for ec in classes:
+        for i, r in enumerate(run(_class_subforests(forests, ec), ec)):
+            parts[i].append(r)
+    return [_merge_class_groups(f, ps) for f, ps in zip(forests, parts)]
+
+
+def _candidates_per_class(forests: list[Forest], run) -> list:
+    """`run(forests, eclass)`'s per-rank sorted (tree, key, level, owner)
+    candidate rows, once per class group over a mesh of two classes, each
+    rank's joined and sorted."""
+    classes = _forest_classes(forests)
+    if len(classes) == 1:
+        return run(forests, classes[0])
+    per_class = [run(_class_subforests(forests, ec), ec) for ec in classes]
+    return [_unique_rows(*(np.concatenate([c[i][:, j] for c in per_class]) for j in range(4)))
+            for i in range(len(forests))]
 
 
 def _layer_eclass(f: Forest, tree_ids: torch.Tensor) -> int:
@@ -891,15 +927,8 @@ def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
     stored (tree, key) order."""
     if max_rounds < 1:
         raise ValueError("max_rounds must be >= 1")
-    classes = _forest_classes(forests)
-    if len(classes) == 1:
-        return _balance_impl(forests, comm, max_rounds, overlap, classes[0])
-    parts: list[list] = [[] for _ in forests]
-    for ec in classes:
-        for i, r in enumerate(_balance_impl(_class_subforests(forests, ec), comm, max_rounds,
-                                            overlap, ec)):
-            parts[i].append(r)
-    return [_merge_class_groups(f, ps) for f, ps in zip(forests, parts)]
+    return _forests_per_class(
+        forests, lambda fs, ec: _balance_impl(fs, comm, max_rounds, overlap, ec))
 
 
 def _balance_impl(forests: list[Forest], comm: Comm, max_rounds: int, overlap: bool,
@@ -1122,6 +1151,76 @@ def _balance_impl(forests: list[Forest], comm: Comm, max_rounds: int, overlap: b
     raise BalanceNonConvergence(max_rounds, counts)
 
 
+def _gather_leaf_table(forests: list[Forest], comm: Comm, bops: BatchedOps):
+    """Allgather every rank's (tree, key, level) columns, as the JAX
+    oracles do (host arrays of its dtypes' widths, so the bytes metered
+    equal its), and upload them lex-sorted to the forests' device: (the
+    global `LeafTable`, or None when every rank is empty; each row's owner
+    rank, int64).  The caller picks the phase."""
+    tables = comm.allgather([(to_numpy(f.tree), to_numpy(f.keys), to_numpy(f.level))
+                             for f in forests])
+    dev = forests[0].device
+    tree, key, level = (torch.from_numpy(np.concatenate([t[c] for t in tables])).to(dev)
+                        for c in range(3))
+    owner = torch.repeat_interleave(torch.arange(len(tables), device=dev),
+                                    torch.as_tensor([len(t[0]) for t in tables], device=dev))
+    by_key = torch.argsort(key, stable=True)
+    order = by_key[torch.argsort(tree[by_key], stable=True)]
+    return bops.upload_table(tree[order], key[order], level[order]), owner[order]
+
+
+def balance_oracle(forests: list[Forest], comm: Comm, max_rounds: int = 64) -> list[Forest]:
+    """The global-leaf-table Balance, the JAX package's test oracle and
+    wire-volume baseline: every round allgathers the full (tree, key,
+    level) leaf table of every rank, under the "balance_oracle" phase, so
+    `bytes_for("balance_oracle")` equals the JAX package's.  The
+    message-based `balance` must equal its result element for element.
+    Over a mesh of two classes it runs once per class group, like
+    `balance`.  Returns NEW forests on the same device."""
+    return _forests_per_class(
+        forests, lambda fs, ec: _balance_oracle_impl(fs, comm, max_rounds, ec))
+
+
+def _balance_oracle_impl(forests: list[Forest], comm: Comm, max_rounds: int,
+                         eclass: int) -> list[Forest]:
+    """Rounds of: allgather the global table; per rank one face sweep, each
+    neighbor interval [nkey, nkey | span_mask] located in the table by lex
+    search and its range maximum of levels taken; a non-recursive Adapt of
+    the elements with a leaf more than one level finer across a face.  The
+    JAX package's `changed` allgather ends the loop; `max_rounds` spent
+    raises `BalanceNonConvergence` with the last round's violators per
+    rank."""
+    if max_rounds < 1:
+        raise ValueError("max_rounds must be >= 1")
+    d = forests[0].d
+    L = get_ops(d, eclass).L
+    bops = get_batch_ops(d, eclass)
+    forests = list(forests)
+    nloc = len(forests)
+    with comm.phase("balance_oracle"):
+        for _ in range(max_rounds):
+            table, _owner = _gather_leaf_table(forests, comm, bops)
+            changed = False
+            last_dirty = [0] * nloc
+            for i, f in enumerate(forests):
+                if f.num_local == 0:
+                    continue
+                sw = face_sweep_layer(f, f.tree, f.simplices())
+                lo = lex_search(table.tree, table.key, sw.tgt, sw.nkey)
+                hi = lex_search(table.tree, table.key, sw.tgt,
+                                sw.nkey | span_mask(d, L, f.level)[None, :], right=True)
+                need = (sw.valid & (table.levmax.query(lo, hi) > (f.level + 1)[None, :])).any(0)
+                dirty = int(need.sum())
+                if dirty:
+                    changed = True
+                    last_dirty[i] = dirty
+                    forests[i] = adapt(f, lambda tree, elems, fl=need.to(torch.int32): fl)
+            if not any(comm.allgather([int(changed)] * nloc)):
+                return forests
+        counts = comm.allgather(last_dirty)
+    raise BalanceNonConvergence(max_rounds, counts)
+
+
 # -------------------------------------------------------------------- ghost
 def _empty_ghost(d: int, device) -> dict:
     def z(*shape):
@@ -1178,16 +1277,8 @@ def ghost(forests: list[Forest], comm: Comm, overlap: bool = True) -> list[dict]
     layers).  Over a mesh of two element classes the exchange runs once per
     class, in ascending class order, and each rank's candidates are joined
     before the layer is assembled."""
-    d = forests[0].d
-    dev = forests[0].device
-    classes = _forest_classes(forests)
-    if len(classes) == 1:
-        cands = _ghost_impl(forests, comm, overlap, classes[0])
-    else:
-        per_class = [_ghost_impl(_class_subforests(forests, ec), comm, overlap, ec)
-                     for ec in classes]
-        cands = [_unique_rows(*(np.concatenate([c[i][:, j] for c in per_class])
-                                for j in range(4))) for i in range(len(forests))]
+    cands = _candidates_per_class(forests,
+                                  lambda fs, ec: _ghost_impl(fs, comm, overlap, ec))
     return [_ghost_from_candidates(forests[0], c) for c in cands]
 
 
@@ -1301,6 +1392,149 @@ def _ghost_impl(forests: list[Forest], comm: Comm, overlap: bool, eclass: int) -
             out.append(_unique_rows(*(np.concatenate(c) for c in zip(*parts)))
                        if parts else np.zeros((0, 4), np.int64))
         return out
+
+
+def ghost_oracle(forests: list[Forest], comm: Comm) -> list[dict]:
+    """The global-leaf-table Ghost, the JAX package's test oracle and
+    wire-volume baseline: one allgather of every rank's full (tree, key,
+    level) columns under the "ghost_oracle" phase, searched directly.  The
+    message-based `ghost` must give identical layers.  Over a mesh of two
+    classes it runs once per class group, like `ghost`."""
+    cands = _candidates_per_class(forests,
+                                  lambda fs, ec: _ghost_oracle_impl(fs, comm, ec))
+    return [_ghost_from_candidates(forests[0], c) for c in cands]
+
+
+def _ghost_oracle_impl(forests: list[Forest], comm: Comm, eclass: int) -> list:
+    """Per local rank the distinct candidate rows (tree, key, level, owner)
+    of class `eclass`, sorted, as an (m, 4) int64 host array: for every
+    valid face of every element, the leaves owned elsewhere in the
+    neighbor's key interval that touch the shared face (a whole facet of
+    their corners, decoded in one batch, on the plane of the neighbor's
+    dual facet), or, where the interval holds no leaf, the coarser leaf
+    before it when it covers the neighbor and is owned elsewhere."""
+    d = forests[0].d
+    o = get_ops(d, eclass)
+    L = o.L
+    bops = get_batch_ops(d, eclass)
+    dev = forests[0].device
+    fci = torch.as_tensor(o.face_corner_indices, dtype=torch.int64, device=dev)
+    cpf = fci.shape[1]
+    with comm.phase("ghost_oracle"):
+        table, owner = _gather_leaf_table(forests, comm, bops)
+    out = []
+    for i, f in enumerate(forests):
+        me = comm.local_ranks[i]
+        if f.num_local == 0:
+            out.append(np.zeros((0, 4), np.int64))
+            continue
+        sw = face_sweep_layer(f, f.tree, f.simplices())
+        fi, ei = torch.nonzero(sw.valid, as_tuple=True)
+        t, k, lv = sw.tgt[fi, ei].long(), sw.nkey[fi, ei], f.level[ei]
+        lo = lex_search(table.tree, table.key, t, k)
+        hi = lex_search(table.tree, table.key, t, k | span_mask(d, L, lv), right=True)
+        # only intervals holding a leaf owned elsewhere are expanded
+        elsewhere = owner != me
+        before = torch.zeros(table.n + 1, dtype=torch.int64, device=dev)
+        torch.cumsum(elsewhere.long(), 0, out=before[1:])
+        q = torch.nonzero(before[hi] > before[lo]).squeeze(1)
+        slot, leaf = _expand_ranges(lo[q], hi[q])
+        m = elsewhere[leaf]
+        slot, leaf = q[slot[m]], leaf[m]
+        hits = leaf[:0]
+        if leaf.numel():
+            sf, se = fi[slot], ei[slot]
+            nb = Simplex(sw.anchor[sf, se], lv[slot], sw.stype[sf, se])
+            corners = o.coordinates(nb).to(torch.int64)
+            facet = fci[sw.dual[sf, se].long()][:, :d]
+            nrm, rhs = _face_planes(torch.gather(corners, 1, facet[:, :, None].expand(-1, -1, d)))
+            lc = o.coordinates(bops.decode(table.key[leaf], table.level[leaf])).to(torch.int64)
+            hits = leaf[((lc * nrm[:, None, :]).sum(-1) == rhs[:, None]).sum(-1) == cpf]
+        pj = (lo - 1).clamp(min=0)
+        pred = ((lo == hi) & (lo > 0) & (table.tree[pj] == t) & elsewhere[pj]
+                & (k <= (table.key[pj] | span_mask(d, L, table.level[pj]))))
+        j = torch.cat([hits, pj[pred]])
+        rows = torch.stack([table.tree[j], table.key[j], table.level[j].long(), owner[j]], 1)
+        out.append(_unique_rows(*rows.cpu().numpy().T))
+    return out
+
+
+# ------------------------------------------------------------------ iterate
+def iterate(f: Forest, elem_fn=None, face_fn=None) -> list:
+    """Paper's Iterate: callbacks over a rank's local elements and its local
+    face pairs, pairs across glued tree faces included over a coarse mesh.
+
+    `elem_fn(f.tree, f.simplices())` and `face_fn(f, pairs)` are called as
+    the JAX package calls them, and their results returned in that order.
+    `pairs` is an (n, 4) int64 tensor on the forest's device of rows (i, j,
+    face_i, face_j), equal to the JAX package's array row for row:
+    same-level pairs once (i < j in storage order; a self-pair across a
+    periodic gluing with face_i < face_j), hanging faces once per fine
+    sub-face as (fine i, coarse j) with face_j the coarse facet holding the
+    shared face; face-major within a class group, ascending i within a
+    face.  Over a mesh of two classes each class group is swept on its own
+    (a face between classes is a domain boundary) and `face_fn` is called
+    once with every pair, in the forest's local indexing."""
+    results = []
+    if elem_fn is not None:
+        results.append(elem_fn(f.tree, f.simplices()))
+    if face_fn is not None:
+        pairs = [_iterate_pairs(f, sel, ec) for ec, sel in _class_groups(f)]
+        results.append(face_fn(f, torch.cat(pairs) if pairs else
+                               torch.zeros((0, 4), dtype=torch.int64, device=f.device)))
+    return results
+
+
+def _iterate_pairs(f: Forest, sel, eclass: int) -> torch.Tensor:
+    """The local face pairs of one class group (`sel` selects its elements
+    among the rank's), in the forest's local indexing.
+
+    One face sweep of the group, then ONE lex search: the leaf that can
+    share each face is the predecessor of (tgt, nkey) among the group's
+    own leaves (neighbors never leave the class), because leaves do not
+    overlap.  At the neighbor's level and key it is a same-level pair; at a
+    coarser level whose span holds nkey, a hanging one (the JAX package
+    walks the ancestor keys instead); else the neighbor region is finer or
+    outside the forest and the pair is found from the other side."""
+    dev = f.device
+    gid = torch.arange(f.num_local, device=dev)[sel]
+    n = gid.numel()
+    if n == 0:
+        return torch.zeros((0, 4), dtype=torch.int64, device=dev)
+    o = get_ops(f.d, eclass)
+    d, L = f.d, o.L
+    s = take(f.simplices(), gid)
+    tree, keys, level = f.tree[gid], f.keys[gid], f.level[gid]
+    sw = face_sweep_layer(f, tree, s)
+    j = lex_search(tree, keys, sw.tgt, sw.nkey, right=True) - 1
+    jc = j.clamp(min=0)
+    jl = level[jc]
+    hit = sw.valid & (j >= 0) & (tree[jc] == sw.tgt)
+    face = torch.arange(o.nf, device=dev)[:, None]
+    row = torch.arange(n, device=dev)[None, :]
+    same = (hit & (jl == level[None, :]) & (keys[jc] == sw.nkey)
+            & ((jc > row) | ((jc == row) & (face < sw.dual))))
+    hang = hit & (jl < level[None, :]) & (keys[jc] == (sw.nkey & ~span_mask(d, L, jl)))
+    face_j = sw.dual.to(torch.int64)
+    if bool(hang.any()):
+        # the coarse facet whose plane holds every corner of the shared face
+        hf, he = torch.nonzero(hang, as_tuple=True)
+        fci = torch.as_tensor(o.face_corner_indices, dtype=torch.int64, device=dev)
+        nb = Simplex(sw.anchor[hf, he], level[he], sw.stype[hf, he])
+        idx = fci[sw.dual[hf, he].long()]
+        shared = torch.gather(o.coordinates(nb).to(torch.int64), 1,
+                              idx[:, :, None].expand(-1, -1, d))
+        coarse = o.coordinates(take(s, jc[hf, he])).to(torch.int64)
+        on = []
+        for fc in range(o.nf):
+            nrm, rhs = _face_planes(coarse[:, fci[fc, :d]])
+            on.append(((shared * nrm[:, None, :]).sum(-1) == rhs[:, None]).all(-1))
+        on = torch.stack(on, 1)
+        if not bool(on.any(1).all()):
+            raise AssertionError("hanging face without coarse facet")
+        face_j[hf, he] = on.to(torch.int8).argmax(1)
+    kf, ke = torch.nonzero(same | hang, as_tuple=True)
+    return torch.stack([gid[ke], gid[jc[kf, ke]], kf, face_j[kf, ke]], 1)
 
 
 # ----------------------------------------------------------------- validate

@@ -256,6 +256,23 @@ def test_core_exports_the_reference_names_but_the_listed_omissions():
         tcore.get_ops(4)
 
 
+def test_checkpoint_and_forest_export_the_reference_names():
+    """`repro_torch.checkpoint` exports what `repro.checkpoint` does, each
+    name resolving, and the port's forest module has Iterate and the
+    global-table oracles in its `__all__`, as the JAX package's has."""
+    import repro.checkpoint as jckpt
+    import repro.core.forest as jforest
+    import repro_torch.checkpoint as tckpt
+    import repro_torch.core.forest as tforest
+
+    assert sorted(tckpt.__all__) == sorted(jckpt.__all__)
+    assert all(callable(getattr(tckpt, name)) for name in tckpt.__all__)
+    for name in ("iterate", "balance_oracle", "ghost_oracle"):
+        assert name in tforest.__all__ and name in jforest.__all__
+        assert callable(getattr(tforest, name))
+    assert set(jforest.__all__) - set(tforest.__all__) == {"LatencyComm", "DistComm"}
+
+
 def test_every_module_of_the_port_imports_first():
     """Whichever module a program imports first, the package loads whole
     (`core` imports `batch`, which imports `kernels.ops`, whose `build`
@@ -269,7 +286,8 @@ def test_every_module_of_the_port_imports_first():
     mods = ["repro_torch", "repro_torch.core", "repro_torch.core.tables",
             "repro_torch.core.batch", "repro_torch.core.forest", "repro_torch.kernels",
             "repro_torch.kernels.build", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
-            "repro_torch.convert", "repro_torch.launch.serve"]
+            "repro_torch.convert", "repro_torch.launch.serve", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.forest_io"]
     code = f"""
 import importlib, sys
 for m in {mods!r}:

@@ -645,6 +645,54 @@ def test_cuda_hex_and_hybrid_pipeline_matches_cpu(name):
             assert torch.equal(a[k].cpu(), b[k])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["simplex_d3", "simplex_d2", "brick_d3", "hex_brick_d3",
+                                  "hybrid_d2"])
+def test_cuda_iterate_oracles_and_checkpoints_match_cpu(name, tmp_path):
+    """Iterate's pair tensor on every rank, both global-table oracles (their
+    forests, layers and bytes), the bytes `save_forest` writes and the
+    restore of them on the card equal the CPU run's; the sweep ran as a
+    kernel, crossings through tree_transform, decode in ghost_oracle."""
+    dev = _card()
+    cm = {"simplex_d3": lambda: None, "simplex_d2": lambda: None,
+          "brick_d3": lambda: TC.cmesh_brick(3, (2, 1, 1), periodic=(True, False, False)),
+          "hex_brick_d3": lambda: TC.cmesh_hex_brick(3, (2, 2, 1)),
+          "hybrid_d2": lambda: TC.cmesh_hybrid_pair(2)}[name]()
+    d = 2 if name.endswith("d2") else 3
+    trees = 4 if cm is None else cm.num_trees
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        from repro_torch.checkpoint import load_forest, save_forest
+
+        kops.reset_launch_counts()
+        comm = TF.SimComm(3)
+        fs = TF.new_uniform(d, trees, 1, comm, cmesh=cm, device=device)
+        fs = TF.partition([TF.adapt(f, lambda t, e: ((t == 0) & (e.anchor.sum(1) == 0)
+                                                      & (e.level < 4)).int(), recursive=True)
+                           for f in fs], comm)
+        ob = TF.balance_oracle(fs, comm)
+        og = TF.ghost_oracle(ob, comm)
+        pairs = [TF.iterate(f, face_fn=lambda f, p: p)[0] for f in ob]
+        step = save_forest(tmp_path / device.type, ob, comm)
+        files = {p.name: p.read_bytes() for p in sorted(step.iterdir())}
+        back = load_forest(tmp_path / device.type, TF.SimComm(2), cmesh=cm, device=device)
+        runs.append((ob, og, pairs, files, back, comm.counters, dict(kops.launch_counts)))
+    (fg, gg, pg, filg, bg, cg, lg), (fc, gc, pc, filc, bc, cc, lc) = runs
+    assert cg == cc and filg == filc
+    assert lg["face_sweep"] > 0 and lg["decode"] > 0 and not any(lc.values())
+    assert (lg["tree_transform"] > 0) == (cm is not None)
+    for a, b in zip(fg + bg, fc + bc, strict=True):
+        for k in ("anchor", "level", "stype", "tree", "keys"):
+            assert getattr(a, k).device.type == "cuda"
+            assert torch.equal(getattr(a, k).cpu(), getattr(b, k))
+    for a, b in zip(gg, gc, strict=True):
+        for k in ("anchor", "level", "stype", "tree", "owner"):
+            assert torch.equal(a[k].cpu(), b[k])
+    assert sum(len(p) for p in pg) > 0
+    for a, b in zip(pg, pc, strict=True):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+
+
 # ---------------------------------------------------------------- attention
 FLASH_CASES = [
     # (B, S, H, KV, hd, window, causal): ragged S, G = 1, 2, 4 and H (MQA),
