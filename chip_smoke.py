@@ -7,7 +7,9 @@ each against its plain PyTorch version, drives the paper's New -> Adapt ->
 Partition -> Balance -> Ghost -> validate path at full size on the card,
 without and with a coarse mesh of simplex trees and over a brick of hex
 trees, holds Balance and Ghost against the global-table oracles there,
-checkpoints and restores those forests and runs Iterate over them, asks
+checkpoints and restores those forests and runs Iterate over them, runs
+the main path again as four rank processes over `DistComm`, under seeded
+byte faults, and with one rank killed and the rest recovered, asks
 the paper's element queries of every leaf, serves the dense LM qwen3-1.7b
 at full width and depth, and checks the card against the CPU.
 Phases, in the order they run; any failure exits nonzero:
@@ -122,6 +124,31 @@ Phases, in the order they run; any failure exits nonzero:
      a neighbor and C coarse faces with finer leaves across, with V = 2S +
      H + C and H = 2^(d-1) C; and the uniform level-5 brick of 48 trees
      periodic on every axis (1,572,864 tets) gives exactly 2N pairs;
+  3m. phase 3 as four rank processes sharing the card (`run_ranks`; each
+     its own CUDA context, loading the library phase 1 built by its hash),
+     through `DistComm` over a TCPStore on localhost that rank 0 hosts:
+     New, the fractal, the coarsening, Partition and the weighted
+     repartition (`Forest.repartition`) on one DistComm, Balance and Ghost
+     overlapped on a second, validate of the world gathered at rest on
+     rank 0 through a third, then Balance and Ghost serialized on a fourth;
+     per rank, the SHA-256 of every forest and ghost field equal to phase
+     3's, each phase's bytes summed over the ranks equal to phase 3's,
+     overlapped == serialized with equal wire digests; each phase's wall
+     (the slowest rank), each rank's peak device memory, the kernels'
+     launches summed over the ranks; no plain version called in any rank;
+     and, first, the store's rate for one 32 MB blob;
+  3r. resilience: (a) phase 3's path on `ChaosComm(SimComm(4))` with
+     seeded corruption, truncation, duplication and delay in Partition,
+     Balance and Ghost: forests, ghosts and bytes equal phase 3's, and
+     every injected byte fault detected; (b) four rank processes run phase
+     3's path to Balance with an `Autosaver` at balance:begin and
+     `ChaosComm(DistComm, crash_at=3, crash_ranks=(3,), hard_exit=True)`
+     under a 6 s deadline a Balance collective: rank 3 exits 2, ranks 0-2
+     raise `CommTimeoutError` with phase balance and pending [3]; a fresh
+     world of three processes `recover`s the checkpoint (saved by four),
+     finishes Balance and Ghost, equals an in-process `SimComm(3)` run of
+     the same path on the card element for element, and validates; the
+     time to detect, the save wall and the recover wall;
   3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3,
      3d and 3c launched them with (the smallest, two between and the
      largest, per kernel); New's "decode" and "successor" methods on
@@ -160,9 +187,11 @@ Phases, in the order they run; any failure exits nonzero:
      face_sweep (3o also decode, for ghost_oracle's candidates), 3k
      morton_key and inside_root, across tree faces tree_transform and
      morton_key, on the hex phase hex bodies only, and none calls a plain
-     version; in phase 6, flash_attention
-     launched once a layer a prefill (6c: the prefill and forward) and no
-     plain version called.
+     version; phases 3m and 3r (summed over their rank processes, 3r(b)'s
+     survivors and recovery world together) launch every kernel phase 3
+     launches, and no plain version runs in 3r(a); in phase 6,
+     flash_attention launched once a layer a prefill (6c: the prefill and
+     forward) and no plain version called.
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
@@ -172,7 +201,10 @@ first of phases 3, 3c and 3d that runs it: phase 3 for the eight kernels
 of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
 `successor` and `face_neighbor`; `launches_phase3o`, `_phase3k` and
 `_phase3i` are its launches in those phases, summed over the forests they
-ran on.  The `hex_*` keys are the hex body's:
+ran on; `launches_phase3m` its launches in 3m summed over the four rank
+processes, and `launches_phase3r` those of 3r(a) and 3r(b) together.  A
+JSON `runtime` line before it has 3m's and 3r's walls, memory, bytes,
+fault counts and the store's rate.  The `hex_*` keys are the hex body's:
 `hex_replaces` the Pallas kernel's hex branch, `hex_launches_phase3h` its
 launches in phase 3h and its queries, and its phase-2h times and bounds at
 d = 3 and (`_d2`) d = 2.  The `flash_attention_kernel` entry has its
@@ -184,9 +216,12 @@ JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import hashlib
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -200,6 +235,8 @@ import torch
 ROOT = Path(__file__).resolve().parent
 N_KERNEL = 1 << 22
 SEED = 12
+MULTI_P = 4             # phase 3's ranks (SimComm(4)); one rank process each in 3m
+PATH3 = (3, 8, 6, 8)    # phase 3's d, trees, New's level and the fractal's level
 EVAL_ROUTE_MANY = "eval_route P=8192"   # phase 2's eval_route past 4096 markers
 OWNER_RANK_MANY = "owner_rank P=8192"   # phase 2's owner_rank past 4096 markers
 # Device memory rate of one H100 SXM at its full 700 W limit (NVIDIA's H100
@@ -1056,16 +1093,16 @@ def tree0_face_tiles(fs) -> tuple[int, list]:
 
 def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
              report: bool = False, cmesh=None, tree_faces: int | None = None,
-             keep_unbalanced: bool = False) -> tuple[list, list, object, dict]:
+             keep_unbalanced: bool = False, comm=None) -> tuple[list, list, object, dict]:
     """New -> fractal Adapt -> coarsening Adapt (trees num_trees/2 and up)
     -> Partition -> weighted repartition -> [tree 0's faces refined to
-    level `tree_faces`] -> Balance -> Ghost -> validate on SimComm(P), over
-    `cmesh` when given.  With
-    `keep_unbalanced`, the forests Balance started from stay in
+    level `tree_faces`] -> Balance -> Ghost -> validate on `comm` (a world
+    of P ranks in this process; SimComm(P) by default), over `cmesh` when
+    given.  With `keep_unbalanced`, the forests Balance started from stay in
     facts["unbalanced"].  Returns (forests, ghosts, comm, facts)."""
     from repro_torch.core import forest as F
 
-    comm = F.SimComm(P)
+    comm = F.SimComm(P) if comm is None else comm
     facts = {"per_rank": {}, "wall_s": {}}
     t = time.perf_counter()
 
@@ -1128,7 +1165,7 @@ def main_path() -> tuple[dict, list, object, list]:
     """Phase 3: the full-size run on the card.  Returns (facts, with the
     forests Balance started from under "unbalanced"; the balanced forests;
     the communicator; their ghosts)."""
-    d, trees, level, max_level, P = 3, 8, 6, 8, 4
+    (d, trees, level, max_level), P = PATH3, MULTI_P
     half = trees // 2
     per_tree_fine = fractal_count(d, 1, level, max_level)
     per_tree_coarse = fractal_count(d, 1, level, max_level - 1)
@@ -1881,6 +1918,447 @@ def check_forest_phase_launches(counts: dict) -> None:
                 raise AssertionError(f"phase {phase} ({label}): a simplex body ran")
 
 
+# ------------------------------- 3m, 3r: rank processes and fault tolerance
+# Phase 3r(a)'s fault rates: the byte faults at the JAX package's rates
+# (tests/core/test_resilience.py) a delivered payload of Partition, Balance
+# and Ghost; the delay at 0.25 a collective (the JAX test's 0.05 would
+# delay none of phase 3's dozen collectives, on average less than one).
+CHAOS_RATES = dict(p_corrupt=0.2, p_truncate=0.1, p_duplicate=0.1, p_delay=0.25)
+CHAOS_PHASES = ("partition", "balance", "ghost")
+CRASH_AT = 3                # 3r(b): rank 3 dies at its 3rd Balance collective
+CRASH_DEADLINE_S = 6.0      # 3r(b): the survivors' wait budget a Balance collective
+RANK_TIMEOUT_S = 600.0      # DistComm's own timeout in the rank processes
+FLEET_WALL_S = 300.0        # run_ranks' wall clock for one fleet
+# A rank process: argv = [store port, rank, repository root, mode, device, ...].
+RANK_SCRIPT = ("import sys; sys.path.insert(0, sys.argv[3]); import chip_smoke; "
+               "sys.exit(chip_smoke.rank_main(sys.argv[1:]))")
+RESULT_TAG = "RANK_RESULT "
+
+
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def field_digests(fs: list, ghosts: list | None = None) -> list:
+    """Per rank, the SHA-256 of every forest field (and ghost field)."""
+    out = []
+    for r, f in enumerate(fs):
+        dg = {k: _sha(getattr(f, k)) for k in FOREST_FIELDS}
+        if ghosts is not None:
+            dg.update({f"ghost {k}": _sha(ghosts[r][k]) for k in GHOST_FIELDS})
+        out.append(dg)
+    return out
+
+
+def slice_digests(fs: list, counts: list) -> list:
+    """The SHA-256 of every forest field of the global sequence of `fs`
+    cut into runs of `counts` elements: what ranks holding those runs
+    would report."""
+    cat = {k: torch.cat([getattr(f, k) for f in fs]) for k in FOREST_FIELDS}
+    offs = np.cumsum([0, *counts])
+    return [{k: _sha(v[offs[r]:offs[r + 1]]) for k, v in cat.items()}
+            for r in range(len(counts))]
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        sync()
+
+
+def _timed(walls: dict, name: str, fn, device):
+    _sync(device)
+    t = time.perf_counter()
+    out = fn()
+    _sync(device)
+    walls[name] = time.perf_counter() - t
+    return out
+
+
+def leave_together(store, name: str, rank: int, size: int) -> None:
+    """Rank 0 hosts the store, so it leaves last: every rank checks out,
+    and rank 0 waits until all `size` have."""
+    n = store.add(name, 1)
+    t0 = time.monotonic()
+    while rank == 0 and n < size and time.monotonic() - t0 < RANK_TIMEOUT_S:
+        time.sleep(0.01)
+        n = store.add(name, 0)
+
+
+AT_REST_FIELDS = (("anchor", torch.int32), ("level", torch.int8), ("stype", torch.int8),
+                  ("tree", torch.int32))
+
+
+def gathered_validate(fs: list, gh: list, comm) -> bool | None:
+    """`validate` of the whole world, on rank 0: every rank sends its
+    elements at rest (18 B a tet: int32 anchor and tree, int8 level and
+    type) and its ghost fields to rank 0 in one alltoallv on `comm`; rank 0
+    encodes the keys anew (`replace_elements`) and validates.  Returns the
+    verdict on rank 0, None elsewhere."""
+    from repro_torch.core import forest as F
+
+    f, g = fs[0], gh[0]
+    mine = ([getattr(f, k).to(dt).cpu().numpy() for k, dt in AT_REST_FIELDS],
+            [g[k].cpu().numpy() for k in GHOST_FIELDS])
+    recv = comm.alltoallv([[mine if q == 0 else None for q in range(comm.size)]])[0]
+    if comm.rank != 0:
+        return None
+    dev = f.device
+    world, ghosts = [], []
+    for p, (fcols, gcols) in enumerate(recv):
+        world.append(dataclasses.replace(f.replace_elements(
+            *(torch.from_numpy(c).to(dev) for c in fcols)), rank=p))
+        ghosts.append({k: torch.from_numpy(c).to(dev) for k, c in zip(GHOST_FIELDS, gcols)})
+    return bool(F.validate(world, ghosts))
+
+
+def rank_pipeline(rank: int, device, d: int, trees: int, level: int, max_level: int) -> dict:
+    """Phase 3m, one rank: phase 3's path on this rank's share through
+    DistComm — New, the fractal, the coarsening, Partition and the weighted
+    repartition (`Forest.repartition`) on one instance, Balance and Ghost
+    overlapped on a second, validate of the gathered world on rank 0
+    through a fourth, then Balance and Ghost serialized on a third (they
+    must agree with the overlapped ones, bytes included).
+    Kernel launches are read after the validate; plain calls after
+    everything."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.comm import DistComm
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    pre, ov, ser, side = (DistComm(timeout_s=RANK_TIMEOUT_S, namespace=f"3m.{ns}.")
+                          for ns in ("pre", "ov", "ser", "side"))
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    walls: dict = {}
+    timed = functools.partial(_timed, walls, device=device)
+    fs = timed("new_uniform", lambda: F.new_uniform(d, trees, level, pre, device=device))
+    fs = timed("adapt fractal", lambda: [F.adapt(fs[0], fractal_cb(d, max_level), recursive=True)])
+    fs = timed("adapt coarsen", lambda: [F.adapt(fs[0], coarsen_upper_half_cb(trees, max_level))])
+    F.load_imbalance(fs, pre)
+    fs = timed("partition", lambda: F.partition(fs, pre))
+    F.load_imbalance(fs, pre)
+    w = level_weights(fs, max_level)
+    F.load_imbalance(fs, pre, weights=w)
+    fs = timed("repartition weighted", lambda: [fs[0].repartition(pre, weights=w[0])])
+    F.load_imbalance(fs, pre, weights=level_weights(fs, max_level))
+    bal = timed("balance", lambda: F.balance(fs, ov))
+    gh = timed("ghost", lambda: F.ghost(bal, ov))
+    ok = timed("validate (gathered on rank 0)", lambda: gathered_validate(bal, gh, side))
+    launches = dict(kops.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    bal_s = timed("balance serialized", lambda: F.balance(fs, ser, overlap=False))
+    gh_s = timed("ghost serialized", lambda: F.ghost(bal_s, ser, overlap=False))
+    same = (all(torch.equal(getattr(bal[0], k), getattr(bal_s[0], k)) for k in FOREST_FIELDS)
+            and all(torch.equal(gh[0][k], gh_s[0][k]) for k in GHOST_FIELDS))
+    res = {"rank": rank, "walls": walls, "digests": field_digests(bal, gh)[0],
+           "elements": bal[0].num_local, "ghosts": int(gh[0]["level"].shape[0]),
+           "bytes": {**{k: pre.bytes_for(k) for k in pre.counters},
+                     **{k: ov.bytes_for(k) for k in ov.counters}},
+           "launches": launches, "plain": dict(kref.call_counts), "peak_bytes": peak,
+           "overlap_equal": same, "digest_ov": ov.wire_digest(), "digest_ser": ser.wire_digest(),
+           "validate": ok}
+    leave_together(side.store, "3m.left", rank, side.size)
+    return res
+
+
+def rank_crash(rank: int, device, d: int, trees: int, level: int, max_level: int,
+               ckpt: str) -> None:
+    """Phase 3r(b), the world of four: phase 3's path to Balance through
+    `ChaosComm(DistComm)`, an `Autosaver` at balance:begin, then Balance
+    under a deadline; rank 3 hard-exits (code 2) at its CRASH_AT-th Balance
+    collective, and each survivor prints its `CommTimeoutError` and exits 3.
+    A Balance that finishes exits 4."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.comm import DistComm
+    from repro_torch.core.errors import CommTimeoutError
+    from repro_torch.core.resilience import Autosaver, ChaosComm
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    comm = DistComm(timeout_s=RANK_TIMEOUT_S, namespace="3r.crash.", beacon=True)
+    chaos = ChaosComm(comm, crash_at=CRASH_AT, crash_ranks=(3,), hard_exit=True,
+                      phases=("balance",))
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    fs = F.new_uniform(d, trees, level, chaos, device=device)
+    fs = [F.adapt(fs[0], fractal_cb(d, max_level), recursive=True)]
+    fs = [F.adapt(fs[0], coarsen_upper_half_cb(trees, max_level))]
+    fs = F.partition(fs, chaos)
+    fs = [fs[0].repartition(chaos, weights=level_weights(fs, max_level)[0])]
+    chaos.barrier()
+    marks: dict = {}
+    saver = Autosaver(ckpt, events=("balance:begin",))
+
+    def before(event, _fs, _comm):
+        if event == "balance:begin":
+            _sync(device)
+            marks["save"] = time.perf_counter()
+
+    def after(event, _fs, _comm):     # the deadline covers Balance's collectives
+        if event == "balance:begin":
+            _sync(device)
+            marks["balance"] = time.perf_counter()
+            chaos.set_deadline(CRASH_DEADLINE_S)
+
+    F.RESILIENCE_HOOKS.extend([before, saver, after])
+    try:
+        F.balance(fs, chaos)
+    except CommTimeoutError as e:
+        t = time.perf_counter()
+        res = {"rank": rank, "phase": e.phase, "seq": e.seq, "pending": e.pending,
+               "detail": e.detail, "detect_s": e.elapsed_s,
+               "save_s": marks["balance"] - marks["save"],
+               "balance_to_raise_s": t - marks["balance"], "saved_steps": saver.saved_steps,
+               "launches": dict(kops.launch_counts), "plain": dict(kref.call_counts)}
+        print(RESULT_TAG + json.dumps(res), flush=True)
+        leave_together(comm.store, "3r.crash.left", rank, MULTI_P - 1)
+        os._exit(3)
+    print(f"rank {rank}: balance finished", flush=True)
+    os._exit(4)
+
+
+def rank_recover(rank: int, device, ckpt: str) -> dict:
+    """Phase 3r(b), the fresh world of three: `recover` the checkpoint the
+    four saved, finish Balance and Ghost, validate the gathered world on
+    rank 0."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.comm import DistComm
+    from repro_torch.core.resilience import recover
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    comm, side = (DistComm(timeout_s=RANK_TIMEOUT_S, namespace=f"3r.rec.{ns}.")
+                  for ns in ("main", "side"))
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    walls: dict = {}
+    timed = functools.partial(_timed, walls, device=device)
+    fs = timed("recover", lambda: recover(ckpt, comm, device=device))
+    restored = fs[0].num_local
+    bal = timed("balance", lambda: F.balance(fs, comm))
+    gh = timed("ghost", lambda: F.ghost(bal, comm))
+    launches = dict(kops.launch_counts)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    ok = gathered_validate(bal, gh, side)
+    res = {"rank": rank, "walls": walls, "restored": restored, "count": bal[0].num_local,
+           "digests": field_digests(bal)[0], "launches": launches,
+           "plain": dict(kref.call_counts), "peak_bytes": peak, "validate": ok}
+    leave_together(side.store, "3r.rec.left", rank, side.size)
+    return res
+
+
+def rank_main(argv: list) -> int:
+    """A rank process of phases 3m and 3r, started by `run_ranks` with
+    RANK_SCRIPT: argv = [store port, rank, repository root, mode, device,
+    *mode's arguments].  Prints its result as one RANK_RESULT line."""
+    _port, rank, _root, mode, device, *rest = argv
+    if mode in ("3m", "3r-crash"):          # phase 3's path: d, trees, level, max_level
+        rest = [*map(int, rest[:4]), *rest[4:]]
+    run = {"3m": rank_pipeline, "3r-crash": rank_crash, "3r-recover": rank_recover}[mode]
+    res = run(int(rank), torch.device(device), *rest)
+    print(RESULT_TAG + json.dumps(res), flush=True)
+    return 0
+
+
+def rank_fleet(mode: str, P: int, device, *args, check: bool = True):
+    """Run `mode` in P rank processes on `device`; returns (run_ranks'
+    output, the fleet's wall)."""
+    from repro_torch.launch.multiproc import run_ranks
+
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    outs = run_ranks(RANK_SCRIPT, P, extra_args=(ROOT, mode, device.type, *args),
+                     timeout=FLEET_WALL_S, check=check)
+    return outs, time.perf_counter() - t
+
+
+def rank_result(out: str) -> dict:
+    lines = [ln for ln in out.splitlines() if ln.startswith(RESULT_TAG)]
+    if len(lines) != 1:
+        raise AssertionError(f"a rank printed {len(lines)} results: {out[-2000:]}")
+    return json.loads(lines[0][len(RESULT_TAG):])
+
+
+def summed(rows: list) -> dict:
+    """Each kernel's count summed over the ranks' dicts."""
+    return {k: sum(r[k] for r in rows) for k in rows[0]}
+
+
+def slowest(rows: list) -> dict:
+    return {k: max(r[k] for r in rows) for k in rows[0]}
+
+
+def store_rate(nbytes: int = 32 << 20) -> dict:
+    """The TCPStore's rate for one blob of `nbytes` (a Partition-sized
+    peer blob): two DistComms over a store on localhost in this process,
+    rank 0 posts it to rank 1, rank 1 fetches it; host clock, best of 3."""
+    from torch.distributed import TCPStore
+
+    from repro_torch.core.comm import DistComm
+    from repro_torch.launch.multiproc import free_port
+
+    port = free_port()
+    stores = [TCPStore("localhost", port, 2, is_master=r == 0, wait_for_workers=False)
+              for r in range(2)]
+    c = [DistComm(timeout_s=60, store=st, rank=r, size=2, namespace="rate.")
+         for r, st in enumerate(stores)]
+    blob = np.random.default_rng(SEED).integers(0, 255, nbytes, dtype=np.uint8)
+    best = {"post_s": math.inf, "fetch_s": math.inf}
+    for _ in range(3):
+        t = time.perf_counter()
+        h0 = c[0].ialltoallv([[None, blob]])
+        h1 = c[1].ialltoallv([[None, None]])
+        t1 = time.perf_counter()
+        got = h1.wait()[0][0]
+        t2 = time.perf_counter()
+        h0.wait()
+        if not np.array_equal(got, blob):
+            raise AssertionError("the store delivered other bytes")
+        best = {"post_s": min(best["post_s"], t1 - t), "fetch_s": min(best["fetch_s"], t2 - t1)}
+    del c, stores
+    out = {"bytes": nbytes, **best, "post_MBps": nbytes / best["post_s"] / 1e6,
+           "fetch_MBps": nbytes / best["fetch_s"] / 1e6}
+    print(f"  TCPStore on localhost, one {nbytes:,} B blob (1 MiB chunks): post {best['post_s']:.4f} s "
+          f"({out['post_MBps']:.0f} MB/s), fetch {best['fetch_s']:.4f} s ({out['fetch_MBps']:.0f} "
+          "MB/s); host clock, best of 3", flush=True)
+    return out
+
+
+def multi_process_path(ref: dict, path: tuple = PATH3, device=torch.device("cuda")) -> dict:
+    """Phase 3m: phase 3 as four rank processes on the card (`run_ranks`,
+    DistComm over a TCPStore on localhost; `rank_pipeline`).  Per rank,
+    every forest and ghost field's SHA-256 must equal phase 3's, and each
+    phase's bytes summed over the ranks phase 3's `SimComm(4)` counts;
+    overlapped and serialized Balance and Ghost must agree, wire digests
+    included; validate of the gathered world must hold; no plain version
+    may run in any rank."""
+    rate = store_rate()
+    outs, fleet = rank_fleet("3m", MULTI_P, device, *path)
+    res = [rank_result(out) for out, _err in outs]
+    for r, x in enumerate(res):
+        bad = [k for k in x["digests"] if x["digests"][k] != ref["digests"][r][k]]
+        if bad:
+            raise AssertionError(f"3m: rank {r}'s {bad} differ from phase 3's")
+        if not x["overlap_equal"] or x["digest_ov"] != x["digest_ser"]:
+            raise AssertionError(f"3m: rank {r}: overlapped and serialized Balance/Ghost differ")
+        if device.type == "cuda" and any(x["plain"].values()):
+            raise AssertionError(f"3m: rank {r} called plain versions {x['plain']}")
+    if res[0]["validate"] is not True:
+        raise AssertionError("3m: validate(forests, ghosts) of the gathered world is not True")
+    got_bytes = {k: sum(x["bytes"].get(k, 0) for x in res) for k in ref["bytes"]}
+    if got_bytes != ref["bytes"] or set().union(*(x["bytes"] for x in res)) != set(ref["bytes"]):
+        raise AssertionError(f"3m: bytes per phase {got_bytes} differ from phase 3's {ref['bytes']}")
+    walls = slowest([x["walls"] for x in res])
+    launches = summed([x["launches"] for x in res])
+    print(f"  four rank processes, one card, DistComm over a TCPStore: fleet wall {fleet:.3f} s "
+          "(process start, CUDA init and library load included)", flush=True)
+    for k, v in walls.items():
+        print(f"  {k:32s} {v:8.3f} s (slowest rank)"
+              + (f"; phase 3 on SimComm(4) {ref['walls'][k]:.3f} s" if k in ref["walls"] else ""),
+              flush=True)
+    print(f"  per rank: elements {[x['elements'] for x in res]}, ghosts {[x['ghosts'] for x in res]}"
+          f", peak device memory {[x['peak_bytes'] for x in res]} B (phase 3, all four in one "
+          f"process: {ref['peak_bytes']} B)", flush=True)
+    print(f"  every forest and ghost field's SHA-256 equal to phase 3's on every rank; bytes per "
+          f"phase summed over the ranks {got_bytes}, as phase 3's; overlapped == serialized with "
+          "equal wire digests on every rank; validate of the gathered world True", flush=True)
+    print(f"  kernel launches summed over the ranks {launches} (phase 3: {ref['launches']}); "
+          "plain calls 0 in every rank", flush=True)
+    return {"fleet_s": fleet, "walls_s": walls, "peak_bytes": [x["peak_bytes"] for x in res],
+            "launches": launches, "bytes": got_bytes, "store_rate": rate}
+
+
+def chaos_path(ref: dict, path: tuple = PATH3, device=torch.device("cuda")) -> dict:
+    """Phase 3r(a): phase 3's path at full size on `ChaosComm(SimComm(4))`
+    with seeded corruption, truncation, duplication and delay in Partition,
+    Balance and Ghost: every forest and ghost field and every phase's bytes
+    equal phase 3's, and every injected byte fault detected."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.resilience import ChaosComm
+
+    ch = ChaosComm(F.SimComm(MULTI_P), seed=SEED, phases=CHAOS_PHASES, **CHAOS_RATES)
+    t = time.perf_counter()
+    fs, gh, _comm, facts = run_path(*path, MULTI_P, device, comm=ch)
+    wall = time.perf_counter() - t
+    if field_digests(fs, gh) != ref["digests"]:
+        raise AssertionError("3r(a): a forest or ghost under byte faults differs from phase 3's")
+    if facts["bytes"] != ref["bytes"]:
+        raise AssertionError(f"3r(a): bytes {facts['bytes']} differ from phase 3's {ref['bytes']}")
+    fc = dict(ch.fault_counts)
+    injected = fc["corrupt"] + fc["truncate"] + fc["duplicate"]
+    if not injected or fc["detected"] != injected:
+        raise AssertionError(f"3r(a): fault counts {fc}")
+    print(f"  ChaosComm(SimComm(4), seed {SEED}, {CHAOS_RATES} in {CHAOS_PHASES}): wall "
+          f"{wall:.3f} s (phase 3: {sum(ref['walls'].values()):.3f} s); fault counts {fc}: "
+          f"{injected} byte faults, all detected; forests, ghosts and bytes as phase 3's",
+          flush=True)
+    return {"wall_s": wall, "fault_counts": fc}
+
+
+def kill_one_rank(path: tuple = PATH3, device=torch.device("cuda")) -> dict:
+    """Phase 3r(b): four rank processes run phase 3's path to Balance with
+    an Autosaver at balance:begin; rank 3 dies at its CRASH_AT-th Balance
+    collective; ranks 0-2 must each raise `CommTimeoutError` with phase
+    balance and pending [3] within the deadline.  A fresh world of three
+    then recovers the checkpoint (saved by four, restored onto three),
+    finishes Balance and Ghost, and must equal an in-process `SimComm(3)`
+    run of the same path on the card, element for element, with validate
+    of its gathered world True."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Path(tmp) / "autosave"
+        outs, crash_wall = rank_fleet("3r-crash", MULTI_P, device, *path, ckpt, check=False)
+        if outs[3][2] != 2:
+            raise AssertionError(f"3r(b): rank 3 exited {outs[3][2]}, want 2: {outs[3][1][-2000:]}")
+        surv = []
+        for r in range(3):
+            out, err, rc = outs[r]
+            if rc != 3:
+                raise AssertionError(f"3r(b): survivor {r} exited {rc}: {err[-3000:]}")
+            x = rank_result(out)
+            if x["phase"] != "balance" or x["pending"] != [3] or x["detect_s"] > CRASH_DEADLINE_S + 1:
+                raise AssertionError(f"3r(b): survivor {r}: {x}")
+            if device.type == "cuda" and any(x["plain"].values()):
+                raise AssertionError(f"3r(b): survivor {r} called plain versions {x['plain']}")
+            surv.append(x)
+        manifest = json.loads((ckpt / "step_0" / "manifest.json").read_text())
+        if manifest["meta"]["num_ranks"] != MULTI_P:
+            raise AssertionError(f"3r(b): the checkpoint was saved by {manifest['meta']['num_ranks']}")
+        outs, rec_wall = rank_fleet("3r-recover", 3, device, ckpt)
+    res = [rank_result(out) for out, _err in outs]
+    plain = device.type == "cuda" and any(any(x["plain"].values()) for x in res)
+    if plain or res[0]["validate"] is not True:
+        raise AssertionError(f"3r(b): plain calls or validate failed: {res}")
+    fs3, _gh3, _c3, _f3 = run_path(*path, 3, device)
+    counts = [x["count"] for x in res]
+    if sum(counts) != sum(f.num_local for f in fs3):
+        raise AssertionError(f"3r(b): {sum(counts)} elements after recovery, SimComm(3) "
+                             f"{sum(f.num_local for f in fs3)}")
+    want = slice_digests(fs3, counts)
+    for r, x in enumerate(res):
+        if x["digests"] != want[r]:
+            raise AssertionError(f"3r(b): rank {r}'s recovered world differs from SimComm(3)'s")
+    walls = slowest([x["walls"] for x in res])
+    print(f"  crash world: rank 3 exit 2; ranks 0-2 CommTimeoutError phase balance pending [3], "
+          f"detail {[x['detail'] for x in surv]}; time to detect {[round(x['detect_s'], 3) for x in surv]}"
+          f" s (deadline {CRASH_DEADLINE_S} s), Balance entry to raise "
+          f"{[round(x['balance_to_raise_s'], 3) for x in surv]} s; autosave at balance:begin "
+          f"{max(x['save_s'] for x in surv):.3f} s (slowest rank); fleet wall {crash_wall:.3f} s",
+          flush=True)
+    print(f"  recovery world of 3: restored {[x['restored'] for x in res]} elements per rank; "
+          f"walls (slowest rank) {({k: round(v, 3) for k, v in walls.items()})}; fleet wall "
+          f"{rec_wall:.3f} s; peak device memory {[x['peak_bytes'] for x in res]} B; balanced "
+          f"{counts} = SimComm(3)'s global sequence, element for element; validate True",
+          flush=True)
+    return {"crash_fleet_s": crash_wall, "recover_fleet_s": rec_wall,
+            "detect_s": [x["detect_s"] for x in surv], "save_s": max(x["save_s"] for x in surv),
+            "recover_walls_s": walls,
+            "launches": summed([x["launches"] for x in surv + res])}
+
+
 # ------------------------------------------------ 2a, 4 and 6: the LM path
 # The LM path's constants: phase 6 serves qwen3-1.7b at full width and
 # depth; the attention kernel's bound uses the H100 SXM's dense bf16/fp16
@@ -2367,6 +2845,8 @@ def main() -> int:
     print("== 3. main path at full size", flush=True)
     sizes, originals = record_launch_sizes(kops)
     (facts3, fs, comm, gh), launches, plain_calls, _cls = counted(kops, kref, main_path)
+    ref3 = {"digests": field_digests(fs, gh), "bytes": facts3["bytes"], "walls": facts3["wall_s"],
+            "peak_bytes": facts3["peak_bytes"], "launches": launches}
     runs = {"phase 3": {"unbalanced": facts3.pop("unbalanced"), "balanced": fs, "ghosts": gh,
                         "P": 4, "cmesh": None, "max_level": 8, "eclass": "simplex",
                         "bytes": {k: facts3["bytes"][k] for k in ("balance", "ghost")}}}
@@ -2406,6 +2886,16 @@ def main() -> int:
     for phase, counts_h in forest_phases(runs, kops, kref).items():
         forest_counts[phase] += counts_h
     del runs
+    torch.cuda.empty_cache()
+
+    print(f"== 3m. phase 3 as {MULTI_P} rank processes on the card (card {smi})", flush=True)
+    multi = multi_process_path(ref3)
+    print(f"== 3r. resilience on the card: (a) byte faults at full size (card {smi})", flush=True)
+    chaos, launches_ra, plain_calls_ra, _cls = counted(kops, kref, lambda: chaos_path(ref3))
+    torch.cuda.empty_cache()
+    print(f"== 3r. (b) kill rank 3 of {MULTI_P} mid-Balance, recover onto 3 (card {smi})",
+          flush=True)
+    killed = kill_one_rank()
     torch.cuda.empty_cache()
 
     print(f"== 3b. kernels at the sizes phases 3, 3c and 3d launched (card {smi})", flush=True)
@@ -2449,6 +2939,16 @@ def main() -> int:
         raise AssertionError(f"plain versions ran on the hex path: {plain_calls_h}, "
                              f"{plain_calls_hq}")
     check_forest_phase_launches(forest_counts)
+    path3 = [k for k in REPLACES if k not in ("tree_transform", *queries[1:])]
+    launches_r = {k: launches_ra[k] + killed["launches"][k] for k in REPLACES}
+    print(f"  kernel launches in phase 3m (summed over the ranks): {multi['launches']}; in 3r(a): "
+          f"{launches_ra}, plain calls {plain_calls_ra}; in 3r(b) (survivors and the recovery "
+          f"world): {killed['launches']}; no plain call in any rank process", flush=True)
+    for label, lc in (("3m", multi["launches"]), ("3r(a)", launches_ra), ("3r", launches_r)):
+        if not all(lc[k] > 0 for k in path3):
+            raise AssertionError(f"phase {label}: a kernel of phase 3's path was not launched: {lc}")
+    if any(plain_calls_ra.values()):
+        raise AssertionError(f"plain versions ran in phase 3r(a): {plain_calls_ra}")
     hybrid_face_sweeps(kops)
     prefills = {"6a": 1, "6b": len(REQUEST_LENGTHS), "6c": 2}     # 6c: prefill and forward
     layers = get_config(SERVE_ARCH).num_layers
@@ -2470,6 +2970,7 @@ def main() -> int:
             "launches_phase3d": launches_d[name],
             **{f"launches_phase{ph}": sum(row[1][name] for row in forest_counts[ph])
                for ph in ("3o", "3k", "3i")},
+            "launches_phase3m": multi["launches"][name], "launches_phase3r": launches_r[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "d": 3, "n": r["n"],
@@ -2506,6 +3007,9 @@ def main() -> int:
         "launches_phase6b": served["6b"][1]["flash_attention"],
         "launches_phase6c": served["6c"][1]["flash_attention"], **flash,
         "serve": {k: v[0] for k, v in served.items()}})
+    print(json.dumps({"runtime": {"3m": {k: v for k, v in multi.items() if k != "launches"},
+                                  "3r_faults": chaos,
+                                  "3r_kill": {k: v for k, v in killed.items() if k != "launches"}}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,7 +62,7 @@ import torch
 
 from .batch import BatchedOps, SweepHandle, count_dispatch, get_batch_ops, lex_search
 from .cmesh import Cmesh
-from .comm import Comm, CommHandle, LocalComm, SimComm
+from .comm import Comm, CommHandle, DistComm, LatencyComm, LocalComm, SimComm
 from .keys import span_exponent, span_mask
 from .ops import ElementOps, get_ops
 from .placement import target_ranks_np
@@ -75,6 +75,8 @@ __all__ = [
     "CommHandle",
     "SimComm",
     "LocalComm",
+    "LatencyComm",
+    "DistComm",
     "resolve_device",
     "new_uniform",
     "new_uniform_rank",
@@ -183,6 +185,18 @@ class Forest:
         if self.num_local == 0:
             return (self.num_trees, 0)
         return (int(self.tree[0]), int(self.keys[0]))
+
+    def repartition(self, comm: Comm, weights=None, overlap: bool = True) -> "Forest":
+        """The one-rank-a-process form of the module-level `repartition`
+        (under `DistComm`): migrate this rank's elements by the global weight
+        distribution and return the new local forest.  Under a hosting of
+        several ranks (`SimComm`) call the module-level form with all local
+        forests instead."""
+        if len(comm.local_ranks) != 1:
+            raise ValueError("Forest.repartition is the one-rank-a-process form; pass all "
+                             "local forests to forest.repartition under SimComm")
+        return repartition([self], comm, None if weights is None else [weights],
+                           overlap=overlap)[0]
 
 
 def _empty(d, num_trees, rank, num_ranks, device, cmesh=None) -> Forest:
@@ -494,6 +508,21 @@ def _adapt_impl(f: Forest, callback: AdaptCallback, recursive: bool,
     return f
 
 
+# --------------------------------------------------------- resilience hooks
+# Callables hook(event, forests, comm), fired on "<phase>:begin" and
+# "<phase>:end" around Partition / repartition and Balance.
+# `resilience.Autosaver` installs here to checkpoint the pre-phase state, so
+# a rank crash inside a collective always has a consistent snapshot behind
+# it.  Hooks fire OUTSIDE the phase's comm context: checkpoint traffic
+# meters under its own phase, never in balance/repartition's bytes.
+RESILIENCE_HOOKS: list = []
+
+
+def _fire_hooks(event: str, forests: list, comm: Comm) -> None:
+    for hook in list(RESILIENCE_HOOKS):
+        hook(event, forests, comm)
+
+
 # ---------------------------------------------------------------- partition
 def partition(forests: list[Forest], comm: Comm,
               weights: list | None = None, overlap: bool = True) -> list[Forest]:
@@ -505,6 +534,16 @@ def partition(forests: list[Forest], comm: Comm,
 
 def repartition(forests: list[Forest], comm: Comm, weights: list | None = None,
                 overlap: bool = True, _phase: str = "repartition") -> list[Forest]:
+    """Dynamic repartition with element migration (`_repartition_impl`);
+    fires the `RESILIENCE_HOOKS` begin/end events around it."""
+    _fire_hooks(f"{_phase}:begin", forests, comm)
+    out = _repartition_impl(forests, comm, weights, overlap, _phase)
+    _fire_hooks(f"{_phase}:end", out, comm)
+    return out
+
+
+def _repartition_impl(forests: list[Forest], comm: Comm, weights: list | None,
+                      overlap: bool, _phase: str) -> list[Forest]:
     """Dynamic repartition with element migration.
 
     Every rank derives the weighted Partition targets from the GLOBAL weight
@@ -920,15 +959,19 @@ class _Registry:
 
 def balance(forests: list[Forest], comm: Comm, max_rounds: int = 64,
             overlap: bool = True) -> list[Forest]:
-    """2:1 balance across faces (`_balance_impl`).  Over a mesh of two
+    """2:1 balance across faces (`_balance_impl`); fires the
+    `RESILIENCE_HOOKS` begin/end events around it.  Over a mesh of two
     element classes the ripple runs once per class, in ascending class
     order on every rank (the class groups are independent: a face between
     classes is a domain boundary), and each rank's results merge back into
     stored (tree, key) order."""
     if max_rounds < 1:
         raise ValueError("max_rounds must be >= 1")
-    return _forests_per_class(
+    _fire_hooks("balance:begin", forests, comm)
+    out = _forests_per_class(
         forests, lambda fs, ec: _balance_impl(fs, comm, max_rounds, overlap, ec))
+    _fire_hooks("balance:end", out, comm)
+    return out
 
 
 def _balance_impl(forests: list[Forest], comm: Comm, max_rounds: int, overlap: bool,

@@ -1,1 +1,2 @@
-"""Entry points of the LM family: the serving steps (`serve`)."""
+"""Entry points: the LM family's serving steps (`serve`), and the launcher
+of rank processes for `DistComm` runs (`multiproc`)."""

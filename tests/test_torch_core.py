@@ -233,7 +233,6 @@ CORE_OMISSIONS = {
     "get_backend": "no backend knob: a tensor's device picks kernel or plain version",
     "set_backend": "no backend knob",
     "use_backend": "no backend knob",
-    "DistComm": "the multi-process comm is not ported yet",
 }
 
 
@@ -270,7 +269,23 @@ def test_checkpoint_and_forest_export_the_reference_names():
     for name in ("iterate", "balance_oracle", "ghost_oracle"):
         assert name in tforest.__all__ and name in jforest.__all__
         assert callable(getattr(tforest, name))
-    assert set(jforest.__all__) - set(tforest.__all__) == {"LatencyComm", "DistComm"}
+    assert set(jforest.__all__) - set(tforest.__all__) == set()
+
+
+def test_resilience_and_errors_export_the_reference_names():
+    """`repro_torch.core.resilience` and `.errors` export exactly what the
+    JAX package's modules do, each name resolving, and `launch.multiproc`
+    what `repro.launch.multiproc` does."""
+    import repro.core.errors as jerrors
+    import repro.core.resilience as jres
+    import repro.launch.multiproc as jmp
+    import repro_torch.core.errors as terrors
+    import repro_torch.core.resilience as tres
+    import repro_torch.launch.multiproc as tmp
+
+    for t, j in ((tres, jres), (terrors, jerrors), (tmp, jmp)):
+        assert t.__all__ == j.__all__
+        assert all(hasattr(t, name) for name in t.__all__)
 
 
 def test_every_module_of_the_port_imports_first():
@@ -287,7 +302,8 @@ def test_every_module_of_the_port_imports_first():
             "repro_torch.core.batch", "repro_torch.core.forest", "repro_torch.kernels",
             "repro_torch.kernels.build", "repro_torch.kernels.ops", "repro_torch.kernels.ref",
             "repro_torch.convert", "repro_torch.launch.serve", "repro_torch.checkpoint",
-            "repro_torch.checkpoint.forest_io"]
+            "repro_torch.checkpoint.forest_io", "repro_torch.core.comm",
+            "repro_torch.core.resilience", "repro_torch.launch.multiproc"]
     code = f"""
 import importlib, sys
 for m in {mods!r}:

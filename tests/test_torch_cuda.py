@@ -800,3 +800,29 @@ def test_cuda_serving_matches_cpu():
         assert torch.equal(a, b)
     for a, b in zip(og, oc, strict=True):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_two_rank_processes_match_simcomm(tmp_path):
+    """Two rank processes on the card (`run_ranks`, DistComm over a
+    TCPStore) run the two-process pipeline at small size: equal to
+    `SimComm(2)` on the card, forests, ghosts and bytes, with every kernel
+    on the card."""
+    from repro_torch.launch.multiproc import run_ranks
+    from _torch_ranks import (PIPELINE_SCRIPT, assert_ranks_equal, corner_cb, load_ranks,
+                              summed_bytes)
+
+    dev = _card()
+    run_ranks(PIPELINE_SCRIPT, 2, extra_args=(tmp_path, "cuda"), timeout=300.0)
+    arrays, facts = load_ranks(tmp_path, 2)
+    assert [f["device"] for f in facts] == ["cuda", "cuda"]
+    sim = TF.SimComm(2)
+    fs = TF.new_uniform(2, 2, 2, sim, device=dev)
+    fs = [TF.adapt(f, corner_cb(), recursive=True) for f in fs]
+    fs = TF.balance(fs, sim)
+    gh = TF.ghost(fs, sim)
+    n = TF.count_global(fs, sim)
+    fs = TF.partition(fs, sim)
+    assert TF.count_global(fs, sim) == n == facts[0]["n_global"]
+    assert_ranks_equal(arrays, fs, gh)
+    assert summed_bytes(facts) == {k: sim.bytes_for(k) for k in sim.counters}
