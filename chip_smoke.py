@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --marker-sweep   # phase 1, the launch cost, 2 and 2h's P sweeps, 3, 3p
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
@@ -24,8 +25,7 @@ Phases, in the order they run; any failure exits nonzero:
      face_neighbor and tree_transform half the elements anywhere in the
      root cube, outside the root simplex, face_neighbor over every (type,
      face) pair; for eval_route and owner_rank P = 4 markers with an empty
-     rank, and again P = 8192, past the 4096 the kernels keep in shared
-     memory; for successor element 0 and the last element of every level,
+     rank; for successor element 0 and the last element of every level,
      which wraps to element 0, and, untimed (they mix its constant-time
      branch and its walk), N more of eight kinds: carries stopping at every
      level 1..L, elements outside the root, levels 0 and L, and anchors
@@ -37,13 +37,21 @@ Phases, in the order they run; any failure exits nonzero:
      loop of calls, the kernel's device time per launch by CUDA events
      around launches queued behind a spinning kernel (no host time), and
      the byte bound (bytes moved / 3.35 TB/s, the H100 SXM's device memory
-     rate);
+     rate); then eval_route and owner_rank on the same queries against P
+     = 4, 16, 64, 256, 1024, 4096, 4097, 8192, 32768 and 131072 random
+     lex-sorted markers over trees 0..3 with one empty rank and a trailing
+     sentinel (the P sweep of the one O(log P) search): each output's
+     brackets (marker r <= query < marker r + 1, lex), every output equal
+     to the plain version up to P = 1024 and a seeded sample of 2^18
+     elements past it, the empty rank owning nothing; the device time and
+     bound of each; and the host time a launch of both on 4096 queries
+     (P = 4 and 131,072), what a caller pays where inputs are small;
   2h. the hex bodies of the ten kernels that have one (owner_rank's body
      is one for both classes) against their plain versions the same way:
      hexes of every level with h-aligned anchors, half of them anywhere in
      [-2^L, 2^L)^d, twice the root cube; face_neighbor over all 2d faces;
      successor of element 0 and of every level's last element; eval_route
-     over nf = 2d face planes at P = 4 with an empty rank and at P = 8192;
+     over nf = 2d face planes at P = 4 with an empty rank, and its P sweep;
      tree_transform across every glued face of a periodic hex brick and
      rows with a permuted and reflected axis; no type column counted in
      the bytes of a body that does not read it;
@@ -82,6 +90,18 @@ Phases, in the order they run; any failure exits nonzero:
      face_sweep(s); each query's wall time on the host clock; then, outside
      the counted run, face_neighbor of the largest rank's leaves, every
      face, against its plain version (face_sweep shares its per-face step);
+  3p. (after 3c) owner_rank and eval_route on the queries a real forest
+     asks: phase 3's 21,676,544 balanced leaves in SFC order and their face
+     sweep (86.7 M pairs), against an equal-count split of the leaves into
+     P = 4, 64, 1024, 8192 and 131072 parts (marker r the leaf floor(r n /
+     P)), through `BatchedOps.owner_rank` and `BatchedOps.eval_route` on
+     each rank's resident sweep: every leaf's owner is its part; brackets
+     hold on every leaf and every routed pair; the rows number the valid
+     pairs less those wholly in the calling part; exact against the plain
+     versions on 2^18 sampled leaves; one launch over all leaves timed
+     against its bound; beside it, as a yardstick only, torch.searchsorted
+     over the same keys with all markers in one tree (and the owner_rank
+     kernel on that problem, equal to it);
   3c. the coarse-mesh path at full size: the 48 trees of
      cmesh_brick(3, (2, 2, 2), periodic=(True, True, False)) (176 of 192
      tree faces glued) on SimComm(4): New at level 5 (1,572,864 tets), the
@@ -193,6 +213,12 @@ Phases, in the order they run; any failure exits nonzero:
      flash_attention launched once a layer a prefill (6c: the prefill and
      forward) and no plain version called.
 
+With `--marker-sweep` the script runs phase 1, the launch cost and the P
+sweeps of 2 and 2h, 3 and 3p, and prints their rows as one JSON line: run
+from a checkout of another commit (this file copied in), it measures that
+commit's design with the same code, for a before/after table of the owner
+search (a later redesign of it measures its parent so).
+
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
 line, `launches_phase3`, `launches_phase3c` and `launches_phase3d` are
@@ -201,7 +227,11 @@ first of phases 3, 3c and 3d that runs it: phase 3 for the eight kernels
 of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
 `successor` and `face_neighbor`; `launches_phase3o`, `_phase3k` and
 `_phase3i` are its launches in those phases, summed over the forests they
-ran on; `launches_phase3m` its launches in 3m summed over the four rank
+ran on; for eval_route and owner_rank, `sweep_device_ms` (and `_d2`,
+`hex_sweep_device_ms`) map each P of the sweep to its device time, beside
+`sweep_bound_ms`, `phase3p_device_ms` each P of phase 3p, and
+`host_us_a_launch` the launch cost;
+`launches_phase3m` its launches in 3m summed over the four rank
 processes, and `launches_phase3r` those of 3r(a) and 3r(b) together.  A
 JSON `runtime` line before it has 3m's and 3r's walls, memory, bytes,
 fault counts and the store's rate.  The `hex_*` keys are the hex body's:
@@ -237,8 +267,21 @@ N_KERNEL = 1 << 22
 SEED = 12
 MULTI_P = 4             # phase 3's ranks (SimComm(4)); one rank process each in 3m
 PATH3 = (3, 8, 6, 8)    # phase 3's d, trees, New's level and the fractal's level
-EVAL_ROUTE_MANY = "eval_route P=8192"   # phase 2's eval_route past 4096 markers
-OWNER_RANK_MANY = "owner_rank P=8192"   # phase 2's owner_rank past 4096 markers
+# Phases 2 and 2h: eval_route and owner_rank against P markers, for each P here;
+# up to SWEEP_ALL_CHECKED markers every output is held against the plain
+# version, past it a seeded sample of SAMPLE elements (the plain
+# compare-and-count costs O(N P)), and every output by its bracketing markers.
+MARKER_SWEEP = (4, 16, 64, 256, 1024, 4096, 4097, 8192, 32768, 131072)
+SWEEP_ALL_CHECKED = 1024
+SAMPLE = 1 << 18
+MIN_OWNER_SHARE = 0.9   # of the P - 2 ranks that can own (not the empty rank, not the sentinel)
+# Phase 3p: equal-count splits of phase 3's balanced leaves into P parts.
+SPLIT_MARKERS = (4, 64, 1024, 8192, 131072)
+# Host cost a launch of owner_rank and eval_route on a small input (a rank's
+# share of a small Ghost or Balance): LAUNCH_COST_N queries, calls timed in
+# rounds of LAUNCH_COST_REPS on the host's clock.
+LAUNCH_COST_N = 4096
+LAUNCH_COST_REPS = 200
 # Device memory rate of one H100 SXM at its full 700 W limit (NVIDIA's H100
 # data sheet).  The bound of every kernel here is bytes over this rate.
 MEM_BYTES_PER_S = 3.35e12
@@ -365,10 +408,9 @@ def route_markers(d: int, device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def many_markers(d: int, P: int, device) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """P lex-sorted markers over trees 0..3, more than eval_route keeps in
-    shared memory, with one empty rank (its marker repeats the next
-    rank's) and a trailing (4, 0) sentinel; returns (tree, key, the empty
-    rank)."""
+    """P >= 4 lex-sorted random markers over trees 0..3 with one empty rank
+    (its marker repeats the next rank's) and a trailing (4, 0) sentinel;
+    returns (tree, key, the empty rank)."""
     from repro_torch.core.tables import MAXLEVEL
 
     rng = np.random.default_rng(SEED + 100 * d)
@@ -376,7 +418,7 @@ def many_markers(d: int, P: int, device) -> tuple[torch.Tensor, torch.Tensor, in
     mk = rng.integers(0, 1 << (d * MAXLEVEL[d]), P, dtype=np.uint64).astype(np.int64)
     order = np.lexsort((mk, mt))
     mt, mk = mt[order], mk[order]
-    empty = P // 2
+    empty = min(P // 2, P - 3)
     mt[empty], mk[empty] = mt[empty + 1], mk[empty + 1]
     mt[-1], mk[-1] = 4, 0
     return torch.from_numpy(mt).to(device), torch.from_numpy(mk).to(device), empty
@@ -442,7 +484,6 @@ def kernel_cases(d: int, n: int, device) -> dict:
     nb_anchor, nb_stype, nb_dual, _in, nkey = kref.face_sweep(c_anchor, level, c_stype)
     tgt = torch.randint(0, 4, nkey.shape, generator=gen, device=device, dtype=torch.int32)
     mt, mk = route_markers(d, device)
-    mt8, mk8, _empty = many_markers(d, 8192, device)
     # tree_transform crosses same-level neighbors, which lie just outside the
     # root (anchors below 0 or past 2^L): one random face's neighbor of each
     # element, across a random connection
@@ -478,14 +519,8 @@ def kernel_cases(d: int, n: int, device) -> dict:
                                                        table),
                            lambda: kref.tree_transform(conn, x_anchor, level, x_stype, x_dual,
                                                        table)),
-        EVAL_ROUTE_MANY: ((tgt, nkey, level, mt8, mk8),
-                          lambda: kops.eval_route(d, tgt, nkey, level, mt8, mk8),
-                          lambda: kref.eval_route(d, tgt, nkey, level, mt8, mk8)),
         "owner_rank": ((o_tree, key, mt, mk), lambda: kops.owner_rank(o_tree, key, mt, mk),
                        lambda: kref.owner_rank(o_tree, key, mt, mk)),
-        OWNER_RANK_MANY: ((o_tree, key, mt8, mk8),
-                          lambda: kops.owner_rank(o_tree, key, mt8, mk8),
-                          lambda: kref.owner_rank(o_tree, key, mt8, mk8)),
         "successor": ((s_anchor, level, s_stype),
                       lambda: kops.successor(s_anchor, level, s_stype),
                       lambda: kref.successor(s_anchor, level, s_stype)),
@@ -642,7 +677,6 @@ def hex_kernel_cases(d: int, n: int, device) -> dict:
     nb_anchor, _nb_type, nb_dual, _in, nkey = kref.face_sweep(c_anchor, level, zero, H)
     tgt = torch.randint(0, 4, nkey.shape, generator=gen, device=device, dtype=torch.int32)
     mt, mk = route_markers(d, device)
-    mt8, mk8, _empty = many_markers(d, 8192, device)
     table, _M, _c = hex_transform_connections(d, device)
     conn = torch.randint(0, table.shape[0], (n,), generator=gen, device=device, dtype=torch.int32)
     face = torch.randint(0, 2 * d, (n,), generator=gen, device=device)
@@ -671,9 +705,6 @@ def hex_kernel_cases(d: int, n: int, device) -> dict:
                                                        table, H),
                            lambda: kref.tree_transform(conn, x_anchor, level, zero, x_dual,
                                                        table, H)),
-        EVAL_ROUTE_MANY: ((tgt, nkey, level, mt8, mk8),
-                          lambda: kops.eval_route(d, tgt, nkey, level, mt8, mk8),
-                          lambda: kref.eval_route(d, tgt, nkey, level, mt8, mk8)),
         "successor": ((s_anchor, level), lambda: kops.successor(s_anchor, level, zero, H),
                       lambda: kref.successor(s_anchor, level, zero, H)),
         "face_neighbor": ((c_anchor, level, face),
@@ -706,9 +737,7 @@ def timing_row(name: str, d: int, n: int, inputs, got, kernel, plain, err: int, 
     the outputs it writes; printed and returned as a row."""
     ms = cuda_ms(kernel, reps)
     dev_ms = device_ms(kernel)
-    # the plain compare-and-count over 8192 markers takes seconds a call
-    many = name in (EVAL_ROUTE_MANY, OWNER_RANK_MANY)
-    plain_ms = cuda_ms(plain, 1 if many else plain_reps)
+    plain_ms = cuda_ms(plain, plain_reps)
     moved = nbytes(*inputs) + nbytes(*got)
     bound_ms = moved / MEM_BYTES_PER_S * 1e3
     print(f"  {tag}{name:13s} d={d} n={n}: kernel == plain (tolerance 0); kernel {ms:.4f} ms "
@@ -719,10 +748,273 @@ def timing_row(name: str, d: int, n: int, inputs, got, kernel, plain, err: int, 
             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bytes": moved}
 
 
+def lex_le(ta, ka, tb, kb) -> torch.Tensor:
+    """(ta, ka) lex-<= (tb, kb), elementwise."""
+    return (ta < tb) | ((ta == tb) & (ka <= kb))
+
+
+def brackets_hold(rank: torch.Tensor, t: torch.Tensor, k: torch.Tensor, mt: torch.Tensor,
+                  mk: torch.Tensor) -> torch.Tensor:
+    """Whether each rank r of the lex (t, k) is bracketed by the P sorted
+    markers, all lex: for r > 0, marker r <= (t, k), and r + 1 = P or
+    (t, k) < marker r + 1; for r = 0, P = 1 or (t, k) < marker 1 (a count of
+    0 or 1, which the clamp merges).  Torch gathers, elementwise."""
+    P = mt.shape[0]
+    r = rank.long()
+    above = r > 0
+    nxt = (r + 1).clamp(max=P - 1)
+    lo = ~above | lex_le(mt[r], mk[r], t, k)
+    hi = (r + 1 >= P) | ~lex_le(mt[nxt], mk[nxt], t, k)
+    return lo & hi & (r >= 0) & (r < P)
+
+
+def sample_columns(n: int, device, seed: int) -> torch.Tensor:
+    """SAMPLE sorted element indices of n, seeded (all of them if n is smaller)."""
+    if n <= SAMPLE:
+        return torch.arange(n, device=device)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(seed)
+    return torch.randperm(n, generator=gen)[:SAMPLE].sort().values.to(device)
+
+
+def sweep_row(name: str, d: int, P: int, inputs, tag: str = "") -> dict:
+    """One point of the P sweep of phases 2 and 2h: `name` (eval_route or
+    owner_rank) on phase 2's queries against P markers from `many_markers`;
+    exact against the plain version on every output up to SWEEP_ALL_CHECKED
+    markers and on a sample of SAMPLE elements past it, every output's
+    brackets, the empty rank owning nothing; its device time against the
+    byte bound."""
+    from repro_torch.core.keys import span_mask
+    from repro_torch.core.tables import MAXLEVEL
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    dev = inputs[0].device
+    mt, mk, empty = many_markers(d, P, dev)
+    if name == "eval_route":
+        tgt, nkey, level = inputs[:3]
+        args = (tgt, nkey, level, mt, mk)
+        kernel = lambda: kops.eval_route(d, *args)            # noqa: E731
+        n = level.shape[0]
+        got = kernel()
+        sync()
+        kend = nkey | span_mask(d, MAXLEVEL[d], level)[None, :]
+        ok = (torch.equal(got[0], kend) and bool(brackets_hold(got[1], tgt, nkey, mt, mk).all())
+              and bool(brackets_hold(got[2], tgt, kend, mt, mk).all()))
+        idx = torch.arange(n, device=dev) if P <= SWEEP_ALL_CHECKED else sample_columns(n, dev, P)
+        want = kref.eval_route(d, tgt[:, idx].contiguous(), nkey[:, idx].contiguous(),
+                               level[idx].contiguous(), mt, mk)
+        pick = lambda x: x[:, idx]                            # noqa: E731
+    else:
+        tree, key = inputs[:2]
+        args = (tree, key, mt, mk)
+        kernel = lambda: kops.owner_rank(*args)                # noqa: E731
+        n = key.shape[0]
+        got = (kernel(),)
+        sync()
+        ok = bool(brackets_hold(got[0], tree, key, mt, mk).all())
+        idx = torch.arange(n, device=dev) if P <= SWEEP_ALL_CHECKED else sample_columns(n, dev, P)
+        want = (kref.owner_rank(tree[idx].contiguous(), key[idx].contiguous(), mt, mk),)
+        pick = lambda x: x[idx]                               # noqa: E731
+    err = max(int((pick(g).long() - w.long()).abs().max()) for g, w in zip(got, want, strict=True))
+    owners = torch.unique(torch.cat([g.flatten() for g in got if g.dtype == torch.int32]))
+    if not ok or err or bool((owners == empty).any()) or owners.numel() < MIN_OWNER_SHARE * (P - 2):
+        raise AssertionError(f"{tag}{name} d={d} P={P}: brackets hold {ok}, max |err| {err} "
+                             f"against the plain version, {owners.numel()} owners, empty rank "
+                             f"{empty} among them {bool((owners == empty).any())}")
+    dev_ms = device_ms(kernel)
+    moved = nbytes(*args) + nbytes(*got)
+    bound_ms = moved / MEM_BYTES_PER_S * 1e3
+    checked = "every output" if P <= SWEEP_ALL_CHECKED else f"{idx.numel()} sampled elements"
+    print(f"  {tag}{name:10s} d={d} P={P:>6}: device {dev_ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({moved} B), bound/device {bound_ms / dev_ms:.1%}; "
+          f"== plain on {checked}, brackets hold on all {got[-1].numel():,} outputs, "
+          f"{owners.numel()} owners, empty rank {empty} not among them", flush=True)
+    return {"name": name, "body": tag.strip() or "simplex", "d": d, "P": P, "n": n,
+            "device_ms": dev_ms, "bound_ms": bound_ms, "bytes": moved, "max_abs_err": float(err),
+            "checked": checked}
+
+
+def marker_sweep(d: int, cases: dict, tag: str = "") -> list[dict]:
+    """The P sweep of phase 2 (eval_route and owner_rank) or 2h (`tag`
+    "hex ": eval_route over 2d planes) on the phase's own queries."""
+    names = ("eval_route",) if tag else ("eval_route", "owner_rank")
+    rows = [sweep_row(name, d, P, cases[name][0], tag) for name in names for P in MARKER_SWEEP]
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_cost(device) -> list[dict]:
+    """The host time a launch of owner_rank and of eval_route (d = 3, 2)
+    on LAUNCH_COST_N random queries against P = 4 and 131,072 markers, what
+    a caller pays a launch where inputs are small: the median over 5 rounds
+    of LAUNCH_COST_REPS calls enqueued back to back, on the host's clock
+    (`enqueue`), and of the same rounds up to the card's end (`wall`)."""
+    from repro_torch.core.tables import MAXLEVEL
+    from repro_torch.kernels import ops as kops
+
+    rows = []
+    rng = np.random.default_rng(SEED)
+    n = LAUNCH_COST_N
+    for d in (3, 2):
+        top = 1 << (d * MAXLEVEL[d])
+        on = lambda x: torch.from_numpy(x).to(device)         # noqa: E731
+        tree = on(rng.integers(0, 4, n, dtype=np.int32))
+        tgt = on(rng.integers(0, 4, (d + 1, n), dtype=np.int32))
+        key = on(rng.integers(0, top, n, dtype=np.uint64).astype(np.int64))
+        nkey = on(rng.integers(0, top, (d + 1, n), dtype=np.uint64).astype(np.int64))
+        level = torch.full((n,), MAXLEVEL[d], dtype=torch.int32, device=device)
+        for P in (4, 131072):
+            mt, mk, _empty = many_markers(d, P, device)
+            calls = {"eval_route": lambda: kops.eval_route(d, tgt, nkey, level, mt, mk)}
+            if d == 3:
+                calls["owner_rank"] = lambda: kops.owner_rank(tree, key, mt, mk)
+            for name, call in calls.items():
+                call()
+                sync()
+                enq, wall = [], []
+                for _ in range(5):
+                    t0 = time.perf_counter()
+                    for _ in range(LAUNCH_COST_REPS):
+                        call()
+                    t1 = time.perf_counter()
+                    sync()
+                    t2 = time.perf_counter()
+                    enq.append((t1 - t0) / LAUNCH_COST_REPS * 1e6)
+                    wall.append((t2 - t0) / LAUNCH_COST_REPS * 1e6)
+                row = {"name": name, "d": d, "P": P, "n": n,
+                       "enqueue_us": float(np.median(enq)), "wall_us": float(np.median(wall))}
+                rows.append(row)
+                print(f"  launch cost {name:10s} d={d} P={P:>6} n={n}: host {row['enqueue_us']:.2f} "
+                      f"us a call enqueued, {row['wall_us']:.2f} us a call to the card's end "
+                      f"(median of 5 x {LAUNCH_COST_REPS})", flush=True)
+    return rows
+
+
+def split_markers(tree: torch.Tensor, key: torch.Tensor, P: int):
+    """An equal-count split of n lex-sorted leaves into P parts, as a P-rank
+    Partition gives it: marker r is the (tree, key) of leaf floor(r n / P).
+    Returns (marker tree, marker key, the first leaf of each part)."""
+    cut = torch.arange(P, device=tree.device, dtype=torch.int64) * tree.shape[0] // P
+    return tree[cut].contiguous(), key[cut].contiguous(), cut
+
+
+def split_owner(cut: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
+    """The part of an equal-count split that holds leaf j."""
+    return torch.searchsorted(cut, j, right=True) - 1
+
+
+def real_queries(fs: list) -> list[dict]:
+    """Phase 3p: owner_rank and eval_route on the queries a real forest asks,
+    phase 3's balanced leaves (in SFC order) and their face sweep, against
+    equal-count splits of those leaves into P parts, P in SPLIT_MARKERS,
+    through the `BatchedOps` methods Ghost and Balance call.  For each P:
+    every leaf's owner is its part, and its bracket holds; eval_route
+    through `BatchedOps.eval_route` on each rank's resident sweep (the
+    handle Balance's eval stage builds), with g the part of the rank's
+    first leaf: every returned row's first and last owners are bracketed,
+    none is (g, g), and the rows number the valid pairs less those wholly
+    inside part g; exact against the plain versions on SAMPLE sampled
+    leaves; the device time of one launch over all leaves (and, for
+    eval_route, their face pairs) against the byte bound; beside it, as a
+    yardstick only, torch.searchsorted over the same keys with all the
+    markers in one tree, and the owner_rank kernel on that same problem."""
+    from repro_torch.core import forest as F
+    from repro_torch.core.keys import span_mask
+    from repro_torch.core.tables import MAXLEVEL
+    from repro_torch.kernels import ops as kops, ref as kref
+
+    b, d, dev = fs[0].bops, fs[0].d, fs[0].device
+    L = MAXLEVEL[d]
+    tree = torch.cat([f.tree for f in fs]).contiguous()
+    key = torch.cat([f.keys for f in fs]).contiguous()
+    n = tree.shape[0]
+    handles = [F._resident_sweep(f, b) for f in fs]
+    tgt = torch.cat([h.tgt for h in handles], 1).contiguous()
+    nkey = torch.cat([h.key for h in handles], 1).contiguous()
+    level = torch.cat([h.level for h in handles]).contiguous()
+    starts = np.cumsum([0] + [f.num_local for f in fs[:-1]])
+    idx = sample_columns(n, dev, SEED)
+    zeros = torch.zeros_like(tree)
+    leaf = torch.arange(n, device=dev)
+    rows = []
+    for P in SPLIT_MARKERS:
+        mt, mk, cut = split_markers(tree, key, P)
+        mt_h, mk_h = mt.cpu().numpy(), mk.cpu().numpy().astype(np.uint64)
+        # owner_rank: every leaf's owner is its part
+        own = b.owner_rank(tree, key, mt, mk)
+        if not (torch.equal(own.long(), split_owner(cut, leaf))
+                and bool(brackets_hold(own, tree, key, mt, mk).all())
+                and torch.equal(own[idx], kref.owner_rank(tree[idx], key[idx], mt, mk))):
+            raise AssertionError(f"3p P={P}: owner_rank misplaces a leaf")
+        # eval_route through BatchedOps on each rank's resident sweep
+        routed = 0
+        for f, h, s0 in zip(fs, handles, starts, strict=True):
+            g = int(split_owner(cut, torch.tensor([int(s0)], device=dev))[0])
+            rp = b.eval_route(h, mt_h, mk_h, g)
+            rt, rk, rl, rf, rla = (torch.as_tensor(x, device=dev) for x in (
+                rp.tree, rp.key.astype(np.int64), rp.level, rp.first, rp.last))
+            rke = rk | span_mask(d, L, rl)
+            if not (bool(brackets_hold(rf, rt, rk, mt, mk).all())
+                    and bool(brackets_hold(rla, rt, rke, mt, mk).all())
+                    and not bool(((rf == g) & (rla == g)).any())):
+                raise AssertionError(f"3p P={P}: a routed pair of rank {f.rank} is misplaced")
+            hke = h.key | span_mask(d, L, h.level)[None, :]
+            inside = h.valid & ((g == 0) | lex_le(mt[g], mk[g], h.tgt, h.key))
+            if g + 1 < P:
+                inside &= ~lex_le(mt[g + 1], mk[g + 1], h.tgt, hke)
+            if rt.shape[0] != int(h.valid.sum()) - int(inside.sum()):
+                raise AssertionError(f"3p P={P}: rank {f.rank} routed {rt.shape[0]} pairs")
+            routed += rt.shape[0]
+            del rt, rk, rl, rf, rla, rke, hke, inside, rp
+        # the kernels' device time over all leaves, and a sample against the plain version
+        got = kops.eval_route(d, tgt, nkey, level, mt, mk)
+        kend = nkey | span_mask(d, L, level)[None, :]
+        want = kref.eval_route(d, tgt[:, idx].contiguous(), nkey[:, idx].contiguous(),
+                               level[idx].contiguous(), mt, mk)
+        if not (torch.equal(got[0], kend) and bool(brackets_hold(got[1], tgt, nkey, mt, mk).all())
+                and bool(brackets_hold(got[2], tgt, kend, mt, mk).all())
+                and all(torch.equal(g_[:, idx], w) for g_, w in zip(got, want, strict=True))):
+            raise AssertionError(f"3p P={P}: eval_route over all pairs differs")
+        for name, args, outs in (
+                ("owner_rank", (tree, key, mt, mk), (own,)),
+                ("eval_route", (tgt, nkey, level, mt, mk), got)):
+            call = (lambda a=args: kops.owner_rank(*a)) if name == "owner_rank" else \
+                (lambda a=args: kops.eval_route(d, *a))
+            ms = device_ms(call)
+            moved = nbytes(*args) + nbytes(*outs)
+            bound = moved / MEM_BYTES_PER_S * 1e3
+            rows.append({"name": name, "P": P, "n": n, "device_ms": ms, "bound_ms": bound,
+                         "bytes": moved})
+            print(f"  3p {name:10s} P={P:>6} over {n:,} leaves"
+                  + (f" ({got[0].numel():,} face pairs, {routed:,} routed)"
+                     if name == "eval_route" else "")
+                  + f": device {ms:.4f} ms, bound {bound:.4f} ms, bound/device {bound / ms:.1%}",
+                  flush=True)
+        del got, kend, want
+        # the yardstick: all markers in one tree
+        mk1, mt1 = mk.sort().values, torch.zeros_like(mt)
+        yard = torch.searchsorted(mk1, key, right=True)
+        one = kops.owner_rank(zeros, key, mt1, mk1)
+        if not torch.equal(one.long(), (yard - 1).clamp(min=0)):
+            raise AssertionError(f"3p P={P}: owner_rank in one tree differs from searchsorted")
+        ys_ms = device_ms(lambda: torch.searchsorted(mk1, key, right=True))
+        one_ms = device_ms(lambda: kops.owner_rank(zeros, key, mt1, mk1))
+        rows[-2].update({"one_tree_device_ms": one_ms, "searchsorted_ms": ys_ms})
+        print(f"  3p yardstick P={P:>6}, one tree: torch.searchsorted {ys_ms:.4f} ms, owner_rank "
+              f"kernel {one_ms:.4f} ms on the same problem (== searchsorted - 1, clamped)",
+              flush=True)
+        del own, yard, one
+    print(f"  3p: every leaf's owner is its part, brackets hold on every leaf and routed pair, "
+          f"== plain on {idx.numel()} sampled leaves, at P = {SPLIT_MARKERS}", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def hex_kernel_vs_plain(d: int, n: int, device, reps: int = 50,
-                        plain_reps: int = 5) -> list[dict]:
-    """Phase 2, hex bodies, for one dimension: each against its plain
-    version on the same tensors, exact; returns one timing row per kernel."""
+                        plain_reps: int = 5) -> tuple[list[dict], list[dict]]:
+    """Phase 2h for one dimension: each hex body against its plain version
+    on the same tensors, exact; returns one timing row per kernel, and the
+    rows of eval_route's P sweep."""
     from repro_torch.core.tables import MAXLEVEL
 
     L = MAXLEVEL[d]
@@ -753,12 +1045,6 @@ def hex_kernel_vs_plain(d: int, n: int, device, reps: int = 50,
                 raise AssertionError(f"hex eval_route d={d}: owners {owners}, "
                                      f"{want[0].shape[0]} planes")
             cover = f"; nf = {2 * d} planes, owners {owners} (rank 1 empty)"
-        elif name == EVAL_ROUTE_MANY:
-            owners = torch.unique(torch.cat([w.flatten() for w in want if w.dtype == torch.int32]))
-            empty = many_markers(d, 8192, "cpu")[2]
-            if owners.numel() < 1000 or bool((owners == empty).any()):
-                raise AssertionError(f"hex {name} d={d}: {owners.numel()} owners")
-            cover = f"; nf = {2 * d}, {owners.numel()} distinct owners of 8192, empty rank {empty} not among them"
         elif name == "successor":
             last = torch.arange(n, device=device) % 8 == 2
             lv = torch.unique(inputs[1][last]).numel()
@@ -787,14 +1073,17 @@ def hex_kernel_vs_plain(d: int, n: int, device, reps: int = 50,
                      f"with a reflected axis, {permuted} with a permuted one")
         rows.append(timing_row(name, d, n, inputs, got, kernel, plain, err, cover, reps,
                                plain_reps, tag="hex "))
+    sweep = marker_sweep(d, cases, tag="hex ")
     del cases
     torch.cuda.empty_cache()
-    return rows
+    return rows, sweep
 
 
-def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5) -> list[dict]:
+def kernel_vs_plain(d: int, n: int, device, reps: int = 50,
+                    plain_reps: int = 5) -> tuple[list[dict], list[dict]]:
     """Phase 2 for one dimension: every kernel against its plain version on
-    the same tensors, exact; returns one timing row per kernel."""
+    the same tensors, exact; returns one timing row per kernel, and the
+    rows of eval_route's and owner_rank's P sweep."""
     from repro_torch.core.tables import MAXLEVEL
 
     L = MAXLEVEL[d]
@@ -830,13 +1119,6 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
             if owners != [0, 2, 3]:
                 raise AssertionError(f"owner_rank d={d}: owners {owners}, want [0, 2, 3]")
             cover = f"; owners {owners} (rank 1 empty)"
-        elif name in (EVAL_ROUTE_MANY, OWNER_RANK_MANY):
-            owners = torch.unique(torch.cat([w.flatten() for w in want if w.dtype == torch.int32]))
-            empty = many_markers(d, 8192, "cpu")[2]
-            if owners.numel() < 1000 or bool((owners == empty).any()):
-                raise AssertionError(f"{name} d={d}: {owners.numel()} owners, rank {empty} "
-                                     f"among them: {bool((owners == empty).any())}")
-            cover = f"; {owners.numel()} distinct owners of 8192, empty rank {empty} not among them"
         elif name == "successor":
             # every eighth input (from the second on) is its level's last element
             last = torch.arange(n, device=device) % 8 == 2
@@ -869,9 +1151,10 @@ def kernel_vs_plain(d: int, n: int, device, reps: int = 50, plain_reps: int = 5)
                      f"{wrapped} anchor words wrapped past 2^31 - 1")
         rows.append(timing_row(name, d, n, inputs, got, kernel, plain, err, cover, reps,
                                plain_reps))
+    sweep = marker_sweep(d, cases)
     del cases
     torch.cuda.empty_cache()
-    return rows
+    return rows, sweep
 
 
 def record_launch_sizes(kops) -> tuple[dict, dict]:
@@ -2806,6 +3089,27 @@ def serve_path(kops, kref) -> dict:
     return out
 
 
+def marker_sweep_only(smi: str) -> int:
+    """`--marker-sweep`: the launch cost, phases 2 and 2h's P sweeps and
+    phase 3p alone (after the build and phase 3), and their rows as one
+    JSON line: the same measurement run against another checkout's package
+    (a parent design's, for a before/after table)."""
+    cost = launch_cost(torch.device("cuda"))
+    sweep = []
+    for d in (3, 2):
+        sweep += marker_sweep(d, kernel_cases(d, N_KERNEL, torch.device("cuda")))
+        torch.cuda.empty_cache()
+        sweep += marker_sweep(d, hex_kernel_cases(d, N_KERNEL, torch.device("cuda")), tag="hex ")
+        torch.cuda.empty_cache()
+    print("== 3. main path at full size", flush=True)
+    _facts, fs, _comm, _gh = main_path()
+    print(f"== 3p. owner_rank and eval_route on phase 3's leaves (card {smi})", flush=True)
+    split = real_queries(fs)
+    print(json.dumps({"launch_cost": cost, "marker_sweep": sweep, "phase3p": split,
+                      "card": smi}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2830,13 +3134,24 @@ def main() -> int:
             if "registers" in line or "error" in line.lower():
                 print(f"  {log.stem}: {line.strip()}")
 
+    if sys.argv[1:] == ["--marker-sweep"]:
+        return marker_sweep_only(smi)
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
+
     print(f"== 2. kernel vs plain (bound: bytes / {MEM_BYTES_PER_S / 1e12} TB/s; "
           f"card {smi})", flush=True)
-    rows = {d: kernel_vs_plain(d, N_KERNEL, torch.device("cuda")) for d in (3, 2)}
+    rows, sweep = {}, {}
+    for d in (3, 2):
+        rows[d], sweep[d] = kernel_vs_plain(d, N_KERNEL, torch.device("cuda"))
+    cost = launch_cost(torch.device("cuda"))
 
     print(f"== 2h. hex kernel vs plain (bound: bytes / {MEM_BYTES_PER_S / 1e12} TB/s; "
           f"card {smi})", flush=True)
-    hex_rows = {d: hex_kernel_vs_plain(d, N_KERNEL, torch.device("cuda")) for d in (3, 2)}
+    hex_rows, hex_sweep = {}, {}
+    for d in (3, 2):
+        hex_rows[d], hex_sweep[d] = hex_kernel_vs_plain(d, N_KERNEL, torch.device("cuda"))
 
     print(f"== 2a. flash_attention vs plain (bound: max(FLOP / {TC_FLOPS_PER_S / 1e12:.0f} "
           f"TFLOP/s, bytes / {MEM_BYTES_PER_S / 1e12} TB/s); card {smi})", flush=True)
@@ -2861,6 +3176,8 @@ def main() -> int:
         kops, kref, cmesh_path)
     for name, fn in originals.items():
         setattr(kops, name, fn)
+    print(f"== 3p. owner_rank and eval_route on phase 3's leaves (card {smi})", flush=True)
+    split = real_queries(runs["phase 3"]["balanced"])
     check_level_jumps(unbalanced, balanced, TREE_FACES_LEVEL)
     runs["phase 3c"] = {"unbalanced": unbalanced, "balanced": balanced, "ghosts": gh, "P": 4,
                         "cmesh": cm, "max_level": 7, "eclass": "simplex",
@@ -2975,14 +3292,17 @@ def main() -> int:
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "d": 3, "n": r["n"],
             "ms_d2": r2["ms"], "device_ms_d2": r2["device_ms"], "bound_ms_d2": r2["bound_ms"]}
-        many = {"eval_route": EVAL_ROUTE_MANY, "owner_rank": OWNER_RANK_MANY}.get(name)
-        if many:
-            for dd in (3, 2):
-                m = next(x for x in rows[dd] if x["name"] == many)
-                sfx = "_p8192" if dd == 3 else "_p8192_d2"
-                entry.update({f"ms{sfx}": m["ms"], f"device_ms{sfx}": m["device_ms"],
-                              f"plain_ms{sfx}": m["plain_ms"], f"bound_ms{sfx}": m["bound_ms"],
-                              f"max_abs_err{sfx}": m["max_abs_err"]})
+        if name in ("eval_route", "owner_rank"):
+            for dd, sfx in ((3, ""), (2, "_d2")):
+                pts = [x for x in sweep[dd] if x["name"] == name]
+                entry.update({f"sweep_device_ms{sfx}": {x["P"]: x["device_ms"] for x in pts},
+                              f"sweep_bound_ms{sfx}": {x["P"]: x["bound_ms"] for x in pts}})
+            entry["max_abs_err_sweep"] = max(x["max_abs_err"] for dd in (3, 2)
+                                             for x in sweep[dd] if x["name"] == name)
+            entry.update({f"phase3p_{k}": {x["P"]: x[k] for x in split if x["name"] == name}
+                          for k in ("device_ms", "bound_ms")})
+            entry["host_us_a_launch"] = {f"d={x['d']} P={x['P']}": x["enqueue_us"]
+                                         for x in cost if x["name"] == name}
         entry.update({"hex_replaces": HEX_REPLACES[name],
                       "hex_launches_phase3h": hex_of[name] + hex_q[name]})
         h3 = next((x for x in hex_rows[3] if x["name"] == name), None)
@@ -2994,12 +3314,11 @@ def main() -> int:
                           "hex_ms_d2": h2["ms"], "hex_device_ms_d2": h2["device_ms"],
                           "hex_plain_ms_d2": h2["plain_ms"], "hex_bound_ms_d2": h2["bound_ms"]})
         if name == "eval_route":
-            for dd in (3, 2):
-                m = next(x for x in hex_rows[dd] if x["name"] == EVAL_ROUTE_MANY)
-                sfx = "_p8192" if dd == 3 else "_p8192_d2"
-                entry.update({f"hex_ms{sfx}": m["ms"], f"hex_device_ms{sfx}": m["device_ms"],
-                              f"hex_plain_ms{sfx}": m["plain_ms"],
-                              f"hex_bound_ms{sfx}": m["bound_ms"]})
+            for dd, sfx in ((3, ""), (2, "_d2")):
+                entry.update({f"hex_sweep_device_ms{sfx}": {x["P"]: x["device_ms"]
+                                                            for x in hex_sweep[dd]},
+                              f"hex_sweep_bound_ms{sfx}": {x["P"]: x["bound_ms"]
+                                                           for x in hex_sweep[dd]}})
         kernels.append(entry)
     kernels.append({
         "name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,

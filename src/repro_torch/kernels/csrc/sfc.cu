@@ -6,13 +6,13 @@
 // Section 4: the owner rank of a key against the partition markers (Ghost's
 // owner lookup), the successor (Algorithm 4.10) and the single-face neighbor
 // (Algorithm 4.6).  One thread per element (per element and child for
-// `children`, per element and face for `eval_route`), templated on the
-// dimension D and the element class EC: simplices on the tetrahedral Morton
-// curve (kSimplex), or quads and hexahedra on the plain Morton curve (kHex),
-// whose bodies read no type column and write it as 0.  Each entry point takes
-// the class and launches its body; `eval_route` and `owner_rank` have one body
-// for both, eval_route with one grid row per face plane (d + 1 a simplex, 2d
-// a hex).
+// `children`), templated on the dimension D and the element class EC:
+// simplices on the tetrahedral Morton curve (kSimplex), or quads and
+// hexahedra on the plain Morton curve (kHex), whose bodies read no type
+// column and write it as 0.  Each entry point takes the class and launches
+// its body; `eval_route` and `owner_rank` have one body for both and run on
+// a persistent grid, eval_route over the (face, element) pairs of all its
+// face planes (d + 1 a simplex, 2d a hex).
 //
 // Each kernel computes what the JAX package's Pallas kernel of the same name
 // computes (src/repro/kernels/sfc.py), bit for bit, but none carries over the
@@ -85,10 +85,12 @@
 // passes whose stores are contiguous across the threads of a warp.  The
 // face sweep reads each element once and writes every face's outputs
 // face-major ((nf, n) planes), so each store is contiguous across a warp;
-// eval_route and owner_rank read up to 4096 partition markers into shared
-// memory once per block and scan them from there, and binary search more of
-// them in global memory; tree_transform reads its connection rows through
-// the read-only cache; successor finds a simplex's carry level from the
+// eval_route and owner_rank stage a table of up to 16384 partition markers
+// (every marker up to P = 16384, every s-th past it) into shared memory
+// once per resident block of a persistent grid and find a query's owner in
+// O(log P) dependent steps, the last log2 s of them in one window of
+// markers in global memory (`owner_count`); tree_transform reads its
+// connection rows through the read-only cache; successor finds a simplex's carry level from the
 // trailing bits its coordinates share and reads one entry of each packed
 // table (the walks remain for elements outside the root), and
 // face_neighbor is one table lookup.
@@ -96,6 +98,8 @@
 // Every entry point launches on the caller's stream, does not synchronise,
 // allocates nothing, and returns cudaGetLastError() after the launch.
 
+#include <algorithm>
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -106,7 +110,8 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTab = 64;  // shared copy of a packed table; index mask kTab - 1
 constexpr int kNei = 32;  // shared copy of a face-neighbor table; mask kNei - 1
-constexpr int kSharedMarkers = 4096;  // owner counts scan up to this many from shared memory (48 KB)
+constexpr int kOwnerThreads = 1024;   // owner_rank and eval_route: a block of the persistent grid,
+constexpr int kTableHeight = 14;      // with a table of up to 2^14 splitters (192 KB)
 constexpr int kSimplex = 0, kHex = 1;  // element classes, as core/types.py tags them
 
 template <int D> struct Dim;
@@ -520,92 +525,195 @@ face_neighbor_kernel(const int32_t* __restrict__ anchor, const int32_t* __restri
 // owner_rank and eval_route kernels share and so do these: the owner rank of
 // a lex (tree, key) is the number of the P lex-sorted partition markers
 // lex-<= it, less one, clamped to 0 (keys before the first marker go to rank
-// 0; an empty rank repeats the next rank's marker and owns nothing).  Two
-// variants, chosen by P at launch: up to kSharedMarkers the markers are
-// copied into shared memory once per block and scanned there (a binary
-// search pays only for large P); beyond it they stay in global memory, read
-// through the read-only cache, and each query runs an upper-bound lex binary
-// search.
-struct Markers {
-  const int32_t* tree;
-  const int64_t* key;
-  int n;
+// 0; an empty rank repeats the next rank's marker and owns nothing; with no
+// markers every key goes to rank 0).  One search for every P, in
+// O(log P) dependent steps a query:
+//   * Each block of a persistent grid copies a table of splitters into
+//     shared memory once: every s-th marker, s the least power of two that
+//     leaves m = ceil(P / s) <= 2^kTableHeight splitters, so every marker
+//     up to P = 16384.
+//   * Splitter 0 sits in slot 0; splitters 1..m-1 form a complete binary
+//     search tree of height H = ceil(log2 m) in Eytzinger order (node e's
+//     children are 2e and 2e + 1; slots past the splitters hold a lex
+//     +infinity).  A query compares with slot 0, which every lane reads at
+//     once, then takes exactly H steps e = 2e + (node e lex-<= query) from
+//     e = 1, with no bounds test and the same in every lane; e - 2^H counts
+//     the tree's splitters lex-<= it.  The first levels are a few
+//     contiguous slots that the lanes of a warp read together.
+//   * Then at most log2 s steps over the window of s markers in global
+//     memory that the last such splitter opens, through the read-only cache.
+//   * A slot is held as (hi, lo): hi = tree << 32 | the high word of
+//     key ^ 2^63, lo its low word, so that the signed order of hi and then
+//     the unsigned order of lo is the lex order of (tree, key); a step reads
+//     hi, and lo only where the two hi are equal.
+//   * A thread takes a few adjacent queries at a time, loaded and stored as
+//     vectors (where the caller's pointers are aligned for them), and
+//     carries them through each step together, so that their loads
+//     overlap.
+struct OwnerTable {
+  int m;                // splitters
+  int height;           // of the search tree of splitters 1..m-1
+  int s_log2;           // a splitter every 2^s_log2 markers
+  const int32_t* mt;    // the P markers, global
+  const int64_t* mk;
+  int p;
 };
 
-// The block's view of the markers: with Shared, a copy in dynamic shared
-// memory (P * 12 bytes; every thread of the block must reach this, it ends
-// in __syncthreads); else the global arrays themselves.
-template <bool Shared>
-__device__ __forceinline__ Markers stage_markers(const int32_t* __restrict__ mt,
-                                                 const int64_t* __restrict__ mk, int p) {
-  if constexpr (Shared) {
-    extern __shared__ int64_t marker_smem[];
-    int32_t* st = reinterpret_cast<int32_t*>(marker_smem + p);
-    for (int m = threadIdx.x; m < p; m += blockDim.x) {
-      marker_smem[m] = mk[m];
-      st[m] = mt[m];
-    }
-    __syncthreads();
-    return {st, marker_smem, p};
-  } else {
-    return {mt, mk, p};
-  }
+extern __shared__ int64_t owner_smem[];   // 2^height hi words, then 2^height lo words
+
+__device__ __forceinline__ int64_t lex_hi(int t, int64_t k) {
+  const uint64_t u = static_cast<uint64_t>(k) ^ 0x8000000000000000ull;
+  return static_cast<int64_t>((static_cast<uint64_t>(static_cast<int64_t>(t)) << 32) | (u >> 32));
+}
+
+__device__ __forceinline__ uint32_t lex_lo(int64_t k) {
+  return static_cast<uint32_t>(static_cast<uint64_t>(k));
 }
 
 __device__ __forceinline__ bool marker_le(int tm, int64_t km, int t, int64_t k) {
   return tm < t || (tm == t && km <= k);
 }
 
-// The owner ranks of N keys k[j] of one tree t (eval_route asks for an
-// interval's two ends at once, so a shared-memory scan reads each marker
-// once for both).
-template <bool Shared, int N>
-__device__ __forceinline__ void owner_ranks(const Markers& m, int t, const int64_t (&k)[N],
-                                            int (&rank)[N]) {
-  int c[N];
-  if constexpr (Shared) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) c[j] = 0;
-    for (int i = 0; i < m.n; ++i) {
-      const int tm = m.tree[i];
-      const int64_t km = m.key[i];
-#pragma unroll
-      for (int j = 0; j < N; ++j) c[j] += marker_le(tm, km, t, k[j]);
+// Slot e of the table lex-<= the query (qh, ql).
+__device__ __forceinline__ bool slot_le(const uint32_t* lo, int e, int64_t qh, uint32_t ql) {
+  const int64_t h = owner_smem[e];
+  bool le = h < qh;
+  if (h == qh) le = lo[e] <= ql;
+  return le;
+}
+
+// Copies the splitter table into dynamic shared memory; every thread of the
+// block must reach this (it ends in __syncthreads).
+__device__ __forceinline__ OwnerTable stage_table(const int32_t* __restrict__ mt,
+                                                  const int64_t* __restrict__ mk, int p,
+                                                  int s_log2) {
+  const int m = p > 0 ? static_cast<int>(((static_cast<int64_t>(p) - 1) >> s_log2) + 1) : 0;
+  const int height = m > 1 ? 32 - __clz(m - 1) : 0;
+  const int slots = 1 << height;
+  uint32_t* lo = reinterpret_cast<uint32_t*>(owner_smem + slots);
+  // splitter j (a marker read in order, so a warp's reads are contiguous
+  // where s = 1) goes to slot 0, or for j >= 1 to the node whose in-order
+  // position is j - 1; the slots of j >= m hold +infinity
+#pragma unroll 4
+  for (int j = threadIdx.x; j < slots; j += blockDim.x) {
+    int e = 0;
+    if (j > 0) {
+      const int tz = __ffs(j) - 1;
+      e = (1 << (height - 1 - tz)) | (j >> (tz + 1));
     }
-  } else {
+    int64_t h = 0x7FFFFFFFFFFFFFFFll;
+    uint32_t l = 0xFFFFFFFFu;
+    if (j < m) {
+      const int64_t g = static_cast<int64_t>(j) << s_log2;
+      const int64_t k = __ldg(mk + g);
+      h = lex_hi(__ldg(mt + g), k);
+      l = lex_lo(k);
+    }
+    owner_smem[e] = h;
+    lo[e] = l;
+  }
+  __syncthreads();
+  return {m, height, s_log2, mt, mk, p};
+}
+
+// The number of markers lex-<= (t[u], k[u]) for each of U queries.
+template <int U>
+__device__ __forceinline__ void owner_counts(const OwnerTable& tb, const int (&t)[U],
+                                             const int64_t (&k)[U], int (&count)[U]) {
+  const uint32_t* lo = reinterpret_cast<const uint32_t*>(owner_smem + (1 << tb.height));
+  int64_t qh[U];
+  uint32_t ql[U];
+  int e[U];
+  bool past0[U];  // lex-<= splitter 0
 #pragma unroll
-    for (int j = 0; j < N; ++j) {
-      int lo = 0, hi = m.n;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (marker_le(__ldg(m.tree + mid), __ldg(m.key + mid), t, k[j])) lo = mid + 1;
-        else hi = mid;
-      }
-      c[j] = lo;
+  for (int u = 0; u < U; ++u) {
+    qh[u] = lex_hi(t[u], k[u]);
+    ql[u] = lex_lo(k[u]);
+    past0[u] = slot_le(lo, 0, qh[u], ql[u]);
+    e[u] = 1;
+  }
+  auto descend = [&]() {
+#pragma unroll
+    for (int u = 0; u < U; ++u) e[u] = 2 * e[u] + slot_le(lo, e[u], qh[u], ql[u]);
+  };
+  int level = tb.height;
+  for (; level >= 2; level -= 2) {
+    descend();
+    descend();
+  }
+  if (level) descend();
+  int64_t g[U], end[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    // the splitters lex-<= the query (the +infinity slots only if it is
+    // +infinity itself), and the window after the last of them
+    const int c = past0[u] ? 1 + min(e[u] - (1 << tb.height), tb.m - 1) : 0;
+    g[u] = c > 0 ? static_cast<int64_t>(c - 1) << tb.s_log2 : -1;
+    end[u] = min(g[u] + (int64_t{1} << tb.s_log2), static_cast<int64_t>(tb.p));
+  }
+  for (int64_t step = (int64_t{1} << tb.s_log2) >> 1; step > 0; step >>= 1) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int64_t i = g[u] + step;
+      if (g[u] >= 0 && i < end[u] && marker_le(__ldg(tb.mt + i), __ldg(tb.mk + i), t[u], k[u]))
+        g[u] = i;
     }
   }
 #pragma unroll
-  for (int j = 0; j < N; ++j) rank[j] = max(c[j] - 1, 0);
+  for (int u = 0; u < U; ++u) count[u] = static_cast<int>(g[u] + 1);
+}
+
+__device__ __forceinline__ int rank_of(int count) { return max(count - 1, 0); }
+
+// Whether p may be read or written as a vector of `bytes` (a caller may pass
+// a view with an offset; then the kernel reads and writes one value at a time).
+__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
+  return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
 }
 
 // Replaces owner_rank_kernel (src/repro/kernels/sfc.py:696, body
 // _owner_rank_body :491 with _owner_count_expr :504): one (tree, key) a
-// thread.  The TPU kernel pads the markers to a power of two with sentinels
-// and unrolls the scan over them at compile time; here P is a launch
-// argument and the loop runs over exactly P markers.
-template <bool Shared>
-__global__ void __launch_bounds__(kThreads)
+// query, four adjacent queries a thread at a time over a persistent grid.
+// The TPU kernel pads the markers to a power of two with sentinels and
+// unrolls a compare-and-count over all of them at compile time; here P is
+// a launch argument and the search above takes O(log P) steps.
+__global__ void __launch_bounds__(kOwnerThreads, 1)
 owner_rank_kernel(const int32_t* __restrict__ tree, const int64_t* __restrict__ key,
                   const int32_t* __restrict__ marker_tree,
-                  const int64_t* __restrict__ marker_key, int num_markers,
+                  const int64_t* __restrict__ marker_key, int num_markers, int s_log2,
                   int32_t* __restrict__ rank, int64_t n) {
-  const Markers m = stage_markers<Shared>(marker_tree, marker_key, num_markers);
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const int64_t k[1] = {key[i]};
-  int r[1];
-  owner_ranks<Shared, 1>(m, tree[i], k, r);
-  rank[i] = r[0];
+  constexpr int U = 4;
+  const OwnerTable tb = stage_table(marker_tree, marker_key, num_markers, s_log2);
+  const int64_t stride = U * static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const bool vec = aligned(tree, 16) && aligned(key, 16) && aligned(rank, 16);
+  for (int64_t i = U * (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x); i < n;
+       i += stride) {
+    int t[U], c[U];
+    int64_t k[U];
+    const bool whole = vec && i + U <= n;
+    if (whole) {
+      const int4 tv = *reinterpret_cast<const int4*>(tree + i);
+      const longlong2 k01 = *reinterpret_cast<const longlong2*>(key + i);
+      const longlong2 k23 = *reinterpret_cast<const longlong2*>(key + i + 2);
+      t[0] = tv.x, t[1] = tv.y, t[2] = tv.z, t[3] = tv.w;
+      k[0] = k01.x, k[1] = k01.y, k[2] = k23.x, k[3] = k23.y;
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        t[u] = i + u < n ? tree[i + u] : 0;
+        k[u] = i + u < n ? key[i + u] : 0;
+      }
+    }
+    owner_counts<U>(tb, t, k, c);
+    if (whole) {
+      *reinterpret_cast<int4*>(rank + i) =
+          make_int4(rank_of(c[0]), rank_of(c[1]), rank_of(c[2]), rank_of(c[3]));
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (i + u < n) rank[i + u] = rank_of(c[u]);
+    }
+  }
 }
 
 // Replaces eval_route_kernel (src/repro/kernels/sfc.py:715, body
@@ -613,10 +721,15 @@ owner_rank_kernel(const int32_t* __restrict__ tree, const int64_t* __restrict__ 
 // element) pair of a face-major (nf, n) sweep, the end key of the
 // neighbor's interval, key | (2^(D(L - lvl)) - 1) (keys are span aligned),
 // and the first and last owner rank of the interval, those of (tree, key)
-// and (tree, end key).  Grid: x over elements, y over the nf face planes
-// (d + 1 a simplex, 2d a hex: the TPU kernel reads nf off its tile).  The span
-// exponent is clamped to [0, 63], so the mask never shifts by 64: at d = 3,
-// level 0 it is 2^63 - 1.
+// and (tree, end key).  The persistent grid walks the nf * n pairs as one
+// index space, face-major as the outputs are (d + 1 planes a simplex, 2d a
+// hex: the TPU kernel reads nf off its tile), two adjacent pairs a thread
+// at a time, carrying the element index (the pair index mod n) along
+// without a division.  The end key is >= the key, so its owner count is the
+// first one unless marker `first count` is lex-<= it, which one compare
+// decides; only then does it search.  The span exponent is clamped to
+// [0, 63], so the mask never shifts by 64: at d = 3, level 0 it is
+// 2^63 - 1.
 template <int D>
 __device__ __forceinline__ int64_t interval_end(int64_t k, int lvl) {
   constexpr int L = Dim<D>::L;
@@ -624,25 +737,61 @@ __device__ __forceinline__ int64_t interval_end(int64_t k, int lvl) {
   return k | static_cast<int64_t>(0x7FFFFFFFFFFFFFFFull >> (63 - sb));
 }
 
-template <int D, bool Shared>
-__global__ void __launch_bounds__(kThreads)
+template <int D>
+__global__ void __launch_bounds__(kOwnerThreads, 1)
 eval_route_kernel(const int32_t* __restrict__ tgt, const int64_t* __restrict__ key,
                   const int32_t* __restrict__ level, const int32_t* __restrict__ marker_tree,
-                  const int64_t* __restrict__ marker_key, int num_markers,
+                  const int64_t* __restrict__ marker_key, int num_markers, int s_log2,
                   int64_t* __restrict__ kend, int32_t* __restrict__ first,
-                  int32_t* __restrict__ last, int64_t n) {
-  const Markers m = stage_markers<Shared>(marker_tree, marker_key, num_markers);
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  const int64_t o = blockIdx.y * n + i;
-  const int64_t k = key[o];
-  const int64_t ke = interval_end<D>(k, level[i]);
-  const int64_t ks[2] = {k, ke};
-  int r[2];
-  owner_ranks<Shared, 2>(m, tgt[o], ks, r);
-  kend[o] = ke;
-  first[o] = r[0];
-  last[o] = r[1];
+                  int32_t* __restrict__ last, int64_t n, int nf) {
+  constexpr int U = 2;
+  const OwnerTable tb = stage_table(marker_tree, marker_key, num_markers, s_log2);
+  const int64_t total = n * nf, stride = U * static_cast<int64_t>(gridDim.x) * blockDim.x;
+  const int64_t step = stride % n;   // how far the element index moves a stride
+  const bool vec = aligned(tgt, 8) && aligned(key, 16) && aligned(kend, 16) &&
+                   aligned(first, 8) && aligned(last, 8);
+  int64_t o = U * (blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x), i = o % n;
+  for (; o < total; o += stride) {
+    int t[U], c1[U], c2[U];
+    int64_t k[U], ke[U];
+    const bool whole = vec && o + U <= total;
+    if (whole) {
+      const int2 tv = *reinterpret_cast<const int2*>(tgt + o);
+      const longlong2 kv = *reinterpret_cast<const longlong2*>(key + o);
+      t[0] = tv.x, t[1] = tv.y, k[0] = kv.x, k[1] = kv.y;
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        t[u] = o + u < total ? tgt[o + u] : 0;
+        k[u] = o + u < total ? key[o + u] : 0;
+      }
+    }
+    ke[0] = interval_end<D>(k[0], level[i]);
+    ke[1] = interval_end<D>(k[1], o + 1 < total ? level[i + 1 == n ? 0 : i + 1] : 0);
+    i += step;
+    if (i >= n) i -= n;
+    owner_counts<U>(tb, t, k, c1);
+    bool far = false;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      c2[u] = c1[u];
+      far |= c1[u] < tb.p && marker_le(__ldg(tb.mt + c1[u]), __ldg(tb.mk + c1[u]), t[u], ke[u]);
+    }
+    if (far) owner_counts<U>(tb, t, ke, c2);
+    if (whole) {
+      *reinterpret_cast<longlong2*>(kend + o) = make_longlong2(ke[0], ke[1]);
+      *reinterpret_cast<int2*>(first + o) = make_int2(rank_of(c1[0]), rank_of(c1[1]));
+      *reinterpret_cast<int2*>(last + o) = make_int2(rank_of(c2[0]), rank_of(c2[1]));
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (o + u < total) {
+          kend[o + u] = ke[u];
+          first[o + u] = rank_of(c1[u]);
+          last[o + u] = rank_of(c2[u]);
+        }
+    }
+  }
 }
 
 // The successor of a simplex inside the root simplex, at a level in 1..L,
@@ -844,8 +993,65 @@ inline unsigned blocks_for(int64_t work) {
   return static_cast<unsigned>((work + kThreads - 1) / kThreads);
 }
 
-inline size_t marker_smem_bytes(int num_markers) {
-  return static_cast<size_t>(num_markers) * (sizeof(int64_t) + sizeof(int32_t));
+// The launch of owner_rank or eval_route against P markers over `work`
+// queries: the splitter stride exponent (the least that leaves at most
+// 2^kTableHeight splitters), the splitter table's shared memory, and the
+// persistent grid, as many blocks as the card holds at once with that
+// table, and no more than the work needs.  What the runtime is asked for
+// this is asked once a device and kernel and kept: the opt-in to the
+// largest table (past 48 KB a kernel must ask), the SM count, and the
+// blocks an SM holds at each table height; so a launch on a small input
+// makes one runtime call (the current device) before the kernel's.
+// Returns cudaSuccess or the first error.
+struct OwnerLaunch {
+  int s_log2 = 0;
+  size_t smem = 0;
+  unsigned grid = 0;
+};
+
+enum OwnerKernel { kOwnerRank, kEvalRoute2, kEvalRoute3, kOwnerKernels };
+constexpr int kMaxDevices = 64;
+constexpr int kOwnerMaxSmem = (1 << kTableHeight) * (sizeof(int64_t) + sizeof(uint32_t));
+
+struct OwnerShape {                               // zero until asked
+  std::atomic<int> sms;                           // set after the opt-in
+  std::atomic<int> per_sm[kTableHeight + 1];      // blocks an SM holds, by table height
+};
+OwnerShape owner_shapes[kOwnerKernels][kMaxDevices];
+
+template <typename Kernel>
+cudaError_t owner_launch(Kernel* kernel, OwnerKernel which, int p, int64_t work,
+                         OwnerLaunch* out) {
+  int m = p;
+  while (m > (1 << kTableHeight)) {
+    ++out->s_log2;
+    m = static_cast<int>(((static_cast<int64_t>(p) - 1) >> out->s_log2) + 1);
+  }
+  int height = 0;
+  while ((1 << height) < m) ++height;   // 2^height - 1 >= m - 1 tree nodes
+  out->smem = (size_t{1} << height) * (sizeof(int64_t) + sizeof(uint32_t));
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  OwnerShape& shape = owner_shapes[which][dev];
+  int sms = shape.sms.load(std::memory_order_acquire);
+  if (sms == 0) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kOwnerMaxSmem);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    shape.sms.store(sms, std::memory_order_release);
+  }
+  int per_sm = shape.per_sm[height].load(std::memory_order_relaxed);
+  if (per_sm == 0) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kOwnerThreads, out->smem);
+    if (e != cudaSuccess) return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    shape.per_sm[height].store(per_sm, std::memory_order_relaxed);
+  }
+  const int64_t need = (work + kOwnerThreads - 1) / kOwnerThreads;
+  out->grid = static_cast<unsigned>(std::min<int64_t>(need, static_cast<int64_t>(per_sm) * sms));
+  return cudaSuccess;
 }
 
 // Calls Launch<d, eclass>::run(args...) for the four instantiated pairs and
@@ -991,7 +1197,7 @@ int sfc_eval_route(int d, int nf, const void* tgt, const void* key, const void* 
                    const void* marker_tree, const void* marker_key, int num_markers,
                    void* kend, void* first, void* last, int64_t n, void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (num_markers < 1 || (d != 2 && d != 3) || (nf != d + 1 && nf != 2 * d))
+  if (num_markers < 0 || (d != 2 && d != 3) || (nf != d + 1 && nf != 2 * d))
     return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<const int32_t*>(tgt);
@@ -1002,15 +1208,13 @@ int sfc_eval_route(int d, int nf, const void* tgt, const void* key, const void* 
   auto ke = static_cast<int64_t*>(kend);
   auto f = static_cast<int32_t*>(first);
   auto la = static_cast<int32_t*>(last);
-  const dim3 grid(blocks_for(n), nf);
-  const size_t shmem = marker_smem_bytes(num_markers);
-  if (num_markers > kSharedMarkers) {
-    if (d == 2) eval_route_kernel<2, false><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-    else eval_route_kernel<3, false><<<grid, kThreads, 0, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-  } else {
-    if (d == 2) eval_route_kernel<2, true><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-    else eval_route_kernel<3, true><<<grid, kThreads, shmem, s>>>(t, k, l, mt, mk, num_markers, ke, f, la, n);
-  }
+  auto kernel = d == 2 ? eval_route_kernel<2> : eval_route_kernel<3>;
+  OwnerLaunch g;
+  const cudaError_t e =
+      owner_launch(kernel, d == 2 ? kEvalRoute2 : kEvalRoute3, num_markers, n * nf, &g);
+  if (e != cudaSuccess) return e;
+  kernel<<<g.grid, kOwnerThreads, g.smem, s>>>(t, k, l, mt, mk, num_markers, g.s_log2, ke, f, la,
+                                                n, nf);
   return cudaGetLastError();
 }
 
@@ -1018,18 +1222,18 @@ int sfc_owner_rank(const void* tree, const void* key, const void* marker_tree,
                    const void* marker_key, int num_markers, void* rank, int64_t n,
                    void* stream) {
   if (n <= 0) return cudaSuccess;
-  if (num_markers < 1) return cudaErrorInvalidValue;
+  if (num_markers < 0) return cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   auto t = static_cast<const int32_t*>(tree);
   auto k = static_cast<const int64_t*>(key);
   auto mt = static_cast<const int32_t*>(marker_tree);
   auto mk = static_cast<const int64_t*>(marker_key);
   auto r = static_cast<int32_t*>(rank);
-  if (num_markers > kSharedMarkers)
-    owner_rank_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(t, k, mt, mk, num_markers, r, n);
-  else
-    owner_rank_kernel<true><<<blocks_for(n), kThreads, marker_smem_bytes(num_markers), s>>>(
-        t, k, mt, mk, num_markers, r, n);
+  OwnerLaunch g;
+  const cudaError_t e = owner_launch(owner_rank_kernel, kOwnerRank, num_markers, n, &g);
+  if (e != cudaSuccess) return e;
+  owner_rank_kernel<<<g.grid, kOwnerThreads, g.smem, s>>>(t, k, mt, mk, num_markers, g.s_log2,
+                                                          r, n);
   return cudaGetLastError();
 }
 

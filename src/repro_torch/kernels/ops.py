@@ -247,11 +247,11 @@ def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor
     """Over the pairs of a face-major (nf, n) sweep — nf = d + 1 (simplex)
     or 2d (hex) read off `tgt`; target tree int32 and neighbor key int64
     per pair, level int32 per element — against P lex-sorted partition
-    markers (tree int32, key int64), any P >= 1: the interval end key
-    (int64) and first and last owner rank (int32), each (nf, n).  On the
-    card up to 4096 markers are scanned from shared memory and more are
-    binary searched in global memory; both count as `eval_route` launches,
-    under the class whose face count nf is."""
+    markers (tree int32, key int64), any P >= 0 (with none, every rank is
+    0): the interval end key (int64) and first and last owner rank
+    (int32), each (nf, n).  On the card one O(log P) search a query
+    (`csrc/sfc.cu`, `owner_count`), counted as an `eval_route` launch under
+    the class whose face count nf is."""
     if d not in (2, 3):
         raise ValueError(f"d must be 2 or 3, got {d}")
     n, P = level.shape[0], marker_tree.shape[0]
@@ -263,8 +263,6 @@ def eval_route(d: int, tgt: torch.Tensor, key: torch.Tensor, level: torch.Tensor
     _check(level, "level", torch.int32, (n,))
     _check(marker_tree, "marker_tree", torch.int32, (P,))
     _check(marker_key, "marker_key", torch.int64, (P,))
-    if P < 1:
-        raise ValueError(f"need at least 1 partition marker, got {P}")
     if _on_cpu(tgt, key, level, marker_tree, marker_key):
         return ref.eval_route(d, tgt, key, level, marker_tree, marker_key)
     dev = key.device
@@ -322,9 +320,8 @@ def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
                marker_key: torch.Tensor, eclass: int = ECLASS_SIMPLEX) -> torch.Tensor:
     """The owner rank of each (n,) lex (tree int32, key int64) against P
     lex-sorted partition markers (tree int32, key int64): the number of
-    markers lex-<= it, less one, clamped to 0; (n,) int32.  On the card,
-    any P >= 1: up to 4096 markers are scanned from shared memory and more
-    are binary searched in global memory, both `owner_rank` launches.  One
+    markers lex-<= it, less one, clamped to 0 (with no markers, 0); (n,)
+    int32.  On the card one O(log P) search a key, as `eval_route`'s.  One
     body for both classes; `eclass` names the launch count."""
     ec = _class(eclass)
     n, P = tree.shape[0], marker_tree.shape[0]
@@ -334,8 +331,6 @@ def owner_rank(tree: torch.Tensor, key: torch.Tensor, marker_tree: torch.Tensor,
     _check(marker_key, "marker_key", torch.int64, (P,))
     if _on_cpu(tree, key, marker_tree, marker_key):
         return ref.owner_rank(tree, key, marker_tree, marker_key, ec)
-    if P < 1:
-        raise ValueError(f"need at least 1 partition marker, got {P}")
     rank = torch.empty(n, dtype=torch.int32, device=key.device)
     if n:
         _launch("owner_rank", ec, "sfc_owner_rank", tree, key, marker_tree, marker_key, P,

@@ -22,6 +22,14 @@ from repro_torch.kernels import ops as kops, ref as kref
 
 KERNELS = ["morton_key", "decode", "parent", "children", "face_sweep", "inside_root"]
 
+# Marker counts of the owner-count tests: none, few, around a warp, around
+# the 4096 the kernels once kept in shared memory, around 8192, around the
+# 2^14 splitters of their shared-memory table (past it a splitter every 2
+# markers and a window in global memory), and around the paper's 131,072
+# ranks (8 markers a splitter; 131,071 leaves a last window of 7).
+MARKER_COUNTS = [0, 1, 2, 31, 32, 33, 4095, 4096, 4097, 8191, 8192, 8193, 16383, 16384, 16385,
+                 131071, 131072]
+
 
 def _card():
     if not torch.cuda.is_available():
@@ -100,8 +108,9 @@ def test_cuda_wrappers_never_fall_back():
     assert not any(kref.call_counts.values())
     with pytest.raises(ValueError):
         kops.morton_key(anchor, stype.cpu())
-    with pytest.raises(ValueError, match="at least 1"):    # the kernel needs a marker
-        kops.owner_rank(tgt[0], key, mt[:0], mk[:0])
+    # no markers: every key to rank 0 on the card too, as the plain version says
+    got = kops.owner_rank(tgt[0], key, mt[:0], mk[:0])
+    assert torch.equal(got, kref.owner_rank(tgt[0], key, mt[:0], mk[:0])) and not bool(got.any())
 
 
 @pytest.mark.cuda
@@ -277,31 +286,39 @@ def test_cuda_tree_transform_matches_plain(d, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [2, 3])
-@pytest.mark.parametrize("P", [4097, 8192])
+@pytest.mark.parametrize("P", MARKER_COUNTS)
 def test_cuda_eval_route_beyond_shared_markers_matches_plain(d, P):
-    """Past 4096 markers the kernel binary searches them in global memory;
-    it equals the plain compare-and-count on lex-sorted markers with empty
-    ranks (repeated markers) and a trailing sentinel."""
+    """eval_route's one O(log P) search equals the plain compare-and-count
+    at every marker count (none included; past 2^14 through the splitter
+    table and a window of markers in global memory) on lex-sorted markers
+    with runs of empty ranks (repeated markers) and two trailing
+    sentinels, on pairs equal to markers, before the first, past the last
+    tree and (d = 3) at key 2^63 - 1; and with all the markers in one tree."""
     dev = _card()
     L = MAXLEVEL[d]
     rng = np.random.default_rng(P + d)
     _anchor, level, _stype = _cube_inputs(d, 100_000, seed=P, dev=dev)
-    tgt, key, _mt, _mk = _route_inputs(d, level, dev, seed=P)
-    mt = np.sort(rng.integers(0, 4, P)).astype(np.int32)
-    mk = rng.integers(0, 1 << (d * L), P, dtype=np.uint64).astype(np.int64)
-    order = np.lexsort((mk, mt))
-    mt, mk = mt[order], mk[order]
-    mk[10:20], mt[10:20] = mk[9], mt[9]
-    mt[-2:], mk[-2:] = 4, 0
-    mt, mk = torch.from_numpy(mt).to(dev), torch.from_numpy(mk).to(dev)
-    before = kops.launch_counts["eval_route"]
-    got = kops.eval_route(d, tgt, key, level, mt, mk)
-    want = kref.eval_route(d, tgt, key, level, mt, mk)
-    torch.cuda.synchronize()
-    assert kops.launch_counts["eval_route"] == before + 1
-    assert torch.unique(want[1]).numel() > 1000
-    for g, w in zip(got, want, strict=True):
-        assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+    tgt0, key0, _mt, _mk = _route_inputs(d, level, dev, seed=P)
+    for one_tree in (False, True):
+        mt = (np.zeros(P, np.int32) if one_tree
+              else np.sort(rng.integers(0, 4, P)).astype(np.int32))
+        mk = rng.integers(0, 1 << (d * L), P, dtype=np.uint64).astype(np.int64)
+        order = np.lexsort((mk, mt))
+        mt, mk = mt[order], mk[order]
+        mk[10:20], mt[10:20] = mk[9:10], mt[9:10]
+        if not one_tree:
+            mt[-2:], mk[-2:] = 4, 0
+        mt, mk = torch.from_numpy(mt).to(dev), torch.from_numpy(mk).to(dev)
+        tgt, key = _edge_queries(tgt0, key0, mt, mk, d, seed=P)
+        before = kops.launch_counts["eval_route"]
+        got = kops.eval_route(d, tgt, key, level, mt, mk)
+        want = kref.eval_route(d, tgt, key, level, mt, mk)
+        torch.cuda.synchronize()
+        assert kops.launch_counts["eval_route"] == before + 1
+        if P >= 4095 and not one_tree:
+            assert torch.unique(want[1]).numel() > 1000
+        for g, w in zip(got, want, strict=True):
+            assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
 
 
 @pytest.mark.cuda
@@ -336,38 +353,90 @@ def test_cuda_multitree_pipeline_matches_cpu(name):
             assert torch.equal(a[k].cpu(), b[k])
 
 
-def _markers(P, trees, d, seed, dev):
-    """P lex-sorted markers over `trees` trees with empty ranks (repeated
-    markers) and a trailing (trees, 0) sentinel."""
+def _markers(P, trees, d, seed, dev, one_tree=False):
+    """P lex-sorted markers over `trees` trees, or all in tree 0, the first
+    at (0, 0); where P allows, a run of empty ranks (ranks 1-2 repeat rank
+    3's marker) and, over several trees, a trailing (trees, 0) sentinel."""
     rng = np.random.default_rng(seed)
-    mt = np.sort(rng.integers(0, trees, P)).astype(np.int32)
+    mt = np.zeros(P, np.int32) if one_tree else np.sort(rng.integers(0, trees, P)).astype(np.int32)
     mk = rng.integers(0, 1 << (d * MAXLEVEL[d]), P, dtype=np.uint64).astype(np.int64)
     order = np.lexsort((mk, mt))
     mt, mk = mt[order], mk[order]
-    mt[0], mk[0] = 0, 0
-    mk[2:4], mt[2:4] = mk[1], mt[1]
-    mt[-1], mk[-1] = trees, 0
+    if P:
+        mt[0], mk[0] = 0, 0
+    if P >= 4:
+        mk[1:3], mt[1:3] = mk[3], mt[3]
+    if P >= 3 and not one_tree:
+        mt[-1], mk[-1] = trees, 0
     return torch.from_numpy(mt).to(dev), torch.from_numpy(mk).to(dev)
+
+
+def _edge_queries(tree, key, mt, mk, d, seed, trees=4):
+    """The (tree, key) queries with edge cases written in, in place of some
+    random ones: a third equal to a marker, a run before the first marker
+    (tree -1), a run past the last tree, and at d = 3 a run of key
+    2^63 - 1 in tree 0.  Any shape; returns new tensors."""
+    rng = np.random.default_rng(seed)
+    t, k = tree.cpu().numpy().copy(), key.cpu().numpy().copy()
+    ft, fk = t.reshape(-1), k.reshape(-1)
+    m = ft.shape[0]
+    if mt.numel():
+        eq = np.nonzero(rng.random(m) < 1 / 3)[0]
+        j = rng.integers(0, mt.numel(), eq.shape[0])
+        ft[eq], fk[eq] = mt.cpu().numpy()[j], mk.cpu().numpy()[j]
+    ft[0:4], fk[0:4] = -1, rng.integers(0, 1 << 40, 4)
+    ft[4:8], fk[4:8] = trees + 1, 0
+    if d == 3:
+        ft[8:12], fk[8:12] = 0, (1 << 63) - 1
+    return torch.from_numpy(t).to(tree.device), torch.from_numpy(k).to(key.device)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [2, 3])
-@pytest.mark.parametrize("P", [4, 4096, 4097, 8192])
+@pytest.mark.parametrize("P", MARKER_COUNTS)
 @pytest.mark.parametrize("n", [1, 1000, 300_001])
 def test_cuda_owner_rank_matches_plain(d, P, n):
-    """owner_rank equals its plain version on either side of the 4096
-    markers the kernel keeps in shared memory, with empty ranks."""
+    """owner_rank equals its plain version at every marker count of the
+    one search (none included), with a run of empty ranks and a sentinel,
+    on queries equal to markers, before the first, past the last tree and
+    (d = 3) at key 2^63 - 1; and with all the markers in one tree."""
     dev = _card()
-    key = _inputs(d, max(n, 2), seed=n + P, dev=dev)[0][:n].contiguous()
-    tree = torch.randint(0, 5, (n,), dtype=torch.int32, device=dev)
-    mt, mk = _markers(P, 4, d, seed=P + d, dev=dev)
-    before = kops.launch_counts["owner_rank"]
-    got, want = kops.owner_rank(tree, key, mt, mk), kref.owner_rank(tree, key, mt, mk)
-    torch.cuda.synchronize()
-    assert kops.launch_counts["owner_rank"] == before + 1
-    if n > 1000:
-        assert torch.unique(want).numel() > min(P - 4, 1000)
-    assert got.device.type == "cuda" and got.dtype == torch.int32 and torch.equal(got, want)
+    key = _inputs(d, max(n, 12), seed=n + P, dev=dev)[0][:max(n, 12)].contiguous()
+    tree = torch.randint(0, 5, key.shape, dtype=torch.int32, device=dev)
+    for one_tree in (False, True):
+        mt, mk = _markers(P, 4, d, seed=P + d, dev=dev, one_tree=one_tree)
+        t, k = _edge_queries(tree, key, mt, mk, d, seed=n + P)
+        t, k = t[:n].contiguous(), k[:n].contiguous()
+        before = kops.launch_counts["owner_rank"]
+        got, want = kops.owner_rank(t, k, mt, mk), kref.owner_rank(t, k, mt, mk)
+        torch.cuda.synchronize()
+        assert kops.launch_counts["owner_rank"] == before + 1
+        if n > 1000 and not one_tree:
+            assert torch.unique(want).numel() > min(P - 4, 1000)
+        assert got.device.type == "cuda" and got.dtype == torch.int32 and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [5, 4097, 20000])
+def test_cuda_owner_search_reads_views_at_any_offset(P):
+    """Views that start one element into their storage (so not aligned for
+    the kernels' vector loads and stores) give what the plain version
+    gives, through owner_rank and through eval_route's outputs."""
+    dev = _card()
+    d = 3
+    _anchor, level, _stype = _cube_inputs(d, 3001, seed=P, dev=dev)
+    tgt, key, _mt, _mk = _route_inputs(d, level, dev, seed=P)
+    mt, mk = _markers(P, 4, d, seed=P, dev=dev)
+    tgt, key = _edge_queries(tgt, key, mt, mk, d, seed=P)
+    off_t = torch.cat([tgt.new_zeros(1), tgt.reshape(-1)])[1:].view(tgt.shape)
+    off_k = torch.cat([key.new_zeros(1), key.reshape(-1)])[1:].view(key.shape)
+    got = kops.eval_route(d, off_t, off_k, level, mt, mk)
+    want = kref.eval_route(d, tgt, key, level, mt, mk)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
+    t1, k1 = off_t.reshape(-1)[2:], off_k.reshape(-1)[2:]
+    assert t1.data_ptr() % 16 and k1.data_ptr() % 16
+    assert torch.equal(kops.owner_rank(t1, k1, mt, mk), kref.owner_rank(t1, k1, mt, mk))
 
 
 SUCCESSOR_KINDS = 8
@@ -591,18 +660,18 @@ def test_cuda_hex_tree_transform_crosses_every_face(d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [2, 3])
-@pytest.mark.parametrize("P", [4, 4097])
+@pytest.mark.parametrize("P", [4] + MARKER_COUNTS)
 def test_cuda_eval_route_over_hex_faces_matches_plain(d, P):
-    """eval_route over nf = 2d face planes equals its plain version, with
-    the markers in shared memory (P = 4) and binary searched (P = 4097)."""
+    """eval_route over nf = 2d face planes equals its plain version at
+    every marker count (P = 4: `_route_inputs`' markers with an empty rank;
+    else `_markers`' with a run of empty ranks and a sentinel), with the
+    edge-case pairs of `_edge_queries`."""
     dev = _card()
     _anchor, level, _stype = _cube_inputs(d, 100_001, seed=P + 3, dev=dev)
     tgt, key, mt, mk = _route_inputs(d, level, dev, P=4, seed=P, nf=2 * d)
-    if P > 4:
-        rng = np.random.default_rng(P)
-        mt = torch.from_numpy(np.sort(rng.integers(0, 4, P)).astype(np.int32)).to(dev)
-        mk = torch.from_numpy(np.sort(rng.integers(0, 1 << (d * MAXLEVEL[d]), P,
-                                                   dtype=np.uint64)).astype(np.int64)).to(dev)
+    if P != 4:
+        mt, mk = _markers(P, 4, d, seed=P, dev=dev)
+        tgt, key = _edge_queries(tgt, key, mt, mk, d, seed=P)
     before = kops.class_launch_counts["eval_route"]["hex"]
     got = kops.eval_route(d, tgt, key, level, mt, mk)
     want = kref.eval_route(d, tgt, key, level, mt, mk)
