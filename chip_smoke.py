@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --marker-sweep   # phase 1, the launch cost, 2 and 2h's P sweeps, 3, 3p
+    python3 chip_smoke.py --walk-sweep [PARENT]   # rows 1, 2, 5 and 10, parent against change
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
@@ -144,6 +145,15 @@ Phases, in the order they run; any failure exits nonzero:
      a neighbor and C coarse faces with finer leaves across, with V = 2S +
      H + C and H = 2^(d-1) C; and the uniform level-5 brick of 48 trees
      periodic on every axis (1,572,864 tets) gives exactly 2N pairs;
+  3t. the d = 2 main path at full size: 8 trees on SimComm(4), New at
+     level 10 (8,388,608 triangles), the fractal (type 0 refined) to level
+     11 (20,983,808), coarsening trees 4-7 (14,686,208), Partition (about
+     6.3 M triangles migrating), the weighted repartition, Balance (the
+     leaves lie a level apart at most, so it must change nothing), Ghost
+     and validate; counts held to `fractal_count`, per-phase walls,
+     `bytes_for` and peak memory printed, every kernel's launches counted;
+     then on every leaf morton_key equal to its plain version and to the
+     stored key, and decode(key, level) == (anchor, type), exactly;
   3m. phase 3 as four rank processes sharing the card (`run_ranks`; each
      its own CUDA context, loading the library phase 1 built by its hash),
      through `DistComm` over a TCPStore on localhost that rank 0 hosts:
@@ -171,7 +181,8 @@ Phases, in the order they run; any failure exits nonzero:
      time to detect, the save wall and the recover wall;
   3b. the kernels timed (both ways, as in phase 2) at the sizes phases 3,
      3d and 3c launched them with (the smallest, two between and the
-     largest, per kernel); New's "decode" and "successor" methods on
+     largest, per kernel), and morton_key and decode at d = 2 at the sizes
+     phase 3t launched them with; New's "decode" and "successor" methods on
      16,777,216 tets (d = 3, 8 trees, level 7, 3 ranks): the same forests,
      and the wall of each;
   4. card vs CPU: the same pipelines at small size (level 1 -> 3) on both
@@ -207,9 +218,10 @@ Phases, in the order they run; any failure exits nonzero:
      face_sweep (3o also decode, for ghost_oracle's candidates), 3k
      morton_key and inside_root, across tree faces tree_transform and
      morton_key, on the hex phase hex bodies only, and none calls a plain
-     version; phases 3m and 3r (summed over their rank processes, 3r(b)'s
-     survivors and recovery world together) launch every kernel phase 3
-     launches, and no plain version runs in 3r(a); in phase 6,
+     version; phases 3t, 3m and 3r (3m and 3r summed over their rank
+     processes, 3r(b)'s survivors and recovery world together) launch every
+     kernel phase 3 launches, and no plain version runs in 3t or 3r(a); in
+     phase 6,
      flash_attention launched once a layer a prefill (6c: the prefill and
      forward) and no plain version called.
 
@@ -217,12 +229,21 @@ With `--marker-sweep` the script runs phase 1, the launch cost and the P
 sweeps of 2 and 2h, 3 and 3p, and prints their rows as one JSON line: run
 from a checkout of another commit (this file copied in), it measures that
 commit's design with the same code, for a before/after table of the owner
-search (a later redesign of it measures its parent so).
+search (a later redesign of it measures its parent so).  With
+`--walk-sweep` it runs phase 1 and times rows 1, 2, 5 and 10 (the kernels
+whose simplex bodies walk the levels), simplex and hex bodies, as phase 2
+does, and their simplex bodies at the sizes phases 3 and 3d (d = 3) and 3t
+(d = 2) launch them, as phase 3b does, printing the rows as one JSON line;
+`--walk-sweep PARENT` runs that four times in fresh processes, from PARENT
+(a checkout of the parent commit with this file copied in), here, here and
+PARENT, and prints each row's device times, parent against change, before
+one JSON line of all four runs.
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
 line, `launches_phase3`, `launches_phase3c` and `launches_phase3d` are
-each kernel's launches in those phases, and `launches` is those of the
+each kernel's launches in those phases (`launches_phase3t` those of
+phase 3t), and `launches` is those of the
 first of phases 3, 3c and 3d that runs it: phase 3 for the eight kernels
 of the cmesh-free pipeline, phase 3c for `tree_transform`, phase 3d for
 `successor` and `face_neighbor`; `launches_phase3o`, `_phase3k` and
@@ -267,6 +288,12 @@ N_KERNEL = 1 << 22
 SEED = 12
 MULTI_P = 4             # phase 3's ranks (SimComm(4)); one rank process each in 3m
 PATH3 = (3, 8, 6, 8)    # phase 3's d, trees, New's level and the fractal's level
+PATH3T = (2, 8, 10, 11)  # phase 3t's: the d = 2 main path at full size
+MIGRATED3T = 6_000_000   # phase 3t's Partition moves at least this many triangles
+# The rows whose simplex bodies walk the levels (1 morton_key, 2 decode, and
+# 5 face_sweep and 10 successor, which share encode_key and decode_walk):
+# what `--walk-sweep` times, before against after a redesign of the walks.
+WALK_ROWS = ("morton_key", "decode", "face_sweep", "successor")
 # Phases 2 and 2h: eval_route and owner_rank against P markers, for each P here;
 # up to SWEEP_ALL_CHECKED markers every output is held against the plain
 # version, past it a seeded sample of SAMPLE elements (the plain
@@ -1444,11 +1471,16 @@ def run_path(d: int, num_trees: int, level: int, max_level: int, P: int, device,
     return fs, gh, comm, facts
 
 
-def main_path() -> tuple[dict, list, object, list]:
-    """Phase 3: the full-size run on the card.  Returns (facts, with the
+def main_path(path: tuple = PATH3,
+              min_migrated: int = 9_000_000) -> tuple[dict, list, object, list]:
+    """Phase 3 (and, with PATH3T, phase 3t): the full-size run on the card,
+    its counts held to `fractal_count`, at least `min_migrated` elements
+    moved by Partition; Balance refines where the fractal spans two levels
+    or more, and changes nothing where it spans one (phase 3t: its leaves
+    are a level apart at most, already 2:1).  Returns (facts, with the
     forests Balance started from under "unbalanced"; the balanced forests;
     the communicator; their ghosts)."""
-    (d, trees, level, max_level), P = PATH3, MULTI_P
+    (d, trees, level, max_level), P = path, MULTI_P
     half = trees // 2
     per_tree_fine = fractal_count(d, 1, level, max_level)
     per_tree_coarse = fractal_count(d, 1, level, max_level - 1)
@@ -1472,26 +1504,29 @@ def main_path() -> tuple[dict, list, object, list]:
     if part["alltoallv_bytes"] != moved * WIRE_TRIPLE_BYTES:
         raise AssertionError(f"partition shipped {part['alltoallv_bytes']} B for {moved} "
                              "migrated elements")
-    if comm.bytes_for("partition") < 9_000_000 * WIRE_TRIPLE_BYTES:
+    if comm.bytes_for("partition") < min_migrated * WIRE_TRIPLE_BYTES:
         raise AssertionError(f"partition moved only {comm.bytes_for('partition')} B")
     if facts["weighted_imbalance_after"] > 1.001:
         raise AssertionError(f"weighted imbalance {facts['weighted_imbalance_after']} "
                              "after repartition")
     before, after = (sum(facts["per_rank"][k]) for k in ("repartition weighted", "balance"))
-    if after <= before or facts["balance_evals"] < 2:
+    if max_level - level >= 2 and (after <= before or facts["balance_evals"] < 2):
         raise AssertionError(f"balance refined nothing: {before} -> {after} elements")
+    if max_level - level < 2 and after != before:     # leaves a level apart are 2:1 already
+        raise AssertionError(f"balance refined a 2:1 forest: {before} -> {after} elements")
     if not all(facts["per_rank"]["ghost"]) or not comm.bytes_for("ghost"):
         raise AssertionError(f"an empty ghost layer: {facts['per_rank']['ghost']}")
     peak = torch.cuda.max_memory_allocated()
     print(f"  counts {want['new_uniform']:,} -> {want['adapt fractal']:,} -> "
           f"{want['adapt coarsen']:,} as the transfer matrix of the port's tables says; "
           f"per rank before partition {want_rank}", flush=True)
-    print(f"  partition migrated {moved:,} tets ({part['alltoallv_bytes']:,} B of wire "
+    print(f"  partition migrated {moved:,} elements ({part['alltoallv_bytes']:,} B of wire "
           f"triples); load_imbalance {facts['imbalance_before']} -> "
           f"{facts['imbalance_after']}; weighted (1 + (level == {max_level})) "
           f"{facts['weighted_imbalance_before']} -> {facts['weighted_imbalance_after']}",
           flush=True)
-    print(f"  balance: {before:,} -> {after:,} tets, per rank {facts['per_rank']['balance']}, "
+    print(f"  balance: {before:,} -> {after:,} elements, per rank "
+          f"{facts['per_rank']['balance']}, "
           f"{facts['balance_evals']} evaluation rounds ({facts['balance_evals'] - 1} refining); "
           f"bytes_for balance {comm.bytes_for('balance'):,} B, ghost "
           f"{comm.bytes_for('ghost'):,} B; ghosts per rank {facts['per_rank']['ghost']}; "
@@ -1502,6 +1537,120 @@ def main_path() -> tuple[dict, list, object, list]:
     facts["peak_bytes"] = peak
     torch.cuda.empty_cache()
     return facts, fs, comm, gh
+
+
+def d2_path(kops, kref) -> tuple[dict, dict, dict, dict]:
+    """Phase 3t: the d = 2 main path at full size (PATH3T on SimComm(4):
+    New at level 10, the fractal to level 11, coarsening trees 4-7,
+    Partition, the weighted repartition, Balance, Ghost, validate), its
+    counts held to `fractal_count`; counted (every count set to 0 just
+    before it and read just after), its launch sizes recorded.  Then,
+    outside the counted run, on every leaf: morton_key equal to its plain
+    version and to the stored key, and decode(key, level) giving back
+    (anchor, type), exactly.  Returns (facts, launches, plain calls, launch
+    sizes)."""
+    sizes, originals = record_launch_sizes(kops)
+    (facts, fs, _comm, gh), launches, plain_calls, _cls = counted(
+        kops, kref, lambda: main_path(PATH3T, MIGRATED3T))
+    for name, fn in originals.items():
+        setattr(kops, name, fn)
+    del gh, facts["unbalanced"]
+    n = 0
+    for f in fs:
+        key = kops.morton_key(f.anchor, f.stype)
+        if not (torch.equal(key, kref.morton_key(f.anchor, f.stype)) and torch.equal(key, f.keys)):
+            raise AssertionError("phase 3t: morton_key differs from its plain version or the "
+                                 "stored keys")
+        anchor, stype = kops.decode(f.d, key, f.level)
+        if not (torch.equal(anchor, f.anchor) and torch.equal(stype, f.stype)):
+            raise AssertionError("phase 3t: decode(key, level) does not give back the leaves")
+        n += f.num_local
+    print(f"  on all {n:,} leaves: morton_key == its plain version == the stored keys, and "
+          "decode(key, level) == (anchor, type), exactly", flush=True)
+    del fs
+    torch.cuda.empty_cache()
+    return facts, launches, plain_calls, sizes
+
+
+def walk_sweep(smi: str) -> int:
+    """`--walk-sweep`: the WALK_ROWS kernels, simplex and hex bodies, timed
+    as phase 2 times them (N = 2^22, d = 3 and 2, exact against the plain
+    versions first), and the simplex bodies at the sizes phase 3 and its
+    queries (d = 3) and phase 3t (d = 2; successor is not launched there)
+    launch them, as phase 3b times them; the rows as one JSON line.  Run from
+    a checkout of another commit (this file copied in), it measures that
+    commit's kernels with the same code."""
+    from repro_torch.kernels import ops as kops
+
+    dev = torch.device("cuda")
+    rows = []
+    for d in (3, 2):
+        for tag, make in (("", kernel_cases), ("hex ", hex_kernel_cases)):
+            cases = make(d, N_KERNEL, dev)
+            for name in WALK_ROWS:
+                inputs, kernel, plain = cases[name]
+                got, _want, err = compare_exact(f"{tag}{name} d={d}", kernel, plain)
+                row = timing_row(name, d, N_KERNEL, inputs, got, kernel, plain, err, "", 50, 1,
+                                 tag=tag)
+                rows.append({**row, "class": tag.strip() or "simplex", "at": "phase 2"})
+            del cases
+            torch.cuda.empty_cache()
+    sizes3, originals = record_launch_sizes(kops)
+    _facts, fs, comm, _gh = main_path()
+    element_queries(fs, comm)
+    for name, fn in originals.items():
+        setattr(kops, name, fn)
+    del _facts, fs, comm, _gh
+    torch.cuda.empty_cache()
+    sizes3t, originals = record_launch_sizes(kops)
+    main_path(PATH3T, MIGRATED3T)
+    for name, fn in originals.items():
+        setattr(kops, name, fn)
+    torch.cuda.empty_cache()
+    for d, at, sz, names in ((3, "phase 3", sizes3, WALK_ROWS),
+                             (2, "phase 3t", sizes3t, WALK_ROWS[:3])):
+        print(f"== walk rows at the sizes {at} launched them (card {smi})", flush=True)
+        for name, pts in time_at_launch_sizes({k: sz[k] for k in names}, d).items():
+            rows += [{**x, "name": name, "d": d, "class": "simplex", "at": at} for x in pts]
+    print(json.dumps({"walk_sweep": rows, "card": smi}))
+    return 0
+
+
+def walk_compare(parent: Path, smi: str) -> int:
+    """`--walk-sweep PARENT`: `--walk-sweep` run four times in fresh
+    processes, from PARENT (a checkout of the parent commit with this file
+    copied in), from here, here and PARENT again, on one card; prints each
+    row's device times, parent against change, and one JSON line of all
+    the runs."""
+    runs = []
+    for label, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                        ("parent", parent)):
+        t = time.perf_counter()
+        out = subprocess.run([sys.executable, str(root / "chip_smoke.py"), "--walk-sweep"],
+                             capture_output=True, text=True, timeout=1500)
+        if out.returncode:
+            print(out.stdout[-3000:], out.stderr[-3000:], sep="\n", file=sys.stderr)
+            raise AssertionError(f"--walk-sweep from {root} exited {out.returncode}")
+        runs.append((label, json.loads(out.stdout.strip().splitlines()[-1])["walk_sweep"]))
+        print(f"  --walk-sweep, {label} ({root}): {time.perf_counter() - t:.1f} s", flush=True)
+    print(f"== walk rows, device ms: parent (two runs) -> change (two runs) (card {smi})",
+          flush=True)
+    table = {}
+    for label, rows in runs:
+        for r in rows:
+            key = (r["class"], r["name"], r["d"], r["at"], r["n"])
+            table.setdefault(key, {"parent": [], "change": [], "bound_ms": r["bound_ms"]})
+            table[key][label].append(r["device_ms"])
+    for (cls, name, d, at, n), v in table.items():
+        p, c = np.mean(v["parent"]), np.mean(v["change"])
+        print(f"  {cls:7s} {name:10s} d={d} {at:8s} n={n:>9,}: "
+              f"{' / '.join(f'{x:.4f}' for x in v['parent'])} -> "
+              f"{' / '.join(f'{x:.4f}' for x in v['change'])} ms ({c / p:.3f} x the parent); "
+              f"bound {v['bound_ms']:.4f} ms, {v['bound_ms'] / c:.1%} of it after, "
+              f"{v['bound_ms'] / p:.1%} before", flush=True)
+    print(json.dumps({"walk_compare": [{"run": label, "rows": rows} for label, rows in runs],
+                      "card": smi}))
+    return 0
 
 
 def element_queries(fs: list, comm) -> dict:
@@ -1675,7 +1824,8 @@ def cmesh_path() -> tuple[dict, list, list, list, object]:
     print(f"  partition migrated {moved:,} tets ({part['alltoallv_bytes']:,} B); weighted "
           f"imbalance {facts['weighted_imbalance_before']} -> "
           f"{facts['weighted_imbalance_after']}", flush=True)
-    print(f"  balance: {before:,} -> {after:,} tets, per rank {facts['per_rank']['balance']}, "
+    print(f"  balance: {before:,} -> {after:,} elements, per rank "
+          f"{facts['per_rank']['balance']}, "
           f"{facts['balance_evals']} evaluation rounds; ghosts per rank "
           f"{facts['per_rank']['ghost']}; validate(forests, ghosts) True", flush=True)
     print(f"  bytes_for per phase {facts['bytes']}", flush=True)
@@ -3136,6 +3286,8 @@ def main() -> int:
 
     if sys.argv[1:] == ["--marker-sweep"]:
         return marker_sweep_only(smi)
+    if sys.argv[1:2] == ["--walk-sweep"] and len(sys.argv) <= 3:
+        return walk_sweep(smi) if len(sys.argv) == 2 else walk_compare(Path(sys.argv[2]), smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3205,6 +3357,9 @@ def main() -> int:
     del runs
     torch.cuda.empty_cache()
 
+    print(f"== 3t. the d = 2 main path at full size (card {smi})", flush=True)
+    _facts_t, launches_t, plain_calls_t, sizes_t = d2_path(kops, kref)
+
     print(f"== 3m. phase 3 as {MULTI_P} rank processes on the card (card {smi})", flush=True)
     multi = multi_process_path(ref3)
     print(f"== 3r. resilience on the card: (a) byte faults at full size (card {smi})", flush=True)
@@ -3217,6 +3372,9 @@ def main() -> int:
 
     print(f"== 3b. kernels at the sizes phases 3, 3c and 3d launched (card {smi})", flush=True)
     time_at_launch_sizes(sizes)
+    print(f"== 3b. morton_key and decode at the sizes phase 3t launched, d = 2 (card {smi})",
+          flush=True)
+    time_at_launch_sizes({k: sizes_t[k] for k in ("morton_key", "decode")}, d=2)
     new_uniform_methods()
 
     print("== 4. card vs CPU", flush=True)
@@ -3231,6 +3389,8 @@ def main() -> int:
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
           flush=True)
     print(f"  kernel launches in phase 3d: {launches_d}; plain calls: {plain_calls_d}",
+          flush=True)
+    print(f"  kernel launches in phase 3t: {launches_t}; plain calls: {plain_calls_t}",
           flush=True)
     queries = ("owner_rank", "successor", "face_neighbor")
     if not all(launches[k] > 0 for k in REPLACES if k not in ("tree_transform", *queries[1:])):
@@ -3261,11 +3421,13 @@ def main() -> int:
     print(f"  kernel launches in phase 3m (summed over the ranks): {multi['launches']}; in 3r(a): "
           f"{launches_ra}, plain calls {plain_calls_ra}; in 3r(b) (survivors and the recovery "
           f"world): {killed['launches']}; no plain call in any rank process", flush=True)
-    for label, lc in (("3m", multi["launches"]), ("3r(a)", launches_ra), ("3r", launches_r)):
+    for label, lc in (("3t", launches_t), ("3m", multi["launches"]), ("3r(a)", launches_ra),
+                      ("3r", launches_r)):
         if not all(lc[k] > 0 for k in path3):
             raise AssertionError(f"phase {label}: a kernel of phase 3's path was not launched: {lc}")
-    if any(plain_calls_ra.values()):
-        raise AssertionError(f"plain versions ran in phase 3r(a): {plain_calls_ra}")
+    if any(plain_calls_ra.values()) or any(plain_calls_t.values()):
+        raise AssertionError(f"plain versions ran in phase 3r(a) or 3t: {plain_calls_ra}, "
+                             f"{plain_calls_t}")
     hybrid_face_sweeps(kops)
     prefills = {"6a": 1, "6b": len(REQUEST_LENGTHS), "6c": 2}     # 6c: prefill and forward
     layers = get_config(SERVE_ARCH).num_layers
@@ -3284,7 +3446,7 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": launches[name] or launches_c[name] or launches_d[name],
             "launches_phase3": launches[name], "launches_phase3c": launches_c[name],
-            "launches_phase3d": launches_d[name],
+            "launches_phase3d": launches_d[name], "launches_phase3t": launches_t[name],
             **{f"launches_phase{ph}": sum(row[1][name] for row in forest_counts[ph])
                for ph in ("3o", "3k", "3i")},
             "launches_phase3m": multi["launches"][name], "launches_phase3r": launches_r[name],

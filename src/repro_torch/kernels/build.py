@@ -4,8 +4,9 @@ Two sources: `sfc.cu` (the element kernels) and `flash_attention.cu`
 (attention).  A `csrc/<stem>.cu` source is compiled by `nvcc` into a shared
 library with a plain C interface, at first use, into `_build/` beside this
 file (a directory that git ignores); `build_all` starts one `nvcc` a source,
-all together.  The packed lookup tables the kernels index,
-and the root simplex's containment constants, are generated from
+all together.  The packed lookup tables the kernels index (the one-level
+tables, and the m-level tables of the simplex key and decode walks), and
+the root simplex's containment constants, are generated from
 `core.tables` into `_build/sfc_tables.h` first, so no table is typed by
 hand.  A library is named after the hash of its source, the generated
 header and the flags, so an edit rebuilds and an unchanged tree reuses the
@@ -24,16 +25,22 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import numpy as np
+
 from ..core.tables import MAXLEVEL, get_tables
 
-__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "packed_tables", "neighbor_table",
-           "hex_neighbor_table", "root_containment", "table_header", "build", "build_all",
-           "library"]
+__all__ = ["BUILD_DIR", "CSRC_DIR", "NVCC_FLAGS", "WALK_LEVELS", "packed_tables",
+           "walk_tables", "neighbor_table", "hex_neighbor_table", "root_containment",
+           "table_header", "build", "build_all", "library"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Levels a table lookup of the simplex key and decode walks (`walk_tables`),
+# by dimension; each divides MAXLEVEL[d].  Picked by measurement on the card
+# (PERF.md §6): at d = 2, m = 5 and 6 were timed.
+WALK_LEVELS = {2: 5, 3: 3}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -54,6 +61,49 @@ def packed_tables(d: int) -> tuple[list[int], list[int]]:
             dec[b * nc + iloc] = (int(t.cube_id_of_local[b, iloc])
                                   | (int(t.type_of_local[b, iloc]) << 3))
     return enc, dec
+
+
+def walk_tables(d: int, m: int | None = None) -> tuple[list[int], list[int]]:
+    """The m-level transition tables of the simplex key and decode walks
+    (m = WALK_LEVELS[d] by default), composed from `packed_tables`, 16 bits
+    an entry, entry b * 2^(d m) + chunk for a type b and the chunk of m
+    levels (t = 0 the finest of them):
+
+    wenc: chunk = the m cube ids axis-major, bit m k + t the bit of axis k
+    at level t; entry = the m local indices as key digits, digit t at bit
+    d t, | the type at the coarse end << d m (b is the type at the fine end).
+    wdec: chunk = the m key digits, digit t at bit d t; entry = the m cube
+    ids axis-major | the type at the fine end << d m (b is the type at the
+    coarse end).
+
+    The decode walk masks the digits finer than an element's level to 0 and
+    walks every level: it relies on child 0 of every type b having cube id
+    0 and type b, which is checked here."""
+    m = WALK_LEVELS[d] if m is None else m
+    enc1, dec1 = (np.array(t, dtype=np.int64) for t in packed_tables(d))
+    nc = 1 << d
+    nt = len(enc1) // nc
+    if MAXLEVEL[d] % m or d * m + (nt - 1).bit_length() > 16:
+        raise ValueError(f"{m} levels a lookup do not divide {MAXLEVEL[d]} levels or fit 16 bits")
+    if any(dec1[b * nc] != b << 3 for b in range(nt)):
+        raise ValueError(f"d={d}: child 0 of some type is not cube 0 of its parent's type")
+    idx = np.arange(nt << (d * m), dtype=np.int64)
+    top, chunk = idx >> (d * m), idx & ((1 << (d * m)) - 1)
+    wenc, b = np.zeros_like(idx), top
+    for t in range(m):                                 # fine -> coarse
+        cid = sum(((chunk >> (m * k + t)) & 1) << k for k in range(d))
+        p = enc1[b * nc + cid]
+        wenc |= (p & 7) << (d * t)
+        b = p >> 3
+    wenc |= b << (d * m)
+    wdec, b = np.zeros_like(idx), top
+    for t in range(m - 1, -1, -1):                     # coarse -> fine
+        p = dec1[b * nc + ((chunk >> (d * t)) & (nc - 1))]
+        for k in range(d):
+            wdec |= ((p >> k) & 1) << (m * k + t)
+        b = p >> 3
+    wdec |= b << (d * m)
+    return wenc.tolist(), wdec.tolist()
 
 
 def neighbor_table(d: int) -> list[int]:
@@ -109,6 +159,11 @@ def table_header() -> str:
         for name, vals in (("enc", enc), ("dec", dec)):
             body = ", ".join(str(v) for v in vals)
             lines.append(f"__constant__ unsigned char sfc_{name}_{d}[{len(vals)}] = {{{body}}};")
+        lines.append(f"#define SFC_WALK_M_{d} {WALK_LEVELS[d]}")
+        for name, vals in zip(("walk_enc", "walk_dec"), walk_tables(d)):
+            body = ", ".join(str(v) for v in vals)
+            lines.append(f"__constant__ __align__(16) unsigned short sfc_{name}_{d}[{len(vals)}] = "
+                         f"{{{body}}};")
         for name, nei in (("nei", neighbor_table(d)), ("hex_nei", hex_neighbor_table(d))):
             body = ", ".join(str(v) for v in nei)
             lines.append(f"__constant__ unsigned short sfc_{name}_{d}[{len(nei)}] = {{{body}}};")

@@ -25,6 +25,11 @@
 //     __constant__ read would serialise a warp over its distinct addresses.)
 //     Table indices are masked to the 64-byte shared copy, so an element of
 //     an out-of-range type reads a wrong entry, never out of bounds.
+//   * The simplex bodies of morton_key and decode walk m levels a lookup
+//     instead (m = 5 at d = 2, 3 at d = 3): build.py composes m-level tables
+//     from the one-level ones (4 and 6 KB, in __constant__ memory), and each
+//     resident block of a persistent grid copies its table into shared
+//     memory once, through the table's global address.
 //   * The face-neighbor table (16 bits an entry) is copied to shared memory
 //     the same way.  The root simplex's Proposition-23 constants (its axis
 //     permutation, and the type sets outside each boundary) are generated
@@ -81,7 +86,10 @@
 // no published integer peak fits them, so the bound has no operations term.
 // What the design does about it: encode and decode keep the whole level
 // chain in registers and read the tables from shared memory, so the only
-// memory traffic is the element itself; parent and children are single
+// memory traffic is the element itself (and a 4-6 KB table a resident
+// block); walking m levels a lookup, a simplex issues about a fifth of the
+// instructions of a walk one level at a time, which alone took longer than
+// the bytes at d = 2 (30 levels); parent and children are single
 // passes whose stores are contiguous across the threads of a warp.  The
 // face sweep reads each element once and writes every face's outputs
 // face-major ((nf, n) planes), so each store is contiguous across a warp;
@@ -299,23 +307,6 @@ __device__ __forceinline__ bool element_inside(const int (&c)[D], int lvl, int b
   else return inside_root_of<D>(c, lvl, b);
 }
 
-// Replaces morton_key_kernel (src/repro/kernels/sfc.py:557, body
-// _encode_body :224 / _encode_expr :100; hex branch :232 / _hex_encode_expr
-// :174).
-template <int D, int EC>
-__global__ void __launch_bounds__(kThreads)
-morton_key_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ stype,
-                  int64_t* __restrict__ key, int64_t n) {
-  __shared__ unsigned char enc[kTab];
-  if constexpr (EC == kSimplex) load_table<D, kEnc>(enc);
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-  if (i >= n) return;
-  int c[D];
-#pragma unroll
-  for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
-  key[i] = element_key<D, EC>(c, EC == kHex ? 0 : stype[i], enc);
-}
-
 // Algorithm 4.8 coarse -> fine (_decode_body, sfc.py:238): the anchor xyz
 // and, returned, the type of the level-`lvl` element with level-padded key
 // k64.  Digits finer than the level are masked to 0 and the type chain is
@@ -350,21 +341,175 @@ __device__ __forceinline__ int decode_walk(uint64_t k64, int lvl, const unsigned
   }
 }
 
-// Replaces decode_kernel (src/repro/kernels/sfc.py:573, body _decode_body
-// :238, hex branch :264): Algorithm 4.8, one element a thread.
-template <int D, int EC>
+// The simplex key and decode walks of morton_key and decode, m levels a
+// table lookup (m = Walk<D>::M, generated by build.py: 5 at d = 2, 3 at
+// d = 3, so L / m = 6 and 7 lookups): the m-level tables (`walk_tables`,
+// 16 bits an entry, 4 / 6 KB) compose m steps of the one-level tables, so
+// a lookup replaces m dependent table reads and m levels of bit
+// extraction.  The type selects a block of 2^(D m) entries:
+//   * encode, fine -> coarse: the chunk is the anchor's bits of m levels,
+//     axis-major (bits s .. s + m - 1 of coordinate k at bit m k), so the
+//     anchor needs no interleave; an entry holds the m local indices as key
+//     digits and the type at the chunk's coarse end;
+//   * decode, coarse -> fine: the chunk is m digits of the key; an entry
+//     holds the m cube ids axis-major, which go straight into the anchor's
+//     coordinates, and the type at the chunk's fine end.
+template <int D>
+struct Walk {
+  static constexpr int M = D == 2 ? SFC_WALK_M_2 : SFC_WALK_M_3;
+  static constexpr int STEPS = Dim<D>::L / M;
+  static constexpr int CHUNK = 1 << (D * M);        // entries a type
+  static constexpr int ENTRIES = Dim<D>::NT * CHUNK;
+  static constexpr unsigned BITS = (1u << M) - 1;    // one axis's bits of a chunk
+  static constexpr unsigned DIGITS = CHUNK - 1;      // the key digits of a chunk
+  static_assert(STEPS * M == Dim<D>::L, "the walk must cover every level");
+  static_assert(ENTRIES * sizeof(unsigned short) % 16 == 0, "staged as 16-byte vectors");
+};
+
+// The global copy of the m-level table that morton_key (kEnc) or decode
+// (kDec) stages; the launcher asks the runtime for its address.
+template <int D, Table T>
+const void* walk_symbol() {
+  if constexpr (T == kEnc) return D == 2 ? static_cast<const void*>(sfc_walk_enc_2)
+                                         : static_cast<const void*>(sfc_walk_enc_3);
+  else return D == 2 ? static_cast<const void*>(sfc_walk_dec_2)
+                     : static_cast<const void*>(sfc_walk_dec_3);
+}
+
+constexpr int kWalkThreads = 512;   // a block of the walks' persistent grid,
+constexpr int kWalkBlocks = 4;      // and the blocks an SM holds (registers fit by launch bounds)
+
+// Copies an m-level table from global memory into shared memory as 16-byte
+// vectors; every thread of the block must reach this (it ends in
+// __syncthreads).
+template <int D>
+__device__ __forceinline__ void stage_walk_table(unsigned short* dst,
+                                                 const unsigned short* __restrict__ src) {
+  constexpr int vecs = Walk<D>::ENTRIES * sizeof(unsigned short) / 16;
+  for (int i = threadIdx.x; i < vecs; i += blockDim.x)
+    reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+  __syncthreads();
+}
+
+// The key encode_key computes, m levels a lookup.  Only the low L bits of
+// each coordinate are read (bits s .. s + m - 1 for s < L).  A type out of
+// range is clamped to the last type: a wrong key, never a read out of the
+// table.
+template <int D>
+__device__ __forceinline__ int64_t walk_key(const int (&c)[D], int b, const unsigned short* tab) {
+  using W = Walk<D>;
+  unsigned t = min(static_cast<unsigned>(b), static_cast<unsigned>(Dim<D>::NT - 1));
+  uint64_t k64 = 0;
+#pragma unroll
+  for (int j = 0; j < W::STEPS; ++j) {
+    const int s = W::M * j;
+    unsigned q = 0;
+#pragma unroll
+    for (int k = 0; k < D; ++k) q |= ((static_cast<unsigned>(c[k]) >> s) & W::BITS) << (W::M * k);
+    const unsigned e = tab[t * W::CHUNK + q];
+    k64 |= static_cast<uint64_t>(e & W::DIGITS) << (D * s);
+    t = e >> (D * W::M);
+  }
+  return static_cast<int64_t>(k64);
+}
+
+// The element decode_walk computes for a simplex, m levels a lookup: the
+// digits finer than the level are zeroed once (the shift clamped to [0, 63]
+// as for a hex), and every level is walked with no level test.  That is the
+// TPU kernel's frozen-type rule, because child 0 of every type b is cube 0
+// of type b (build.py checks this): a zero digit contributes cube id 0 and
+// keeps the type.  Key bits at and above D*L are not read.
+template <int D>
+__device__ __forceinline__ int walk_decode(uint64_t k64, int lvl, const unsigned short* tab,
+                                           int (&xyz)[D]) {
+  using W = Walk<D>;
+  constexpr int L = Dim<D>::L;
+  const int sb = min(max(D * (L - lvl), 0), 63);
+  const uint64_t k = k64 & ~((uint64_t{1} << sb) - 1);
+  unsigned t = 0, x[D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) x[a] = 0;
+#pragma unroll
+  for (int j = W::STEPS - 1; j >= 0; --j) {
+    const int s = W::M * j;
+    const unsigned e = tab[t * W::CHUNK + (static_cast<unsigned>(k >> (D * s)) & W::DIGITS)];
+#pragma unroll
+    for (int a = 0; a < D; ++a) x[a] |= ((e >> (W::M * a)) & W::BITS) << s;
+    t = e >> (D * W::M);
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) xyz[a] = static_cast<int>(x[a]);
+  return static_cast<int>(t);
+}
+
+// Replaces morton_key_kernel's simplex body (src/repro/kernels/sfc.py:557,
+// body _encode_body :224 / _encode_expr :100).  A persistent grid: each
+// resident block stages the m-level table once and then walks the elements
+// a grid stride apart, one a thread, so that every load and store is
+// contiguous across a warp.
+template <int D>
+__global__ void __launch_bounds__(kWalkThreads, kWalkBlocks)
+simplex_key_kernel(const int32_t* __restrict__ anchor, const int32_t* __restrict__ stype,
+                   const unsigned short* __restrict__ table, int64_t* __restrict__ key,
+                   int64_t n) {
+  __shared__ __align__(16) unsigned short tab[Walk<D>::ENTRIES];
+  stage_walk_table<D>(tab, table);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += stride) {
+    int c[D];
+#pragma unroll
+    for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
+    key[i] = walk_key<D>(c, stype[i], tab);
+  }
+}
+
+// Replaces morton_key_kernel's hex branch (src/repro/kernels/sfc.py:557,
+// body _encode_body :232 / _hex_encode_expr :174): one element a thread.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level,
-              int32_t* __restrict__ anchor, int32_t* __restrict__ stype, int64_t n) {
-  __shared__ unsigned char dec[kTab];
-  if constexpr (EC == kSimplex) load_table<D, kDec>(dec);
+hex_key_kernel(const int32_t* __restrict__ anchor, int64_t* __restrict__ key, int64_t n) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
+  if (i >= n) return;
+  int c[D];
+#pragma unroll
+  for (int k = 0; k < D; ++k) c[k] = anchor[i * D + k];
+  key[i] = hex_key<D>(c);
+}
+
+// Replaces decode_kernel's simplex body (src/repro/kernels/sfc.py:573,
+// body _decode_body :238): Algorithm 4.8 on the persistent grid of
+// simplex_key_kernel.
+template <int D>
+__global__ void __launch_bounds__(kWalkThreads, kWalkBlocks)
+simplex_decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level,
+                      const unsigned short* __restrict__ table, int32_t* __restrict__ anchor,
+                      int32_t* __restrict__ stype, int64_t n) {
+  __shared__ __align__(16) unsigned short tab[Walk<D>::ENTRIES];
+  stage_walk_table<D>(tab, table);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += stride) {
+    int xyz[D];
+    stype[i] = walk_decode<D>(static_cast<uint64_t>(key[i]), level[i], tab, xyz);
+#pragma unroll
+    for (int a = 0; a < D; ++a) anchor[i * D + a] = xyz[a];
+  }
+}
+
+// Replaces decode_kernel's hex branch (src/repro/kernels/sfc.py:573, body
+// _decode_body :264): the masked key de-interleaved, one element a thread.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+hex_decode_kernel(const int64_t* __restrict__ key, const int32_t* __restrict__ level,
+                  int32_t* __restrict__ anchor, int32_t* __restrict__ stype, int64_t n) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
   if (i >= n) return;
   int xyz[D];
-  const int b = decode_walk<D, EC>(static_cast<uint64_t>(key[i]), level[i], dec, xyz);
+  decode_walk<D, kHex>(static_cast<uint64_t>(key[i]), level[i], nullptr, xyz);
 #pragma unroll
   for (int k = 0; k < D; ++k) anchor[i * D + k] = xyz[k];
-  stype[i] = b;
+  stype[i] = 0;
 }
 
 // Replaces parent_kernel (src/repro/kernels/sfc.py:627, body _parent_body
@@ -1054,73 +1199,146 @@ cudaError_t owner_launch(Kernel* kernel, OwnerKernel which, int p, int64_t work,
   return cudaSuccess;
 }
 
-// Calls Launch<d, eclass>::run(args...) for the four instantiated pairs and
-// returns cudaGetLastError() after it; an unknown pair launches nothing and
-// returns cudaErrorInvalidValue.
-template <template <int, int> class Launch, typename... Args>
-int launch_for(int d, int eclass, Args... args) {
-  if (d == 2 && eclass == kSimplex) Launch<2, kSimplex>::run(args...);
-  else if (d == 3 && eclass == kSimplex) Launch<3, kSimplex>::run(args...);
-  else if (d == 2 && eclass == kHex) Launch<2, kHex>::run(args...);
-  else if (d == 3 && eclass == kHex) Launch<3, kHex>::run(args...);
-  else return cudaErrorInvalidValue;
-  return cudaGetLastError();
+// The persistent grid of a simplex key or decode walk over n elements:
+// kWalkBlocks blocks an SM (their launch bounds make them fit), and no more
+// than the work needs; and the global address of the m-level table the
+// blocks stage.  What the runtime is asked for this is asked once a device
+// and table and kept (the table's address, the SM count), so a launch makes
+// one runtime call (the current device) before the kernel's.  Returns
+// cudaSuccess or the first error.
+struct WalkLaunch {
+  unsigned grid = 0;
+  const unsigned short* table = nullptr;
+};
+
+enum WalkKernel { kWalkKey2, kWalkKey3, kWalkDecode2, kWalkDecode3, kWalkKernels };
+
+struct WalkShape {                                // zero until asked
+  std::atomic<const unsigned short*> table;
+  std::atomic<unsigned> resident;                 // blocks the card holds; set last
+};
+WalkShape walk_shapes[kWalkKernels][kMaxDevices];
+
+cudaError_t walk_launch(WalkKernel which, const void* symbol, int64_t n, WalkLaunch* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  WalkShape& shape = walk_shapes[which][dev];
+  unsigned resident = shape.resident.load(std::memory_order_acquire);
+  if (resident == 0) {
+    void* table = nullptr;
+    int sms = 0;
+    e = cudaGetSymbolAddress(&table, symbol);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (reinterpret_cast<uintptr_t>(table) & 15) return cudaErrorMisalignedAddress;
+    shape.table.store(static_cast<const unsigned short*>(table), std::memory_order_relaxed);
+    resident = static_cast<unsigned>(kWalkBlocks * sms);
+    shape.resident.store(resident, std::memory_order_release);
+  }
+  out->grid = static_cast<unsigned>(std::min<int64_t>((n + kWalkThreads - 1) / kWalkThreads,
+                                                      resident));
+  out->table = shape.table.load(std::memory_order_relaxed);
+  return cudaSuccess;
 }
 
-// One launcher per kernel with a body per class, for `launch_for`.
+// Calls Launch<d, eclass>::run(args...) for the four instantiated pairs and
+// returns the launcher's error or, after the launch, cudaGetLastError(); an
+// unknown pair launches nothing and returns cudaErrorInvalidValue.
+template <template <int, int> class Launch, typename... Args>
+int launch_for(int d, int eclass, Args... args) {
+  cudaError_t e;
+  if (d == 2 && eclass == kSimplex) e = Launch<2, kSimplex>::run(args...);
+  else if (d == 3 && eclass == kSimplex) e = Launch<3, kSimplex>::run(args...);
+  else if (d == 2 && eclass == kHex) e = Launch<2, kHex>::run(args...);
+  else if (d == 3 && eclass == kHex) e = Launch<3, kHex>::run(args...);
+  else return cudaErrorInvalidValue;
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// One launcher per kernel with a body per class, for `launch_for`; each
+// returns an error it met before the launch, else cudaSuccess.
 template <int D, int EC> struct MortonKey {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* b, int64_t* k, int64_t n) {
-    morton_key_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, b, k, n);
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* b, int64_t* k,
+                         int64_t n) {
+    if constexpr (EC == kHex) {
+      hex_key_kernel<D><<<blocks_for(n), kThreads, 0, s>>>(a, k, n);
+    } else {
+      WalkLaunch g;
+      const cudaError_t e =
+          walk_launch(D == 2 ? kWalkKey2 : kWalkKey3, walk_symbol<D, kEnc>(), n, &g);
+      if (e != cudaSuccess) return e;
+      simplex_key_kernel<D><<<g.grid, kWalkThreads, 0, s>>>(a, b, g.table, k, n);
+    }
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct Decode {
-  static void run(cudaStream_t s, const int64_t* k, const int32_t* l, int32_t* a, int32_t* b,
-                  int64_t n) {
-    decode_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(k, l, a, b, n);
+  static cudaError_t run(cudaStream_t s, const int64_t* k, const int32_t* l, int32_t* a,
+                         int32_t* b, int64_t n) {
+    if constexpr (EC == kHex) {
+      hex_decode_kernel<D><<<blocks_for(n), kThreads, 0, s>>>(k, l, a, b, n);
+    } else {
+      WalkLaunch g;
+      const cudaError_t e =
+          walk_launch(D == 2 ? kWalkDecode2 : kWalkDecode3, walk_symbol<D, kDec>(), n, &g);
+      if (e != cudaSuccess) return e;
+      simplex_decode_kernel<D><<<g.grid, kWalkThreads, 0, s>>>(k, l, g.table, a, b, n);
+    }
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct Parent {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
-                  int32_t* pa, int32_t* pl, int32_t* pb, int32_t* pi, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                         int32_t* pa, int32_t* pl, int32_t* pb, int32_t* pi, int64_t n) {
     parent_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, pa, pl, pb, pi, n);
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct Children {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
-                  int32_t* ca, int32_t* cl, int32_t* cb, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                         int32_t* ca, int32_t* cl, int32_t* cb, int64_t n) {
     children_kernel<D, EC><<<blocks_for(n << D), kThreads, 0, s>>>(a, l, b, ca, cl, cb, n);
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct FaceSweep {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
-                  int32_t* na, int32_t* nb, int32_t* du, uint8_t* in, int64_t* k, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                         int32_t* na, int32_t* nb, int32_t* du, uint8_t* in, int64_t* k,
+                         int64_t n) {
     face_sweep_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, na, nb, du, in, k, n);
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct Successor {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
-                  int32_t* oa, int32_t* ob, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                         int32_t* oa, int32_t* ob, int64_t n) {
     successor_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, oa, ob, n);
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct FaceNeighbor {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
-                  const int32_t* f, int32_t* na, int32_t* nb, int32_t* du, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                         const int32_t* f, int32_t* na, int32_t* nb, int32_t* du, int64_t n) {
     face_neighbor_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, f, na, nb, du, n);
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct InsideRoot {
-  static void run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
-                  uint8_t* in, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* a, const int32_t* l, const int32_t* b,
+                         uint8_t* in, int64_t n) {
     inside_root_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(a, l, b, in, n);
+    return cudaSuccess;
   }
 };
 template <int D, int EC> struct TreeTransform {
-  static void run(cudaStream_t s, const int32_t* cn, const int32_t* a, const int32_t* l,
-                  const int32_t* b, const int32_t* du, const int32_t* tb, int num_conn,
-                  int32_t* oa, int32_t* ob, int32_t* od, int32_t* ot, int64_t n) {
+  static cudaError_t run(cudaStream_t s, const int32_t* cn, const int32_t* a, const int32_t* l,
+                         const int32_t* b, const int32_t* du, const int32_t* tb, int num_conn,
+                         int32_t* oa, int32_t* ob, int32_t* od, int32_t* ot, int64_t n) {
     tree_transform_kernel<D, EC><<<blocks_for(n), kThreads, 0, s>>>(cn, a, l, b, du, tb,
                                                                      num_conn, oa, ob, od, ot, n);
+    return cudaSuccess;
   }
 };
 

@@ -9,6 +9,8 @@ This file imports neither JAX nor the JAX package, so it runs where only
 PyTorch is installed; the plain versions themselves are held against the
 JAX package by `tests/test_torch_kernels.py` on the CPU."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from repro_torch.core import forest as TF
 from repro_torch.core.keys import span_mask
 from repro_torch.core.tables import MAXLEVEL
 from repro_torch.core.types import ECLASS_HEX
-from repro_torch.kernels import ops as kops, ref as kref
+from repro_torch.kernels import build, ops as kops, ref as kref
 
 KERNELS = ["morton_key", "decode", "parent", "children", "face_sweep", "inside_root"]
 
@@ -77,6 +79,59 @@ def test_cuda_kernel_matches_plain_version(name, d, n):
     want = want if isinstance(want, tuple) else (want,)
     for g, w in zip(got, want, strict=True):
         assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _walk_grid():
+    """(elements a block, elements a stride of the persistent grid) of the
+    simplex key and decode walks (one element a thread), from the
+    constants of `csrc/sfc.cu` and the card's SM count."""
+    src = (build.CSRC_DIR / "sfc.cu").read_text()
+    c = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+         for k in ("kWalkThreads", "kWalkBlocks")}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return c["kWalkThreads"], c["kWalkThreads"] * c["kWalkBlocks"] * sms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["morton_key", "decode"])
+@pytest.mark.parametrize("d", [2, 3])
+def test_cuda_walks_match_plain_at_grid_edges(name, d):
+    """The simplex bodies of morton_key and decode (m levels a table lookup
+    on a persistent grid, one element a thread) equal their plain versions
+    at n = 0, 1, 2 and 31, one under, at and one past a block and the
+    grid's stride, and 2^22 + 3; decode on keys with garbage digits below
+    their levels, morton_key on anchors with bits above L (negative ones
+    among them) on every other row.  Every launch moves the counter by one;
+    n = 0 launches nothing."""
+    dev = _card()
+    block, stride = _walk_grid()
+    sizes = sorted({0, 1, 2, 31, block - 1, block, block + 1, stride - 1, stride, stride + 1,
+                    (1 << 22) + 3})
+    L = MAXLEVEL[d]
+    key, level, anchor, stype = _inputs(d, sizes[-1], seed=7 + d, dev=dev)
+    assert bool((key & span_mask(d, L, level)).any())
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(d)
+    high = torch.randint(0, 1 << (32 - L), anchor.shape, generator=gen, device=dev,
+                         dtype=torch.int32)
+    odd = (torch.arange(sizes[-1], device=dev) & 1).bool()[:, None]
+    anchor = torch.where(odd, anchor ^ torch.bitwise_left_shift(high, L), anchor).contiguous()
+    assert bool((anchor < 0).any())
+    for n in sizes:
+        if name == "morton_key":
+            args = (anchor[:n], stype[:n])
+            kernel, plain = kops.morton_key, kref.morton_key
+        else:
+            args = (key[:n], level[:n])
+            kernel, plain = (lambda *a: kops.decode(d, *a)), (lambda *a: kref.decode(d, *a))
+        before = kops.launch_counts[name]
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        assert kops.launch_counts[name] == before + (n > 0)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want, strict=True):
+            assert g.device.type == "cuda" and g.dtype == w.dtype and torch.equal(g, w), n
 
 
 @pytest.mark.cuda
