@@ -13,7 +13,9 @@ checkpoints and restores those forests and runs Iterate over them, runs
 the main path again as four rank processes over `DistComm`, under seeded
 byte faults, and with one rank killed and the rest recovered, asks
 the paper's element queries of every leaf, serves the dense LM qwen3-1.7b
-at full width and depth, and checks the card against the CPU.
+at full width and depth, checks the card against the CPU, and runs the
+twins of the JAX package's examples, Fig. 11's New to level 8 and the
+finite-volume solver at about 26 M leaves.
 Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
@@ -206,6 +208,26 @@ Phases, in the order they run; any failure exits nonzero:
      tokens each; 6c, fp32 at full width: prefill 508 tokens and decode 4
      against forward's logits at those positions, within 1e-3; every
      logit finite;
+  7. the twins of the JAX package's examples (`repro_torch.examples`):
+     (a) each twin's `main()` on the card (quickstart, amr_fractal,
+     multitree_cube, fem_diffusion, sfc_expert_placement, serve_lm), its
+     lines (`untimed`: times, the device and the conservation error's
+     digits left out) equal to the same twin's lines on the CPU, no plain
+     version called, the kernels of its path launched (every kernel of
+     phase 3's path in quickstart and multitree_cube, tree_transform in
+     multitree_cube, face_neighbor in quickstart, 20 flash_attention
+     launches in serve_lm's prefills); serve_lm serves the same weights
+     (drawn on the CPU) on both sides, and its tokens and each decode
+     step's logits on the card equal the CPU's, the logits within 2e-4
+     (a differing token only at a near tie: top-2 gap under 1e-4, logits
+     within 1e-4); (b) Fig. 11's New on one tree at
+     levels 4-8 (8^8 = 16,777,216 tets), a warm-up pass and five more:
+     each level's median wall and ns per element, and the ratio of ns per
+     element at level 8 to level 6 (printed, not asserted); (c) fem_diffusion's finite-volume
+     solver with New at level 5 and the blob refined to level 9 (about 26
+     M leaves): leaves, face pairs, the walls of New, Adapt, Balance,
+     Iterate and the 60 steps, peak device memory, and the example's
+     conservation (below 1e-12 relative) and decay (max u < 1) checks;
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
@@ -253,9 +275,10 @@ ran on; for eval_route and owner_rank, `sweep_device_ms` (and `_d2`,
 `sweep_bound_ms`, `phase3p_device_ms` each P of phase 3p, and
 `host_us_a_launch` the launch cost;
 `launches_phase3m` its launches in 3m summed over the four rank
-processes, and `launches_phase3r` those of 3r(a) and 3r(b) together.  A
-JSON `runtime` line before it has 3m's and 3r's walls, memory, bytes,
-fault counts and the store's rate.  The `hex_*` keys are the hex body's:
+processes, `launches_phase3r` those of 3r(a) and 3r(b) together, and
+`launches_phase7` those of phase 7's twins, (a) to (c) summed.  A JSON
+`runtime` line before it has 3m's and 3r's walls, memory, bytes, fault
+counts and the store's rate, and phase 7's facts under `examples`.  The `hex_*` keys are the hex body's:
 `hex_replaces` the Pallas kernel's hex branch, `hex_launches_phase3h` its
 launches in phase 3h and its queries, and its phase-2h times and bounds at
 d = 3 and (`_d2`) d = 2.  The `flash_attention_kernel` entry has its
@@ -267,9 +290,12 @@ JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import hashlib
+import importlib
+import io
 import json
 import math
 import os
@@ -3239,6 +3265,243 @@ def serve_path(kops, kref) -> dict:
     return out
 
 
+# Phase 7: the twins of the JAX package's examples (`repro_torch.examples`)
+# on the card, each held to its own lines on the CPU; then Fig. 11's New to
+# level 8 and the finite-volume solver at about 26 M leaves.
+TWINS = ("quickstart", "amr_fractal", "multitree_cube", "fem_diffusion",
+         "sfc_expert_placement", "serve_lm")
+FIG11_LEVELS = (4, 5, 6, 7, 8)          # one tree; level 8 is 8^8 = 16,777,216 tets
+FIG11_PASSES = 5                        # after one warm-up pass
+FEM_FULL = (5, 9)                       # New's level and the blob's depth
+SERVE_PREFILL_LAUNCHES = 20             # 2 layers x 10 prefills, fp32 at hd 32
+
+
+SERVE_TOL = 2e-4          # serve_lm's decode logits, card against CPU, abs and rel
+SERVE_TIE_GAP = 1e-4      # a top-2 gap under this may pick either token ...
+SERVE_TIE_TOL = 1e-4      # ... if the logits agree within this
+
+
+def twin_lines(name: str, device: str) -> tuple[list, dict, list]:
+    """A twin's `main(device)`: its lines as `untimed` leaves them, the dict
+    it returns and, for `serve_lm`, each decode step's logits in call order;
+    on the CPU with one thread (its tensors are small)."""
+    from repro_torch.examples import untimed
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    threads = torch.get_num_threads()
+    if device == "cpu":
+        torch.set_num_threads(1)
+    buf, held = io.StringIO(), []
+    if name == "serve_lm":
+        inner = mod.decode_step
+
+        def recording(*args, **kw):
+            logits, cache = inner(*args, **kw)
+            held.append(logits[0].detach().clone())
+            return logits, cache
+
+        mod.decode_step = recording
+    try:
+        with contextlib.redirect_stdout(buf):
+            r = mod.main(device=device)
+        if device == "cuda":
+            sync()
+    finally:
+        torch.set_num_threads(threads)
+        if name == "serve_lm":
+            mod.decode_step = inner
+    return untimed(buf.getvalue()), r, [t.float().cpu().numpy() for t in held]
+
+
+def serve_per_request(calls: list, n: int, B: int, max_new: int) -> list:
+    """serve_lm's decode calls as each request's logits, step by step: the
+    loop's slot schedule depends on counts only (a freed slot takes the
+    next request, then every active slot decodes one token, in slot
+    order), so replaying it maps each call to its request."""
+    slots, queue, out, done = [None] * B, list(range(n)), [[] for _ in range(n)], 0
+    calls = iter(calls)
+    while done < n:
+        for s in range(B):
+            if slots[s] is None and queue:
+                slots[s] = [queue.pop(0), max_new]
+        for s in range(B):
+            if slots[s] is None:
+                continue
+            out[slots[s][0]].append(next(calls))
+            slots[s][1] -= 1
+            if slots[s][1] == 0:
+                slots[s] = None
+                done += 1
+    if next(calls, None) is not None:
+        raise AssertionError("serve_lm made more decode calls than its schedule")
+    return out
+
+
+def serve_card_vs_cpu(got: dict, got_calls: list, want: dict, want_calls: list) -> dict:
+    """serve_lm's tokens on the card against the CPU's, request by request,
+    and each decode step's logits within SERVE_TOL; a differing token passes
+    only at a near tie, and ends that request's comparison.  Returns the
+    steps compared, the near ties and the largest |logit difference|."""
+    n, B, m = want["requests"], want["B"], len(want["tokens"][0])
+    got_l = serve_per_request(got_calls, n, B, m)
+    want_l = serve_per_request(want_calls, n, B, m)
+    steps, ties, worst = 0, 0, 0.0
+    for r in range(n):
+        for i, (g, w) in enumerate(zip(got_l[r], want_l[r])):
+            err = float(np.abs(g - w).max())
+            worst, steps = max(worst, err), steps + 1
+            top2 = np.sort(w)[-2:]
+            if got["tokens"][r][i] == want["tokens"][r][i]:
+                tol, tie = SERVE_TOL, False
+            elif top2[1] - top2[0] < SERVE_TIE_GAP:
+                tol, tie = SERVE_TIE_TOL, True
+            else:
+                raise AssertionError(f"phase 7 serve_lm: request {r} step {i}: the card's "
+                                     f"token {got['tokens'][r][i]}, the CPU's "
+                                     f"{want['tokens'][r][i]}, top-2 gap {top2[1] - top2[0]}")
+            if not np.all(np.abs(g - w) <= tol + tol * np.abs(w)):
+                raise AssertionError(f"phase 7 serve_lm: request {r} step {i}: logits differ "
+                                     f"by {err} (tolerance {tol})")
+            if tie:
+                ties += 1
+                break
+    return {"steps_compared": steps, "near_ties": ties, "max_abs_logit_err": worst}
+
+
+def examples_path(kops, kref, smi: str) -> dict:
+    """Phase 7.  (a) each twin's `main()` on the card, counted: its lines
+    equal to its lines on the CPU, no plain version called, the kernels of
+    its path launched (every kernel of phase 3's path in `quickstart` and
+    `multitree_cube`, `tree_transform` in `multitree_cube`, `morton_key`,
+    `decode` and `face_neighbor` called by `quickstart` itself, 20
+    `flash_attention` launches in `serve_lm`'s prefills), and `serve_lm`'s
+    tokens and decode logits equal to the CPU's on the same weights
+    (`serve_card_vs_cpu`); (b) Fig. 11's New
+    on one tree at levels 4-8, a warm-up pass and five more, each level's
+    median wall and ns per element; (c) `fem_diffusion` with New at level 5 and the blob refined
+    to level 9: leaves, pairs, walls, peak memory and the example's two
+    assertions.  Returns the launches of each sub-phase and the facts."""
+    from repro_torch.examples import amr_fractal, fem_diffusion
+
+    device = torch.device("cuda")
+    queries = ("successor", "face_neighbor")
+    path3 = [k for k in REPLACES if k not in ("tree_transform", *queries)]
+    must = {"quickstart": path3 + ["face_neighbor"], "multitree_cube": path3 + ["tree_transform"],
+            "amr_fractal": ["morton_key", "decode", "children"],
+            "fem_diffusion": ["morton_key", "decode", "children", "face_sweep"],
+            "sfc_expert_placement": [], "serve_lm": ["flash_attention"]}
+    facts, launches = {}, {}
+    print(f"  (a) the twins' main() on the card against the CPU (card {smi})", flush=True)
+    for name in TWINS:
+        want, want_r, want_calls = twin_lines(name, "cpu")
+        t = time.perf_counter()
+        (got, r, calls), lc, pc, _cls = counted(kops, kref, lambda: twin_lines(name, "cuda"))
+        wall = time.perf_counter() - t
+        for line in got:
+            print(f"    {name}: {line}", flush=True)
+        if got != want:
+            raise AssertionError(f"phase 7 {name}: the card's lines {got} differ from the "
+                                 f"CPU's {want}")
+        if any(pc.values()):
+            raise AssertionError(f"phase 7 {name}: plain versions ran: {pc}")
+        if not all(lc[k] > 0 for k in must[name]):
+            raise AssertionError(f"phase 7 {name}: want {must[name]} launched: {lc}")
+        if name == "serve_lm" and lc["flash_attention"] != SERVE_PREFILL_LAUNCHES:
+            raise AssertionError(f"phase 7 serve_lm: flash_attention launched "
+                                 f"{lc['flash_attention']} times, want {SERVE_PREFILL_LAUNCHES}")
+        launches[name] = lc
+        facts[name] = {"wall_s": wall, "lines_equal_cpu": True}
+        if name == "serve_lm":
+            same = serve_card_vs_cpu(r, calls, want_r, want_calls)
+            print(f"    serve_lm: tokens equal to the CPU's on the same weights over "
+                  f"{same['steps_compared']} decode steps ({same['near_ties']} near ties); "
+                  f"logits within {SERVE_TOL} (max |err| {same['max_abs_logit_err']:.3e})",
+                  flush=True)
+            facts[name].update(serve_wall_s=r["wall_s"], **same)
+        print(f"    {name}: lines equal to the CPU's; wall {wall:.3f} s; kernel launches "
+              f"{ {k: v for k, v in lc.items() if v} }; no plain call", flush=True)
+
+    print(f"  (b) Fig. 11: New on one tree, one rank, levels {FIG11_LEVELS[0]}-"
+          f"{FIG11_LEVELS[-1]}, a warm-up pass and {FIG11_PASSES} more (card {smi})", flush=True)
+    passes, lc = [], None
+    for k in range(FIG11_PASSES + 1):        # pass 0 warms the allocator's cache
+        rows, lc, pc, _cls = counted(kops, kref,
+                                     lambda: amr_fractal.fig11(FIG11_LEVELS, device))
+        if any(pc.values()) or lc["decode"] < len(FIG11_LEVELS):
+            raise AssertionError(f"phase 7 Fig. 11: launches {lc}, plain calls {pc}")
+        if k:
+            passes.append(rows)
+        else:
+            print("    warm-up pass: " + ", ".join(f"level {x['level']} {x['wall_s'] * 1e3:.3f} ms"
+                                                  for x in rows), flush=True)
+    launches["fig11"] = lc
+    median = {}
+    for i, level in enumerate(FIG11_LEVELS):
+        n = passes[0][i]["elements"]
+        if n != 8 ** level:
+            raise AssertionError(f"phase 7 Fig. 11: level {level} has {n} elements")
+        walls = sorted(p[i]["wall_s"] for p in passes)
+        median[level] = walls[len(walls) // 2] / n * 1e9
+        print(f"    level {level}: {n:>11,} elements  median {walls[len(walls) // 2] * 1e3:.4f} ms "
+              f"(min {walls[0] * 1e3:.4f}, max {walls[-1] * 1e3:.4f})  "
+              f"{median[level]:.4f} ns/element", flush=True)
+    ratio = median[FIG11_LEVELS[-1]] / median[6]
+    print(f"    ns per element, level {FIG11_LEVELS[-1]} / level 6 (medians of {FIG11_PASSES} "
+          f"passes): {ratio:.4f}", flush=True)
+    facts["fig11"] = {"elements": {lv: 8 ** lv for lv in FIG11_LEVELS},
+                      "wall_s": {lv: [p[i]["wall_s"] for p in passes]
+                                 for i, lv in enumerate(FIG11_LEVELS)},
+                      "ns_per_element_median": median, "ratio_8_to_6": ratio}
+
+    level, deep = FEM_FULL
+    print(f"  (c) fem_diffusion at full size: New at level {level}, the blob to level {deep} "
+          f"(card {smi})", flush=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sizes, originals = record_launch_sizes(kops)
+    try:
+        r, lc, pc, _cls = counted(kops, kref,
+                                  lambda: fem_diffusion.run(level, deep, device=device))
+    finally:
+        for name, fn in originals.items():
+            setattr(kops, name, fn)
+    peak = torch.cuda.max_memory_allocated()
+    if any(pc.values()) or not all(lc[k] > 0 for k in must["fem_diffusion"]):
+        raise AssertionError(f"phase 7 fem_diffusion at full size: launches {lc}, plain {pc}")
+    launches["fem_full"] = lc
+    w = r["walls"]
+    print(f"    {r['leaves']:,} leaves, levels {r['levels'][0]}..{r['levels'][1]}; "
+          f"{r['pairs']:,} interior face pairs", flush=True)
+    print(f"    walls: New {w['new']:.3f} s, Adapt {w['adapt']:.3f} s, Balance "
+          f"{w['balance']:.3f} s, Iterate {w['iterate']:.3f} s, 60 steps {w['steps']:.3f} s; "
+          f"peak device memory {peak:,} B", flush=True)
+    for step, umax, err in r["shown"]:
+        print(f"    step {step:3d}: max u = {umax:.4f}, conservation error = {err:.2e}",
+              flush=True)
+    if not (r["conservation_error"] < 1e-12 and r["max_u"] < 1.0):
+        raise AssertionError(f"phase 7 fem_diffusion at full size: conservation error "
+                             f"{r['conservation_error']}, max u {r['max_u']}")
+    print(f"    conservation error {r['conservation_error']:.3e} < 1e-12, max u "
+          f"{r['max_u']:.4f} < 1: the example's two assertions hold", flush=True)
+    facts["fem_full"] = {"level": level, "deep": deep, "leaves": r["leaves"],
+                         "pairs": r["pairs"], "walls_s": w, "peak_bytes": peak,
+                         "conservation_error": r["conservation_error"], "max_u": r["max_u"],
+                         "largest_launch": {k: max(v) for k, v in sizes.items() if v}}
+    del r
+    torch.cuda.empty_cache()
+    # each kernel the solver's path launched, against its plain version at
+    # the largest size that path gave it (random inputs of that size; exact)
+    for name, ns in sizes.items():
+        if ns:
+            _inputs, kernel, plain = kernel_cases(3, max(ns), device)[name]
+            _got, _want, err = compare_exact(f"phase 7 {name} n={max(ns)}", kernel, plain)
+            print(f"    {name} at its largest launch, n = {max(ns):,} ({len(ns)} launches): "
+                  f"equal to its plain version (max |err| {err})", flush=True)
+            del _inputs, kernel, plain, _got, _want
+            torch.cuda.empty_cache()
+    return {"launches": launches, "facts": facts}
+
+
 def marker_sweep_only(smi: str) -> int:
     """`--marker-sweep`: the launch cost, phases 2 and 2h's P sweeps and
     phase 3p alone (after the build and phase 3), and their rows as one
@@ -3384,6 +3647,11 @@ def main() -> int:
     print(f"== 6. serving {SERVE_ARCH} at full width and depth (card {smi})", flush=True)
     served = serve_path(kops, kref)
 
+    print(f"== 7. the examples' twins on the card (card {smi})", flush=True)
+    examples = examples_path(kops, kref, smi)
+    launches7 = {k: sum(lc[k] for lc in examples["launches"].values()) for k in kops.launch_counts}
+    print(f"  kernel launches in phase 7, summed over (a)-(c): {launches7}", flush=True)
+
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
@@ -3450,6 +3718,7 @@ def main() -> int:
             **{f"launches_phase{ph}": sum(row[1][name] for row in forest_counts[ph])
                for ph in ("3o", "3k", "3i")},
             "launches_phase3m": multi["launches"][name], "launches_phase3r": launches_r[name],
+            "launches_phase7": launches7[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": None, "d": 3, "n": r["n"],
@@ -3486,11 +3755,13 @@ def main() -> int:
         "name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": served["6a"][1]["flash_attention"],
         "launches_phase6b": served["6b"][1]["flash_attention"],
-        "launches_phase6c": served["6c"][1]["flash_attention"], **flash,
+        "launches_phase6c": served["6c"][1]["flash_attention"],
+        "launches_phase7": launches7["flash_attention"], **flash,
         "serve": {k: v[0] for k, v in served.items()}})
     print(json.dumps({"runtime": {"3m": {k: v for k, v in multi.items() if k != "launches"},
                                   "3r_faults": chaos,
-                                  "3r_kill": {k: v for k, v in killed.items() if k != "launches"}}}))
+                                  "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},
+                      "examples": examples["facts"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,8 +11,9 @@ Layers, as in the JAX package's `repro.core`:
   cmesh      — coarse-mesh inter-tree connectivity (gluing tables, transforms)
   comm       — the Comm surface: SimComm / LocalComm / LatencyComm / DistComm + byte meters
   resilience — ChaosComm fault injection, Autosaver checkpoints, recover
-  forest     — forest-of-trees AMR: New / Adapt / Partition / Balance / Ghost
-  placement  — the partition rule
+  forest     — forest-of-trees AMR: New / Adapt / Partition / Balance / Ghost / Iterate
+  placement  — the Partition rule: the forest's host form, and expert placement,
+               document partition and KV-page order for LM workloads
 
 The package exports the JAX package's names but these, on purpose:
 `u64` (keys are native int64), `get_backend`, `set_backend` and
