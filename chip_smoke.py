@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --marker-sweep   # phase 1, the launch cost, 2 and 2h's P sweeps, 3, 3p
     python3 chip_smoke.py --walk-sweep [PARENT]   # rows 1, 2, 5 and 10, parent against change
+    python3 chip_smoke.py --train-8a LR:DTYPE ...  # phase 1, then 8a at each peak lr and dtype
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
 each against its plain PyTorch version, drives the paper's New -> Adapt ->
@@ -15,7 +16,8 @@ byte faults, and with one rank killed and the rest recovered, asks
 the paper's element queries of every leaf, serves the dense LM qwen3-1.7b
 at full width and depth, checks the card against the CPU, and runs the
 twins of the JAX package's examples, Fig. 11's New to level 8 and the
-finite-volume solver at about 26 M leaves.
+finite-volume solver at about 26 M leaves, and trains qwen3-1.7b at full
+width and depth.
 Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
@@ -228,6 +230,29 @@ Phases, in the order they run; any failure exits nonzero:
      M leaves): leaves, face pairs, the walls of New, Adapt, Balance,
      Iterate and the 60 steps, peak device memory, and the example's
      conservation (below 1e-12 relative) and decay (max u < 1) checks;
+  8. training (`launch/train.py`, `runtime/trainer.py`, `data/`,
+     `optim/`; attention under autograd through `FlashAttentionFn`, its
+     backward plain): 8a, qwen3-1.7b at full width and depth (weights drawn
+     on the card from a seed, remat "block", AdamW with fp32 moments) on
+     `DataPipeline` batches of 8 x 4096 (train_4k's length, the global
+     batch cut from 256 to 8), `default_num_micro`'s 2 micro-batches, one
+     warm-up step and 5 timed: each step's wall, loss and grad_norm (all
+     finite), tokens per second, the model FLOP share of 989 TFLOP/s, peak
+     memory, 2 x 28 x 2 flash_attention launches a step (forward and remat
+     recompute), no plain forward, the plain backward once a layer a micro,
+     and one micro's gradients of wq, wk and wv nonzero in every layer;
+     8b, `Trainer` with `AsyncCheckpointer` at full width cut to 2 layers:
+     10 steps uninterrupted, then 5 and a restart to 10, the restarted
+     losses within rtol 1e-5 of the uninterrupted ones, a checkpoint's
+     bytes on disk and the save and restore walls (a temporary directory,
+     removed); 8c, the `train_lm` twin's tiny preset for 20 steps on the
+     card and on the CPU from the same weights (losses, and step 0's
+     gradients, within 1e-4), at 8a's micro shape (B 4, S 4096, qwen3's
+     heads; the backward in 8 blocks of 512 query rows) the Function's
+     output against the plain forward's (as phase 2a) and its gradients
+     against autograd through the plain forward (fp32 1e-4 relative L2,
+     bf16 2e-2 a row), and the plain backward timed there beside
+     scaled_dot_product_attention's forward + backward (a yardstick only);
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
@@ -245,7 +270,7 @@ Phases, in the order they run; any failure exits nonzero:
      kernel phase 3 launches, and no plain version runs in 3t or 3r(a); in
      phase 6,
      flash_attention launched once a layer a prefill (6c: the prefill and
-     forward) and no plain version called.
+     forward) and no plain version called; in phase 8a, as above.
 
 With `--marker-sweep` the script runs phase 1, the launch cost and the P
 sweeps of 2 and 2h, 3 and 3p, and prints their rows as one JSON line: run
@@ -259,7 +284,12 @@ does, and their simplex bodies at the sizes phases 3 and 3d (d = 3) and 3t
 `--walk-sweep PARENT` runs that four times in fresh processes, from PARENT
 (a checkout of the parent commit with this file copied in), here, here and
 PARENT, and prints each row's device times, parent against change, before
-one JSON line of all four runs.
+one JSON line of all four runs.  With `--train-8a 3e-4:bfloat16
+3e-5:bfloat16 3e-4:float32` it runs phase 1 and then phase 8a, checks
+included, once for each peak learning rate and model dtype given (the same
+weights, seed and batches), and prints their losses, walls and peak memory
+as one JSON line: what 8a's loss curve owes to the learning rate and what
+to bf16.
 
 The second-to-last lines are a JSON `kernels` line and the `nvidia-smi`
 name/power-limit line; the last line is the JSON result.  In the `kernels`
@@ -278,12 +308,14 @@ ran on; for eval_route and owner_rank, `sweep_device_ms` (and `_d2`,
 processes, `launches_phase3r` those of 3r(a) and 3r(b) together, and
 `launches_phase7` those of phase 7's twins, (a) to (c) summed.  A JSON
 `runtime` line before it has 3m's and 3r's walls, memory, bytes, fault
-counts and the store's rate, and phase 7's facts under `examples`.  The `hex_*` keys are the hex body's:
+counts and the store's rate, phase 7's facts under `examples` and phase
+8's under `train`.  The `hex_*` keys are the hex body's:
 `hex_replaces` the Pallas kernel's hex branch, `hex_launches_phase3h` its
 launches in phase 3h and its queries, and its phase-2h times and bounds at
 d = 3 and (`_d2`) d = 2.  The `flash_attention_kernel` entry has its
-launches in phase 6a (and 6b, 6c), its phase-2a numbers at qwen3's shape,
-and phase 6's serving facts under `serve`.  Without a card, or without the repository beside
+launches in phase 6a (and 6b, 6c, 7, and 8a's 5 steps with
+`launches_phase8_a_step`), its phase-2a numbers at qwen3's shape, and
+phase 6's serving facts under `serve`.  Without a card, or without the repository beside
 it, the script exits nonzero and prints no result.  It imports nothing of
 JAX.
 """
@@ -2932,6 +2964,29 @@ def flash_instructions(build) -> dict:
     return {**counts, "ptxas_bf16_hd128": lines}
 
 
+def flash_check(label: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+    """(max |err|, a row's largest relative L2 error) of the attention
+    kernel's output `got` against the plain version's `want`, printed;
+    raises beyond FLASH_TOL (|got - want| <= tol + tol |want|) or
+    FLASH_ROW_TOL, on a dtype other than want's, or on a value not
+    finite."""
+    dt = want.dtype
+    tol = FLASH_TOL[dt]
+    sync()
+    diff = (got.detach().float() - want.detach().float()).abs()
+    err = float(diff.max())
+    excess = float((diff - tol * (1 + want.detach().float().abs())).max())
+    row = float((diff.norm(dim=-1) / want.detach().float().norm(dim=-1).clamp_min(1e-30)).max())
+    if got.dtype != dt or not torch.isfinite(got).all() or excess > 0:
+        raise AssertionError(f"flash_attention {label}: max |err| {err} beyond {tol}")
+    if row > FLASH_ROW_TOL[dt]:
+        raise AssertionError(f"flash_attention {label}: a row's relative error {row} "
+                             f"beyond {FLASH_ROW_TOL[dt]}")
+    print(f"  flash_attention {label}: max |err| {err:.3g} (tolerance {tol}), "
+          f"a row's relative error {row:.3g} (tolerance {FLASH_ROW_TOL[dt]})", flush=True)
+    return err, row
+
+
 def flash_vs_plain(kops, kref) -> dict:
     """Phase 2a: the attention kernel against its plain version on the same
     card tensors, every case of FLASH_CASES in bf16, fp16 and fp32, within
@@ -2949,32 +3004,20 @@ def flash_vs_plain(kops, kref) -> dict:
     timed = {}
     for case in FLASH_CASES:
         B, S, H, KV, hd, window, causal = case
-        for dt, tol in FLASH_TOL.items():
+        for dt in FLASH_TOL:
             q = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
             k = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
             v = torch.randn(B, S, KV, hd, generator=gen, device=dev).to(dt)
             got = kops.flash_attention(q, k, v, causal=causal, window=window)
             want = kref.flash_attention(q, k, v, causal=causal, window=window)
-            sync()
-            diff = (got.float() - want.float()).abs()
-            err = float(diff.max())
-            excess = float((diff - tol * (1 + want.float().abs())).max())
-            row = float((diff.norm(dim=-1) / want.float().norm(dim=-1).clamp_min(1e-30)).max())
             label = (f"B={B} S={S} H={H} KV={KV} hd={hd} window={window}"
                      f"{'' if causal else ' causal=False'} {str(dt)[6:]}")
-            if got.dtype != dt or not torch.isfinite(got).all() or excess > 0:
-                raise AssertionError(f"flash_attention {label}: max |err| {err} beyond {tol}")
-            if row > FLASH_ROW_TOL[dt]:
-                raise AssertionError(f"flash_attention {label}: a row's relative error {row} "
-                                     f"beyond {FLASH_ROW_TOL[dt]}")
+            err, row = flash_check(label, got, want)
             worst[dt] = max(worst[dt], err)
             worst_row[dt] = max(worst_row[dt], row)
-            print(f"  flash_attention {label}: max |err| {err:.3g} (tolerance {tol}), "
-                  f"a row's relative error {row:.3g} (tolerance {FLASH_ROW_TOL[dt]})",
-                  flush=True)
             if case == FLASH_CASES[0]:
                 timed[dt] = (q, k, v, err)
-            del q, k, v, got, want, diff
+            del q, k, v, got, want
     B, S, H, KV, hd, window, _causal = FLASH_CASES[0]
     q, k, v, err = timed[torch.bfloat16]
     kernel = lambda: kops.flash_attention(q, k, v)                      # noqa: E731
@@ -3502,6 +3545,440 @@ def examples_path(kops, kref, smi: str) -> dict:
     return {"launches": launches, "facts": facts}
 
 
+# Phase 8: the training path.  8a: qwen3-1.7b at full width and depth on the
+# train_4k sequence length, the global batch cut from 256 to 8 (one step
+# takes seconds); 8b: the trainer's restart at full width, cut to 2 layers;
+# 8c: the card against the CPU.
+TRAIN_SEQ, TRAIN_BATCH = 4096, 8
+TRAIN_STEPS = 5                 # timed, after one warm-up step
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+RESTART_LAYERS, RESTART_STEPS, RESTART_AT = 2, 10, 5
+RESTART_RTOL, RESTART_ATOL = 1e-5, 1e-6      # the reference's restart test
+TWIN_STEPS = 20
+TWIN_TOL = 1e-4                 # 8c: card against CPU, fp32 without TF32, relative
+# 8c: the Function's gradients against autograd through the plain forward on
+# the same card tensors: fp32 relative L2, bf16 each row's relative L2
+# (FLASH_ROW_TOL's style); both backwards compute in fp32 from the same
+# inputs and differ in the order of sums.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# (B, S) at qwen3's heads: 8a's micro-batch, where the backward runs in
+# blocks of 512 query rows (BACKWARD_BLOCK_BYTES), as training runs it
+BWD_SHAPE = (TRAIN_BATCH // 2, TRAIN_SEQ)
+
+
+def train_flops(cfg, tokens: int, B: int, S: int) -> tuple[float, float]:
+    """(model FLOPs of one training step, of them attention's): 6 N a token
+    for the matmuls with every parameter N (forward 2 N, backward 4 N; the
+    remat recompute not counted), plus causal attention's 12 H hd a
+    (query, key) pair a layer (QK^T and PV, 4 H hd forward, twice that
+    backward)."""
+    n = cfg.param_count()
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * B * S * (S + 1) / 2
+    return 6 * n * tokens + attn, attn
+
+
+def train_breakdown(step, params, opt, batch, i: int) -> dict:
+    """Where a phase-8a step's time goes, outside the counted steps: one
+    step under torch.profiler, its wall (the profiler's cost included), the
+    kernels' device time summed, and the device time inside three labelled
+    ranges: the plain attention backward, the optimizer (clip, AdamW and
+    the in-place update) and the chunked cross-entropy's forward (its
+    backward runs in autograd's engine, outside the range); the five aten
+    ops with the most device time, kernel launches and aten ops.  Returns
+    the facts and the updated (params, opt)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm as tlm
+
+    labels = {"plain attention backward": [(kref, "flash_attention_backward")],
+              "optimizer": [(ltrain, n) for n in ("clip_by_global_norm", "adamw_update",
+                                                  "apply_updates")],
+              "cross-entropy forward": [(tlm, "chunked_ce")]}
+    saved = []
+    for label, places in labels.items():
+        for mod, name in places:
+            fn = getattr(mod, name)
+            saved.append((mod, name, fn))
+
+            def wrapped(*a, _fn=fn, _label=label, **kw):
+                with record_function(_label):
+                    return _fn(*a, **kw)
+            setattr(mod, name, wrapped)
+    try:
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            params, opt, _m = step(params, opt, batch, i)
+            sync()
+            wall = time.perf_counter() - t
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    ka = prof.key_averages()
+    # a labelled range also shows on the device's timeline, spanning its
+    # kernels: leave it out of the kernels' sum
+    dev_ms = sum(e.self_device_time_total for e in ka
+                 if e.device_type == DeviceType.CUDA and e.key not in labels) / 1e3
+    ranges = {e.key: e.device_time_total / 1e3 for e in ka if e.key in labels}
+    if set(ranges) != set(labels):
+        raise AssertionError(f"8a profile: no range {sorted(set(labels) - set(ranges))}: a "
+                             "wrapped function is no longer called through its module's name")
+    top = sorted((e for e in ka if e.key.startswith("aten::")),
+                 key=lambda e: -e.self_device_time_total)[:5]
+    out = {"wall_ms": wall * 1e3, "device_ms": dev_ms or None, "ranges_device_ms": ranges,
+           "top": {e.key: e.self_device_time_total / 1e3 for e in top},
+           "launches": sum(e.count for e in ka if e.key in ("cudaLaunchKernel",
+                                                             "cuLaunchKernelEx")),
+           "aten_ops": sum(e.count for e in ka if e.key.startswith("aten::"))}
+    if dev_ms:
+        print(f"  one step under the profiler: wall {out['wall_ms']:.1f} ms, kernels' device "
+              f"time {dev_ms:.1f} ms (device idle {1 - dev_ms / out['wall_ms']:.1%}); "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in ranges.items())
+              + f"; {out['launches']} launches, {out['aten_ops']} aten ops; most device time: "
+              + ", ".join(f"{k} {v:.1f} ms" for k, v in out["top"].items()), flush=True)
+    else:
+        print(f"  one step under the profiler: wall {out['wall_ms']:.1f} ms; device time not "
+              "measured (the profile saw none)", flush=True)
+    return out, params, opt
+
+
+def train_full(kops, kref, smi: str, lr: float = TRAIN_LR, dtype: str | None = None) -> dict:
+    """Phase 8a: make_train_step over DataPipeline batches at full width and
+    depth (peak learning rate `lr`; the config's dtype unless `dtype` is
+    given), one warm-up step and TRAIN_STEPS timed, counted: each step's
+    wall (host clock ending in a synchronize), loss and grad_norm, tokens
+    per second, the model FLOP share of 989 TFLOP/s, peak memory, and the
+    attention launches: 2 x layers x num_micro a step (forward and the
+    remat recompute), no plain forward, the plain backward once a layer a
+    micro.  Then one micro's backward outside the count: the gradients of
+    wq, wk and wv nonzero in every layer."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.train import default_num_micro, make_train_step
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import init_opt_state
+
+    dev = torch.device("cuda")
+    cfg = get_config(SERVE_ARCH)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    num_micro = default_num_micro(cfg, shape)
+    params = init_params(cfg, seed=SEED, device=dev)
+    opt = init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype)
+    data = DataPipeline(cfg, shape, seed=SEED, device=dev)
+    step = make_train_step(cfg, num_micro=num_micro, lr=lr, warmup=TRAIN_WARMUP,
+                           total_steps=TRAIN_STEPS + 2)
+    print(f"  {SERVE_ARCH}: {cfg.num_layers} layers, d {cfg.d_model}, {cfg.dtype}, peak lr "
+          f"{lr:g} after {TRAIN_WARMUP} warm-up steps, remat {cfg.remat}, "
+          f"{cfg.optimizer} with {cfg.opt_state_dtype} moments, grad accumulation in "
+          f"{cfg.grad_acc_dtype}; seq {TRAIN_SEQ} (train_4k), global batch {TRAIN_BATCH} (cut "
+          f"from 256), num_micro {num_micro} (default_num_micro)", flush=True)
+    t = time.perf_counter()
+    params, opt, m0 = step(params, opt, data.batch(0), 0)
+    sync()
+    warm = time.perf_counter() - t
+    print(f"  warm-up step 0: {warm:.3f} s, loss {float(m0['loss']):.4f}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run():
+        nonlocal params, opt
+        rows = []
+        for i in range(1, TRAIN_STEPS + 1):
+            batch = data.batch(i)
+            sync()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch, i)
+            sync()
+            rows.append({"step": i, "wall_s": time.perf_counter() - t0,
+                         **{k: float(m[k]) for k in ("loss", "grad_norm", "lr")}})
+        return rows
+
+    rows, launches, plain, _cls = counted(kops, kref, run)
+    peak = torch.cuda.max_memory_allocated()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, attn = train_flops(cfg, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    walls = [r["wall_s"] for r in rows]
+    wall = float(np.median(walls))
+    for r in rows:
+        print(f"  step {r['step']}: {r['wall_s']:.4f} s, loss {r['loss']:.5f}, grad_norm "
+              f"{r['grad_norm']:.5f}, lr {r['lr']:.3g}", flush=True)
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"8a: step {r['step']}: loss or grad_norm not finite: {r}")
+    want = 2 * cfg.num_layers * num_micro * TRAIN_STEPS
+    a_step = launches["flash_attention"] / TRAIN_STEPS
+    print(f"  median step {wall:.4f} s: {tokens / wall:,.0f} tokens/s; model FLOPs "
+          f"{flops:.4g} a step (6 N T with N = {cfg.param_count():,} and T = {tokens}, plus "
+          f"causal attention 12 L H hd B S(S+1)/2 = {attn:.4g}): {flops / wall / 1e12:.1f} "
+          f"TFLOP/s, {flops / wall / TC_FLOPS_PER_S:.1%} of {TC_FLOPS_PER_S / 1e12:.0f} "
+          f"TFLOP/s; peak device memory {peak:,} B ({peak / 2 ** 30:.2f} GiB); "
+          f"flash_attention launches {a_step:g} a step (want {want // TRAIN_STEPS}); plain "
+          f"calls {plain} (card {smi})", flush=True)
+    if launches["flash_attention"] != want or plain["flash_attention"]:
+        raise AssertionError(f"8a: flash_attention launched {launches['flash_attention']} "
+                             f"times, want {want}; plain forwards {plain['flash_attention']}")
+    if plain["flash_attention_backward"] != cfg.num_layers * num_micro * TRAIN_STEPS:
+        raise AssertionError(f"8a: the plain backward ran {plain['flash_attention_backward']} "
+                             f"times, want {cfg.num_layers * num_micro * TRAIN_STEPS}")
+    breakdown, params, opt = train_breakdown(step, params, opt, data.batch(TRAIN_STEPS + 1),
+                                             TRAIN_STEPS + 1)
+    params.zero_grad(set_to_none=True)
+    micro = {k: v[:TRAIN_BATCH // num_micro] for k, v in data.batch(TRAIN_STEPS + 2).items()}
+    loss_fn(cfg, params, micro)[0].backward()
+    zero = [n for n, p in params.named_parameters()
+            if n.split(".")[-1] in ("wq", "wk", "wv") and not bool(p.grad.abs().max() > 0)]
+    if zero:
+        raise AssertionError(f"8a: attention's gradient did not reach {zero}")
+    print(f"  one micro's backward: the gradients of wq, wk and wv nonzero in all "
+          f"{cfg.num_layers} layers", flush=True)
+    del params, opt, step, micro
+    torch.cuda.empty_cache()
+    return {"dtype": cfg.dtype, "lr": lr, "warmup_loss": float(m0["loss"]), "steps": rows,
+            "warmup_s": warm, "median_wall_s": wall, "tokens_per_s": tokens / wall,
+            "model_flops": flops, "attention_flops": attn,
+            "flop_share": flops / wall / TC_FLOPS_PER_S, "peak_bytes": peak,
+            "num_micro": num_micro, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+            "launches": launches["flash_attention"], "launches_a_step": a_step,
+            "plain_backward_calls": plain["flash_attention_backward"], "breakdown": breakdown}
+
+
+def train_restart(smi: str) -> dict:
+    """Phase 8b: `Trainer` with `AsyncCheckpointer` at full width, cut to
+    RESTART_LAYERS layers: RESTART_STEPS uninterrupted steps, then
+    RESTART_AT steps and a restart to RESTART_STEPS in a second directory
+    (the reference's test_trainer_checkpoint_restart_identical); the
+    restarted losses equal the uninterrupted ones within its rtol 1e-5.
+    Prints a checkpoint's bytes on disk, the saves' walls (the synchronous
+    snapshot and the wait for the writer) and the restore's.  The
+    temporary directory is removed."""
+    from dataclasses import replace
+
+    from repro_torch.checkpoint import AsyncCheckpointer
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import default_num_micro, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    class TimedCheckpointer(AsyncCheckpointer):
+        def __init__(self, path, walls):
+            super().__init__(path)
+            self.walls = walls
+
+        def save(self, tree, **kw):
+            t = time.perf_counter()
+            super().save(tree, **kw)
+            self.walls.setdefault("snapshot_s", []).append(time.perf_counter() - t)
+
+        def wait(self):
+            t = time.perf_counter()
+            try:
+                super().wait()
+            finally:
+                self.walls.setdefault("wait_s", []).append(time.perf_counter() - t)
+
+    class TimedTrainer(Trainer):
+        def init_or_restore(self, seed=0, params=None):
+            sync()
+            t = time.perf_counter()
+            out = super().init_or_restore(seed, params)
+            sync()
+            walls["restore_s"] = time.perf_counter() - t
+            return out
+
+    cfg = replace(get_config(SERVE_ARCH), num_layers=RESTART_LAYERS)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    step_fn = make_train_step(cfg, num_micro=default_num_micro(cfg, shape), lr=TRAIN_LR,
+                              warmup=TRAIN_WARMUP, total_steps=RESTART_STEPS)
+    walls: dict = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_8b_"))
+    try:
+        def trainer(name, max_steps, every):
+            tr = TimedTrainer(cfg, shape, TrainerConfig(ckpt_dir=str(root / name),
+                                                        ckpt_every=every, max_steps=max_steps),
+                              step_fn=step_fn, seed=SEED, device="cuda")
+            tr.ckpt = TimedCheckpointer(tr.tcfg.ckpt_dir, walls)
+            return tr
+
+        t = time.perf_counter()
+        _, _, full = trainer("full", RESTART_STEPS, RESTART_STEPS).run(seed=SEED)
+        full_wall = time.perf_counter() - t
+        shutil.rmtree(root / "full")
+        trainer("resume", RESTART_AT, RESTART_AT).run(seed=SEED)
+        ckpt = root / "resume" / f"step_{RESTART_AT - 1}"
+        on_disk = sum(f.stat().st_size for f in ckpt.iterdir())
+        _, _, resumed = trainer("resume", RESTART_STEPS, RESTART_AT).run(seed=SEED)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want = {r["step"]: r["loss"] for r in full}
+    if [r["step"] for r in resumed] != list(range(RESTART_AT, RESTART_STEPS)):
+        raise AssertionError(f"8b: the restart ran steps {[r['step'] for r in resumed]}")
+    err = max(abs(r["loss"] - want[r["step"]]) / abs(want[r["step"]]) for r in resumed)
+    bad = [r for r in resumed
+           if abs(r["loss"] - want[r["step"]]) > RESTART_ATOL + RESTART_RTOL * abs(want[r["step"]])]
+    n = sum(p.numel() for p in init_params(cfg, device=torch.device("meta")).parameters())
+    torch.cuda.empty_cache()
+    print(f"  {RESTART_LAYERS} layers at full width ({n:,} parameters), seq {TRAIN_SEQ}, batch "
+          f"{TRAIN_BATCH}: {RESTART_STEPS} uninterrupted steps in {full_wall:.2f} s; losses "
+          f"{[round(r['loss'], 6) for r in full]}; restarted at step {RESTART_AT}: max relative "
+          f"loss difference {err:.3g} (rtol {RESTART_RTOL}, atol {RESTART_ATOL}); a checkpoint "
+          f"(bf16 params, fp32 moments) {on_disk:,} B on disk; snapshot walls "
+          f"{[round(x, 3) for x in walls['snapshot_s']]} s, writer waits "
+          f"{[round(x, 3) for x in walls['wait_s']]} s, restore {walls['restore_s']:.3f} s "
+          f"(card {smi})", flush=True)
+    if bad:
+        raise AssertionError(f"8b: restarted losses differ from the uninterrupted run: {bad} "
+                             f"against {want}")
+    return {"params": n, "losses": want, "resumed": {r["step"]: r["loss"] for r in resumed},
+            "max_rel_loss_err": err, "checkpoint_bytes": on_disk, "full_wall_s": full_wall,
+            **walls}
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double(), b.detach().double().to(a.device)
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def train_card_vs_cpu(kops, kref, smi: str) -> dict:
+    """Phase 8c.  The `train_lm` twin's tiny preset on the card and on the
+    CPU from the same weights, fp32 without TF32: TWIN_STEPS steps' losses
+    within TWIN_TOL relative, and at step 0 every gradient leaf within
+    TWIN_TOL relative L2.  At 8a's micro shape (BWD_SHAPE, qwen3's heads;
+    bf16 and fp32), on the same card tensors: the Function's output (the
+    kernel) against the plain forward's within FLASH_TOL and FLASH_ROW_TOL,
+    and its gradients against autograd through the plain forward within
+    BWD_TOL.  The plain backward timed
+    once at 8a's micro shape, beside scaled_dot_product_attention's forward
+    and backward there (a yardstick; SDPA is on no path of the port)."""
+    import torch.nn.functional as tF
+
+    from repro_torch import convert
+    from repro_torch.data import DataPipeline
+    from repro_torch.examples import train_lm
+    from repro_torch.models import init_params, loss_fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, shape = train_lm.preset("tiny")
+    weights = convert.lm_params_to_reference(init_params(cfg, seed=SEED, device="cpu"))
+    batch = DataPipeline(cfg, shape, seed=0, device="cpu").batch(0)
+    runs, grads = {}, {}
+    threads = torch.get_num_threads()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_8c_"))
+    try:
+        for dev in ("cuda", "cpu"):
+            if dev == "cpu":
+                torch.set_num_threads(1)
+            model = convert.lm_params_from_reference(cfg, weights, device=dev).requires_grad_()
+            loss_fn(cfg, model, {k: v.to(dev) for k, v in batch.items()})[0].backward()
+            grads[dev] = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+            r = train_lm.train("tiny", steps=TWIN_STEPS, ckpt_dir=str(root / dev), device=dev,
+                               params=weights)
+            runs[dev] = [x["loss"] for x in r["log"]]
+    finally:
+        torch.set_num_threads(threads)
+        shutil.rmtree(root, ignore_errors=True)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["cuda"], runs["cpu"], strict=True))
+    grad_err = max(_rel_l2(grads["cuda"][n], grads["cpu"][n]) for n in grads["cpu"])
+    print(f"  train_lm tiny, {TWIN_STEPS} steps, card against CPU: losses {runs['cuda'][0]:.5f} "
+          f"-> {runs['cuda'][-1]:.5f}, max relative difference {loss_err:.3g}; step 0's "
+          f"gradients, max relative L2 difference {grad_err:.3g} (tolerance {TWIN_TOL})",
+          flush=True)
+    if loss_err > TWIN_TOL or grad_err > TWIN_TOL:
+        raise AssertionError(f"8c: card against CPU: losses {loss_err}, gradients {grad_err}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    H, KV, hd = 16, 8, 128
+    worst, fwd = {}, {}
+    B, S = BWD_SHAPE
+    for dt, tol in BWD_TOL.items():
+        base = [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dt) for n in (H, KV, KV)]
+        do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+        got = [x.clone().requires_grad_(True) for x in base]
+        out = kops.FlashAttentionFn.apply(*got, True, None)
+        want = [x.clone().requires_grad_(True) for x in base]
+        ref_out = kref.flash_attention(*want, causal=True, window=None)
+        fwd[str(dt)[6:]] = flash_check(f"B={B} S={S} H={H} KV={KV} hd={hd} {str(dt)[6:]} "
+                                       "(8a's micro shape)", out, ref_out)
+        out.backward(do)
+        ref_out.backward(do)
+        del out, ref_out
+        errs = []
+        for g, w in zip(got, want):
+            if dt == torch.float32:
+                errs.append(_rel_l2(g.grad, w.grad))
+            else:
+                diff = (g.grad.float() - w.grad.float()).norm(dim=-1)
+                errs.append(float((diff / w.grad.float().norm(dim=-1).clamp_min(1e-6)).max()))
+        worst[str(dt)[6:]] = max(errs)
+        print(f"  FlashAttentionFn gradients against the plain forward's autograd, B={B} S={S} "
+              f"H={H} KV={KV} hd={hd} {str(dt)[6:]}: dq, dk, dv {[f'{e:.3g}' for e in errs]} "
+              f"({'relative L2' if dt == torch.float32 else 'worst row relative L2'}; "
+              f"tolerance {tol})", flush=True)
+        if max(errs) > tol:
+            raise AssertionError(f"8c: the Function's gradients differ from autograd: {errs}")
+        del base, do, got, want
+    torch.cuda.empty_cache()
+
+    q, k, v, do = (torch.randn(B, S, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+                   for n in (H, KV, KV, H))
+    plain_ms = cuda_ms(lambda: kref.flash_attention_backward(q, k, v, do), 3)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        out = tF.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+        out.backward(dot)
+
+    sdpa_ms = cuda_ms(sdpa, 10)
+    fwd_ms = cuda_ms(lambda: kops.flash_attention(q, k, v), 10)
+    pairs = S * (S + 1) // 2
+    bwd_flops = 10 * B * H * hd * pairs        # QK^T recomputed, dV, dP, dQ, dK: 2 hd each
+    print(f"  attention backward at 8a's micro shape (B={B} S={S} H={H} KV={KV} hd={hd} bf16): "
+          f"plain backward {plain_ms:.3f} ms ({bwd_flops:.4g} FLOP of the causal band in fp32); "
+          f"the kernel's forward {fwd_ms:.3f} ms; yardstick scaled_dot_product_attention "
+          f"forward + backward {sdpa_ms:.3f} ms (card {smi})", flush=True)
+    del q, k, v, do, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return {"twin_losses_card": runs["cuda"], "twin_max_rel_loss_err": loss_err,
+            "twin_max_rel_grad_err": grad_err, "function_grad_err": worst,
+            "forward_err_at_8a_shape": fwd,
+            "plain_backward_ms": plain_ms, "kernel_forward_ms": fwd_ms,
+            "sdpa_fwd_bwd_ms": sdpa_ms, "backward_flops": bwd_flops,
+            "backward_shape": [B, S, H, KV, hd]}
+
+
+def train_path(kops, kref, smi: str) -> dict:
+    """Phase 8: 8a, 8b and 8c in turn; their facts."""
+    print(f"  8a. make_train_step at full width and depth (card {smi})", flush=True)
+    full = train_full(kops, kref, smi)
+    print(f"  8b. the trainer's restart at full width, {RESTART_LAYERS} layers (card {smi})",
+          flush=True)
+    restart = train_restart(smi)
+    print(f"  8c. card against CPU (card {smi})", flush=True)
+    return {"8a": full, "8b": restart, "8c": train_card_vs_cpu(kops, kref, smi)}
+
+
+def train_variants(kops, kref, smi: str, variants: list) -> int:
+    """`--train-8a LR:DTYPE ...`: phase 8a once for each peak learning rate
+    and model dtype, in turn, and their losses, walls and peak memory as
+    one JSON line."""
+    runs = []
+    for v in variants:
+        lr, dtype = v.split(":")
+        print(f"== 8a. peak lr {lr}, {dtype} (card {smi})", flush=True)
+        r = train_full(kops, kref, smi, lr=float(lr), dtype=dtype)
+        runs.append({k: r[k] for k in ("dtype", "lr", "warmup_loss", "steps", "median_wall_s",
+                                       "tokens_per_s", "peak_bytes", "launches_a_step")})
+        torch.cuda.empty_cache()
+    print(json.dumps({"train_8a": runs, "card": smi}))
+    return 0
+
+
 def marker_sweep_only(smi: str) -> int:
     """`--marker-sweep`: the launch cost, phases 2 and 2h's P sweeps and
     phase 3p alone (after the build and phase 3), and their rows as one
@@ -3551,6 +4028,8 @@ def main() -> int:
         return marker_sweep_only(smi)
     if sys.argv[1:2] == ["--walk-sweep"] and len(sys.argv) <= 3:
         return walk_sweep(smi) if len(sys.argv) == 2 else walk_compare(Path(sys.argv[2]), smi)
+    if sys.argv[1:2] == ["--train-8a"] and len(sys.argv) > 2:
+        return train_variants(kops, kref, smi, sys.argv[2:])
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3652,6 +4131,9 @@ def main() -> int:
     launches7 = {k: sum(lc[k] for lc in examples["launches"].values()) for k in kops.launch_counts}
     print(f"  kernel launches in phase 7, summed over (a)-(c): {launches7}", flush=True)
 
+    print(f"== 8. training {SERVE_ARCH} on the card (card {smi})", flush=True)
+    trained = train_path(kops, kref, smi)
+
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
@@ -3751,17 +4233,23 @@ def main() -> int:
                               f"hex_sweep_bound_ms{sfx}": {x["P"]: x["bound_ms"]
                                                            for x in hex_sweep[dd]}})
         kernels.append(entry)
+    print(f"  phase 8a: flash_attention launched {trained['8a']['launches']} times in "
+          f"{TRAIN_STEPS} steps ({trained['8a']['launches_a_step']:g} a step: forward and the "
+          f"remat recompute, 28 layers x {trained['8a']['num_micro']} micro-batches); plain "
+          f"forwards 0, plain backwards {trained['8a']['plain_backward_calls']}", flush=True)
     kernels.append({
         "name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": served["6a"][1]["flash_attention"],
         "launches_phase6b": served["6b"][1]["flash_attention"],
         "launches_phase6c": served["6c"][1]["flash_attention"],
-        "launches_phase7": launches7["flash_attention"], **flash,
+        "launches_phase7": launches7["flash_attention"],
+        "launches_phase8": trained["8a"]["launches"],
+        "launches_phase8_a_step": trained["8a"]["launches_a_step"], **flash,
         "serve": {k: v[0] for k, v in served.items()}})
     print(json.dumps({"runtime": {"3m": {k: v for k, v in multi.items() if k != "launches"},
                                   "3r_faults": chaos,
                                   "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},
-                      "examples": examples["facts"]}))
+                      "examples": examples["facts"], "train": trained}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,6 @@
-"""Checkpoints of the port: the JAX package's gathered layout (`store`) and
-forest checkpoints (`forest_io`), byte for byte.  `AsyncCheckpointer` and
-sharded checkpoints belong to the training path and raise
-NotImplementedError until it is ported."""
+"""Checkpoints of the port: the JAX package's gathered layout (`store`, with
+bfloat16 leaves and the async writer) and forest checkpoints (`forest_io`),
+byte for byte."""
 
 from .store import AsyncCheckpointer, latest_step, restore_checkpoint, save_checkpoint
 from .forest_io import load_forest, save_forest

@@ -1,4 +1,4 @@
-"""Checkpoint store: atomic, gathered, in the JAX package's layout.
+"""Checkpoint store: atomic, gathered, async, in the JAX package's layout.
 
 Counterpart of `repro.checkpoint.store`.  Layout:
 
@@ -9,15 +9,23 @@ Counterpart of `repro.checkpoint.store`.  Layout:
 A checkpoint is written to `step_<k>.tmp` and renamed into place, so a
 crash never leaves a half checkpoint visible.  Leaves are host arrays (a
 tensor is copied off its device) taken in the order JAX's tree utilities
-flatten a tree of dicts, lists and tuples (dict keys sorted), and the
-manifest's "treedef" is JAX's string of that structure, so a checkpoint
-written here is byte for byte the JAX package's (manifest and every
-`.npy`), and either package restores the other's.  `restore_checkpoint`
-returns host numpy arrays.
+flatten a tree of dicts, lists, tuples and named tuples (dict keys sorted),
+and the manifest's "treedef" is JAX's string of that structure, so a
+checkpoint written here is byte for byte the JAX package's (manifest and
+every `.npy`), and either package restores the other's.  A bfloat16 leaf is
+stored as the JAX package stores it, as its raw uint16 bits with manifest
+dtype "bfloat16" (numpy has no bfloat16; the port needs no `ml_dtypes`).
 
-Gathered mode only.  Sharded files, restoring onto shardings, the async
-writer and the JAX package's bf16/f8 leaves belong to the training path
-and raise NotImplementedError until it is ported.
+`restore_checkpoint` returns host numpy arrays, and for a bfloat16 leaf a
+CPU `torch.bfloat16` tensor.  It also reassembles a manifest's per-shard
+"files" entries.  `save_checkpoint(..., sharded=True)` on the port's
+single-device tensors writes what the JAX package writes for an array with
+one shard: gathered files, with "sharded": true.  `AsyncCheckpointer`
+copies a tree to the host synchronously and writes it on a thread.
+
+Per-device shard files (for tensors spread over several devices) and
+restoring onto shardings wait for the launch tooling's DeviceMesh:
+`restore_checkpoint(..., shardings=...)` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,24 +33,25 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from pathlib import Path
 
 import numpy as np
+import torch
 
-from ..core.types import to_numpy
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "AsyncCheckpointer"]
 
-_SLICE = "ROADMAP.md §1, slice 7b (the training path)"
+_MESH = "ROADMAP.md §1, item 6 (the launch tooling's DeviceMesh)"
 # dtypes numpy cannot round-trip through .npy, which the JAX package stores
-# as raw integer views
+# as raw integer views; the port reads and writes bfloat16 (torch has it)
 _EXOTIC = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
 
 
 def _flatten(tree) -> tuple[list, str]:
     """(leaves, structure) in JAX's tree-flattening order and string format:
-    dict keys sorted, lists and tuples in order, None a node without
-    leaves, anything else a leaf `*`."""
+    dict keys sorted, lists, tuples and named tuples in order, None a node
+    without leaves, anything else a leaf `*`."""
     if isinstance(tree, dict):
         keys = sorted(tree)
         parts = [_flatten(tree[k]) for k in keys]
@@ -51,7 +60,9 @@ def _flatten(tree) -> tuple[list, str]:
     if isinstance(tree, (list, tuple)):
         parts = [_flatten(v) for v in tree]
         inner = ", ".join(p[1] for p in parts)
-        if isinstance(tree, list):
+        if hasattr(tree, "_fields"):
+            inner = f"CustomNode(namedtuple[{type(tree).__name__}], [{inner}])"
+        elif isinstance(tree, list):
             inner = "[" + inner + "]"
         else:
             inner = "(" + inner + ("," if len(parts) == 1 else "") + ")"
@@ -67,38 +78,71 @@ def _unflatten(like, leaves):
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(v, leaves) for v in like)
+        vals = [_unflatten(v, leaves) for v in like]
+        return type(like)(*vals) if hasattr(like, "_fields") else type(like)(vals)
     if like is None:
         return None
     return next(leaves)
 
 
-def save_checkpoint(path, tree, *, step: int, sharded: bool = False,
-                    extra_meta: dict | None = None) -> Path:
-    """Write `tree` atomically to <path>/step_<step> (gathered mode)."""
-    if sharded:
-        raise NotImplementedError(f"sharded checkpoints are not ported yet ({_SLICE})")
+def _to_disk(leaf) -> tuple[np.ndarray, str]:
+    """(a host copy of the leaf as written to disk, the manifest's dtype
+    name): a bfloat16 tensor as its uint16 bits.  Always a copy, so a later
+    change to the leaf does not reach an asynchronous write."""
+    if isinstance(leaf, torch.Tensor):
+        leaf = leaf.detach().to("cpu", copy=True)
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = leaf.numpy()
+    else:
+        arr = np.array(leaf, copy=True)
+    if arr.dtype.name in _EXOTIC:
+        raise TypeError(f"a {arr.dtype.name} array: pass it as a tensor")
+    return arr, arr.dtype.name
+
+
+def _from_disk(arr: np.ndarray, dtype_name: str):
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    if dtype_name in _EXOTIC:
+        raise NotImplementedError(f"{dtype_name} leaves are not ported (no model of the port "
+                                  "keeps fp8 state)")
+    return arr
+
+
+def _write(path, host: list, structure: str, *, step: int, sharded: bool,
+           extra_meta: dict | None) -> Path:
+    """Write the (array, dtype name) leaves `host` atomically to
+    <path>/step_<step>."""
     path = Path(path)
     final = path / f"step_{step}"
     tmp = path / f"step_{step}.tmp"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
-    leaves, structure = _flatten(tree)
     manifest = {"step": step, "treedef": f"PyTreeDef({structure})",
-                "num_leaves": len(leaves), "sharded": sharded, "leaves": [],
+                "num_leaves": len(host), "sharded": sharded, "leaves": [],
                 "meta": extra_meta or {}}
-    for i, leaf in enumerate(leaves):
-        arr = to_numpy(leaf)
+    for i, (arr, dt) in enumerate(host):
         fn = f"arr_{i}.npy"
         np.save(tmp / fn, arr)
-        manifest["leaves"].append({"index": i, "dtype": arr.dtype.name,
-                                   "shape": list(arr.shape), "file": fn})
+        manifest["leaves"].append({"index": i, "dtype": dt, "shape": list(arr.shape),
+                                   "file": fn})
     (tmp / "manifest.json").write_text(json.dumps(manifest))
     if final.exists():
         shutil.rmtree(final)
     os.replace(tmp, final)
     return final
+
+
+def save_checkpoint(path, tree, *, step: int, sharded: bool = False,
+                    extra_meta: dict | None = None) -> Path:
+    """Write `tree` atomically to <path>/step_<step>.  Every tensor of the
+    port lies on one device, so `sharded=True` writes gathered files, as
+    the JAX package does for an array with one shard."""
+    leaves, structure = _flatten(tree)
+    return _write(path, [_to_disk(x) for x in leaves], structure, step=step, sharded=sharded,
+                  extra_meta=extra_meta)
 
 
 def latest_step(path) -> int | None:
@@ -113,9 +157,11 @@ def latest_step(path) -> int | None:
 
 def restore_checkpoint(path, tree_like, *, step: int | None = None, shardings=None):
     """Restore into the structure of `tree_like` (the latest step by
-    default): (the tree of host numpy arrays, the manifest)."""
+    default): (the tree of host numpy arrays, bfloat16 leaves as CPU
+    `torch.bfloat16` tensors, the manifest).  A leaf saved as per-shard
+    "files" is reassembled from them."""
     if shardings is not None:
-        raise NotImplementedError(f"restoring onto shardings is not ported yet ({_SLICE})")
+        raise NotImplementedError(f"restoring onto shardings is not ported yet ({_MESH})")
     path = Path(path)
     if step is None:
         step = latest_step(path)
@@ -128,17 +174,49 @@ def restore_checkpoint(path, tree_like, *, step: int | None = None, shardings=No
         raise AssertionError("tree structure changed")
     out = []
     for entry in manifest["leaves"]:
-        if "file" not in entry:
-            raise NotImplementedError(f"sharded checkpoints are not ported yet ({_SLICE})")
-        if entry["dtype"] in _EXOTIC:
-            raise NotImplementedError(f"{entry['dtype']} leaves are not ported yet ({_SLICE})")
-        out.append(np.load(d / entry["file"]))
+        if "file" in entry:
+            arr = np.load(d / entry["file"])
+        else:
+            arr = None
+            for f in entry["files"]:
+                part = np.load(d / f["file"])
+                if arr is None:
+                    arr = np.zeros(entry["shape"], part.dtype)
+                arr[tuple(slice(a, b) for a, b in f["index"])] = part
+        out.append(_from_disk(arr, entry["dtype"]))
     return _unflatten(tree_like, iter(out)), manifest
 
 
 class AsyncCheckpointer:
-    """The JAX package's background-thread writer: part of the training
-    path, not ported yet."""
+    """Snapshot to host synchronously, write on a background thread.  `save`
+    waits for the previous write first; `wait` joins the writer and raises
+    the error a write met (again on every later `wait`, as the JAX package
+    does)."""
 
     def __init__(self, path):
-        raise NotImplementedError(f"AsyncCheckpointer is not ported yet ({_SLICE})")
+        self.path = Path(path)
+        self._thread: threading.Thread | None = None
+        self.last_error: Exception | None = None
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error:
+            raise self.last_error
+
+    def save(self, tree, *, step: int, sharded: bool = False,
+             extra_meta: dict | None = None) -> None:
+        self.wait()
+        leaves, structure = _flatten(tree)
+        host = [_to_disk(x) for x in leaves]       # the snapshot: host copies
+
+        def write():
+            try:
+                _write(self.path, host, structure, step=step, sharded=sharded,
+                       extra_meta=extra_meta)
+            except Exception as e:      # handed to the trainer by `wait`
+                self.last_error = e
+
+        self._thread = threading.Thread(target=write, daemon=True)
+        self._thread.start()

@@ -17,10 +17,14 @@ owner — host numpy in the JAX package, tensors here;
 element class of a forest's leaves is its coarse mesh's (`tree_eclass`,
 hex trees included); a forest without one holds simplices.
 
-An LM's state is its parameters: `lm_params_from_reference` loads the JAX
-package's parameter tree (`repro.models.init_params`, as numpy arrays)
-into the port's `models.lm.LM`, so both packages compute with the same
-weights.
+An LM's state is its parameters and its optimizer state:
+`lm_params_from_reference` loads the JAX package's parameter tree
+(`repro.models.init_params`, as numpy arrays) into the port's
+`models.lm.LM`, so both packages compute with the same weights, and
+`lm_params_to_reference` gives the port's parameters back in that tree
+(layers stacked), so a checkpoint of them is the JAX package's;
+`opt_state_from_reference` / `opt_state_to_reference` carry AdamW's state
+likewise.
 """
 
 from __future__ import annotations
@@ -36,10 +40,13 @@ from .core.keys import from_u64, to_u64
 from .core.types import ECLASS_HEX, ECLASS_SIMPLEX, to_numpy
 from .models.config import ModelConfig
 from .models.lm import LM
+from .optim import OptState
 
 __all__ = ["FIELDS", "GHOST_FIELDS", "CMESH_FIELDS", "forest_from_reference",
            "forest_to_reference", "ghost_from_reference", "ghost_to_reference",
-           "cmesh_from_reference", "cmesh_to_reference", "lm_params_from_reference"]
+           "cmesh_from_reference", "cmesh_to_reference", "lm_params_from_reference",
+           "lm_params_to_reference", "load_lm_params", "opt_state_from_reference",
+           "opt_state_to_reference"]
 
 FIELDS = ("d", "num_trees", "rank", "num_ranks", "anchor", "level", "stype", "tree", "keys",
           "cmesh")
@@ -150,34 +157,128 @@ def ghost_to_reference(ghost: dict) -> dict:
     return {name: to_numpy(ghost[name]).astype(np.int32) for name in GHOST_FIELDS}
 
 
-def lm_params_from_reference(cfg: ModelConfig, params: dict, device=None) -> LM:
-    """The port's `LM` holding the JAX package's parameters: `params` is the
-    JAX tree (tok_embed, out_head, final_norm, and layers with a leading
-    layer axis), as numpy arrays or anything `np.asarray` takes.  The
-    stacked layer axis is split into the blocks; every weight keeps JAX's
-    (in, out) layout, so no matrix is transposed.  Each leaf is cast to the
-    parameter's dtype (bf16 leaves go through fp32, exactly).  Raises if a
-    leaf is missing, left over or of another shape.  On `device`, the card
-    unless given."""
-    model = LM(cfg, 0, device)
-    for name, p in model.named_parameters():
-        path = name.split(".")
-        node = params["layers"] if path[0] == "layers" else params
-        for part in (path[2:] if path[0] == "layers" else path):
+def _ref_leaf(tree: dict, name: str):
+    """The entry of the JAX tree `tree` for the port's parameter `name`:
+    "layers.<i>.<path>" is layer i of the stacked leaf at layers/<path>."""
+    path = name.split(".")
+    if path[0] != "layers":
+        node = tree
+        for part in path:
             node = node[part]
-        leaf = np.asarray(node, np.float32)
-        if path[0] == "layers":
-            leaf = leaf[int(path[1])]
-        if leaf.shape != tuple(p.shape):
-            raise ValueError(f"{name}: reference shape {leaf.shape}, port {tuple(p.shape)}")
+        return node
+    node = tree["layers"]
+    for part in path[2:]:
+        node = node[part]
+    return node[int(path[1])]
+
+
+def _tensor(x, device=None) -> torch.Tensor:
+    """A JAX-side leaf (numpy, anything `np.asarray` takes, or a tensor) as
+    a tensor on `device` (its own for a tensor unless given); host data is
+    copied (a JAX array's numpy view is read-only), bfloat16 through
+    float32, exactly."""
+    if isinstance(x, torch.Tensor):
+        return x if device is None else x.to(device)
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def load_lm_params(model: LM, params: dict) -> LM:
+    """Copy the JAX tree `params` (as `lm_params_from_reference` takes it,
+    numpy arrays or tensors) into `model`'s parameters in place, each cast
+    to the parameter's dtype; raises if a leaf is missing, left over or of
+    another shape.  Returns `model`."""
+    for name, p in model.named_parameters():
+        leaf = _tensor(_ref_leaf(params, name))
+        if tuple(leaf.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: reference shape {tuple(leaf.shape)}, "
+                             f"port {tuple(p.shape)}")
         with torch.no_grad():
-            p.copy_(torch.tensor(leaf).to(p.dtype))
+            p.copy_(leaf)
     n_port = sum(1 for name, _ in model.named_parameters()
                  if not name.startswith("layers.") or name.startswith("layers.0."))
     n_ref = sum(1 for _ in _leaves(params))
     if n_port != n_ref:
         raise ValueError(f"the reference tree has {n_ref} leaves, the port {n_port}")
     return model
+
+
+def lm_params_from_reference(cfg: ModelConfig, params: dict, device=None) -> LM:
+    """The port's `LM` holding the JAX package's parameters: `params` is the
+    JAX tree (tok_embed, out_head, final_norm, and layers with a leading
+    layer axis), as numpy arrays, anything `np.asarray` takes, or tensors
+    (a restored checkpoint's bfloat16 leaves).  The stacked layer axis is
+    split into the blocks; every weight keeps JAX's (in, out) layout, so no
+    matrix is transposed.  Each leaf is cast to the parameter's dtype (bf16
+    leaves go through fp32, exactly).  Raises if a leaf is missing, left
+    over or of another shape.  On `device`, the card unless given."""
+    return load_lm_params(LM(cfg, 0, device), params)
+
+
+def _reference_tree(model: LM, flat: dict) -> dict:
+    """The JAX package's tree of the dense LM, with the entry of each port
+    parameter name taken from `flat` (name -> tensor) and the layers'
+    entries stacked on a leading axis: tok_embed, out_head unless tied,
+    final_norm, layers {attn_norm, attn {wq, wk, wv, wo[, q_norm, k_norm]},
+    mlp_norm, mlp {w_gate, w_up, w_down}}; None where the config has no
+    such parameter (the non-parametric norms)."""
+    cfg, L = model.cfg, len(model.layers)
+
+    def stacked(path: str):
+        key = f"layers.0.{path}"
+        if key not in flat:
+            return None
+        return torch.stack([flat[f"layers.{i}.{path}"].detach() for i in range(L)])
+
+    block = model.layers[0]
+    tree = {"tok_embed": flat["tok_embed"].detach(),
+            "final_norm": flat["final_norm"].detach() if "final_norm" in flat else None,
+            "layers": {"attn_norm": stacked("attn_norm"), "mlp_norm": stacked("mlp_norm"),
+                       "attn": {n: stacked(f"attn.{n}") for n in block.attn},
+                       "mlp": {n: stacked(f"mlp.{n}") for n in block.mlp}}}
+    if not cfg.tie_embeddings:
+        tree["out_head"] = flat["out_head"].detach()
+    return tree
+
+
+def lm_params_to_reference(model: LM) -> dict:
+    """The inverse of `lm_params_from_reference`: the JAX package's tree of
+    `model`'s parameters (tensors on its device, in its dtypes, layers
+    stacked on a leading axis and copied), as `repro.models.init_params`
+    gives it; a checkpoint of it is the JAX package's byte for byte."""
+    return _reference_tree(model, dict(model.named_parameters()))
+
+
+def _check_adamw(opt) -> None:
+    if not isinstance(opt.nu, dict) or any(isinstance(v, tuple) for v in _leaves(opt.nu)):
+        raise NotImplementedError(
+            "Adafactor state: its factored moments are taken over the JAX package's stacked "
+            "layer axis, which the port's per-layer leaves do not have; no ported config "
+            "trains with Adafactor (ROADMAP.md §1, slice 7c: deepseek-v3-671b)")
+
+
+def opt_state_to_reference(model: LM, opt: OptState) -> OptState:
+    """The port's AdamW state (moments keyed by parameter name) as the JAX
+    package's: the moments in the parameter tree's layout
+    (`lm_params_to_reference`), the step a 0-d int32 tensor."""
+    _check_adamw(opt)
+    return OptState(opt.step, _reference_tree(model, opt.mu), _reference_tree(model, opt.nu))
+
+
+def opt_state_from_reference(model: LM, opt) -> OptState:
+    """The JAX package's AdamW state (`repro.optim.OptState` or any (step,
+    mu, nu) of numpy arrays or tensors) as the port's, for `model`: the
+    moments keyed by parameter name on the parameters' device, in their
+    saved dtype; the step a 0-d int32 host tensor."""
+    step, mu, nu = opt
+    _check_adamw(OptState(step, mu, nu))
+    names = [name for name, _ in model.named_parameters()]
+    dev = model.tok_embed.device
+    return OptState(torch.tensor(int(step), dtype=torch.int32),
+                    {n: _tensor(_ref_leaf(mu, n), dev).contiguous() for n in names},
+                    {n: _tensor(_ref_leaf(nu, n), dev).contiguous() for n in names})
 
 
 def _leaves(tree):

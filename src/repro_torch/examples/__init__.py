@@ -12,6 +12,8 @@ a function that returns what its `main` prints, as a dict:
   fem_diffusion         finite-volume diffusion over Iterate's face pairs
   sfc_expert_placement  the Partition rule on MoE loads and documents
   serve_lm              prefill and continuous batched decode of a reduced LM
+  train_lm              the trainer with async checkpoints on a reduced or
+                        a ~100M-parameter LM (its own flags besides --device)
 
 `untimed` gives the lines a twin's output and its JAX example's share: times
 and rates, the device named in a heading, and the conservation error's

@@ -4,7 +4,8 @@ eval and inside-root test (Balance -> Ghost -> validate), the tree
 transform that carries face neighbors across glued tree faces (cmesh), and
 the element queries owner rank, successor and single-face neighbor; and
 around the attention kernel of `csrc/flash_attention.cu`, which the LM's
-prefill runs.
+prefill and training forward run (`FlashAttentionFn` carries it under
+autograd, with the plain backward of `kernels.ref`).
 
 Every kernel with a body per element class takes `eclass` (simplex by
 default) and passes it to the C entry point, which launches that class's
@@ -36,8 +37,8 @@ from .build import library
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
            "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
-           "flash_attention", "FLASH_HEAD_DIMS", "launch_counts", "class_launch_counts",
-           "reset_launch_counts"]
+           "flash_attention", "FlashAttentionFn", "FLASH_HEAD_DIMS", "launch_counts",
+           "class_launch_counts", "reset_launch_counts"]
 
 _ELEMENT_KERNELS = ("morton_key", "decode", "parent", "children", "face_sweep",
                     "eval_route", "inside_root", "tree_transform", "owner_rank", "successor",
@@ -420,3 +421,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     _call("flash_attention", "fa_flash_attention", _FLASH_DTYPES[q.dtype], B, S, H, KV, hd,
           int(causal), window or 0, q, k, v, o, *q.stride()[:3], *k.stride()[:3])
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` under autograd: apply(q, k, v, causal, window).
+
+    The forward is the wrapper above (the kernel for CUDA tensors, whose
+    output carries no autograd history of its own; the plain version for
+    CPU tensors), and the backward is `kernels.ref.flash_attention_backward`
+    on both devices: plain by design, as the JAX package's Pallas kernel
+    has no backward either.  It saves q, k and v (the backward recomputes
+    the softmax and does not read the output)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_backward(q, k, v, do, causal=ctx.causal,
+                                                  window=ctx.window)
+        return dq, dk, dv, None, None

@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the CUDA kernels: the element kernels,
-delegating to `core.ops`, and attention (`flash_attention`).
+delegating to `core.ops`, and attention (`flash_attention`), with the
+backward of attention (`flash_attention_backward`), which has no kernel.
 
 Same signatures and outputs as the wrappers in `kernels.ops`; they run on the
 tensors' own device.  The wrappers call them for CPU tensors, the tests hold
@@ -26,15 +27,19 @@ from ..core.types import ECLASS_HEX, ECLASS_NAMES, ECLASS_SIMPLEX, Simplex
 
 __all__ = ["morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
            "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor",
-           "flash_attention", "NEG_INF", "call_counts", "class_call_counts",
-           "reset_call_counts"]
+           "flash_attention", "flash_attention_backward", "NEG_INF", "BACKWARD_BLOCK_BYTES",
+           "call_counts", "class_call_counts", "reset_call_counts"]
 
 _ELEMENT_FNS = ("morton_key", "decode", "parent", "children", "face_sweep", "eval_route",
                 "inside_root", "tree_transform", "owner_rank", "successor", "face_neighbor")
-call_counts: dict[str, int] = dict.fromkeys((*_ELEMENT_FNS, "flash_attention"), 0)
+call_counts: dict[str, int] = dict.fromkeys(
+    (*_ELEMENT_FNS, "flash_attention", "flash_attention_backward"), 0)
 class_call_counts: dict[str, dict[str, int]] = {
     k: dict.fromkeys(ECLASS_NAMES.values(), 0) for k in _ELEMENT_FNS}
 NEG_INF = -1e30     # a masked score: finite, as in the JAX package
+# The most bytes one fp32 (B, H, rows, keys) block of the attention backward
+# may take; the backward holds about four such blocks at once.
+BACKWARD_BLOCK_BYTES = 512 << 20
 
 
 def reset_call_counts() -> None:
@@ -224,12 +229,72 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     KV = k.shape[2]
     qg = q.reshape(B, S, KV, H // KV, hd).float()
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float()) * (1.0 / math.sqrt(hd))
-    pos = torch.arange(S, device=q.device)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= pos[None, :] <= pos[:, None]
-    if window is not None:
-        mask &= pos[None, :] > pos[:, None] - window
+    mask = _band_mask(0, S, 0, S, causal, window, q.device)
     p = torch.softmax(scores.masked_fill(~mask, NEG_INF), dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", p, v.float())
     return out.reshape(B, S, H, hd).to(q.dtype)
+
+
+def _band_mask(q0: int, q1: int, k0: int, k1: int, causal: bool, window, device):
+    """The (q1 - q0, k1 - k0) mask of query rows [q0, q1) over keys
+    [k0, k1): kpos <= qpos if causal, and kpos > qpos - window with a
+    window."""
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(k0, k1, device=device)[None, :]
+    mask = torch.ones((q1 - q0, k1 - k0), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool = True, window: int | None = None):
+    """The gradients (dq, dk, dv) of `flash_attention(q, k, v, causal,
+    window)` for the output's gradient `do`, in q's, k's and v's dtypes.
+
+    Plain by design (the JAX package differentiates jnp attention; its
+    Pallas kernel has no backward).  In fp32, a block of query rows at a
+    time: P = softmax(q.k^T scale, masked) is recomputed over the keys the
+    block can see (up to its last row if causal, from its first row's
+    window start), then dV += P^T dO, dP = dO V^T, dS = P (dP - rowsum(P dP)),
+    dQ = dS K scale and dK += dS^T Q scale; the G = H / KV query heads of
+    a KV head add into its dK and dV.  rowsum(P dP) is rowsum(dO o) for the
+    exact output o: taken from the fp32 P, it does not carry the rounding
+    of a bf16/fp16 output (which, in the rows whose gradient nearly cancels,
+    the first rows of a causal band, outweighs the gradient itself).  A
+    block holds at most BACKWARD_BLOCK_BYTES a (B, H, rows, keys) fp32
+    tensor, so the transient memory stays bounded whatever S is.  Keys a
+    block cannot see have P = 0 exactly in fp32, so the blocks compute what
+    one (S, S) pass would."""
+    call_counts["flash_attention_backward"] += 1
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().reshape(B, S, KV, G, hd)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, S, KV, G, hd)
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    rows = max(1, min(S, BACKWARD_BLOCK_BYTES // (4 * B * H * S)))
+    for q0 in range(0, S, rows):
+        q1 = min(S, q0 + rows)
+        k0 = 0 if window is None else max(0, q0 - window + 1)
+        k1 = q1 if causal else S
+        qb, dob = qf[:, q0:q1], dof[:, q0:q1]
+        kb, vb = kf[:, k0:k1], vf[:, k0:k1]
+        s = torch.einsum("bqkgh,bskh->bkgqs", qb, kb) * scale
+        mask = _band_mask(q0, q1, k0, k1, causal, window, q.device)
+        p = torch.softmax(s.masked_fill_(~mask, NEG_INF), dim=-1)
+        del s
+        dv[:, k0:k1] += torch.einsum("bkgqs,bqkgh->bskh", p, dob)
+        ds = torch.einsum("bqkgh,bskh->bkgqs", dob, vb)
+        delta = torch.einsum("bkgqs,bkgqs->bkgq", p, ds)
+        ds.sub_(delta[..., None]).mul_(p)
+        del p, delta
+        dq[:, q0:q1] = torch.einsum("bkgqs,bskh->bqkgh", ds, kb) * scale
+        dk[:, k0:k1] += torch.einsum("bkgqs,bqkgh->bskh", ds, qb) * scale
+        del ds
+    return (dq.reshape(B, S, H, hd).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))

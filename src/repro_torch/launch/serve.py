@@ -3,7 +3,9 @@
 The port of the JAX package's `repro.launch.serve`.  The steps run on the
 device of the parameters and the cache, and update the cache in place (JAX
 returns a new one); each also returns the cache, so a caller reads like the
-JAX one.  Prefill runs the attention kernel once a layer.
+JAX one.  Prefill runs the attention kernel once a layer.  Both steps run
+under `torch.inference_mode()`, so serving a model whose gradients are on
+(after training) builds no graph and keeps no activations.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ def make_prefill_step(cfg: ModelConfig):
     """prefill(params, batch, cache) -> (last-token logits (B, vocab) fp32,
     filled cache), writing positions [0, S) of the cache."""
 
+    @torch.inference_mode()
     def prefill(params, batch, cache):
         hidden, _, cache = forward(cfg, params, batch, cache=cache, cache_pos=0)
         return unembed(cfg, params, hidden[:, -1]).float(), cache
@@ -32,6 +35,7 @@ def make_decode_step(cfg: ModelConfig):
     """decode(params, cache, tokens (B, 1), pos) -> (logits (B, vocab) fp32,
     cache)."""
 
+    @torch.inference_mode()
     def step(params, cache, tokens, pos):
         return decode_step(cfg, params, cache, tokens, pos)
 

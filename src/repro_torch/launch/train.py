@@ -1,0 +1,108 @@
+"""The train step: microbatched gradient accumulation, clip, schedule and
+optimizer (counterpart of the JAX package's `repro.launch.train`).
+
+`make_train_step` returns the step the trainer and the `train_lm` twin run.
+It turns the model's gradients on, runs `num_micro` forward/backward passes
+over equal slices of the batch, accumulates their gradients in
+`cfg.grad_acc_dtype` and divides by `num_micro` (one micro: the gradients
+in the parameters' dtype, as the JAX package takes them), clips by the
+global norm, and applies AdamW at the cosine schedule's rate, in place on
+the model's parameters.  The mesh arguments of the JAX package
+(`micro_shardings`, `grad_shardings`, `default_num_micro`'s mesh) wait for
+the launch tooling's DeviceMesh.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.config import ModelConfig, ShapeConfig
+from ..models.lm import init_params, loss_fn
+from ..optim import (adamw_update, apply_updates, clip_by_global_norm, cosine_schedule,
+                     init_opt_state)
+
+__all__ = ["default_num_micro", "make_train_step", "abstract_train_state"]
+
+_MESH = "ROADMAP.md §1, item 6 (the launch tooling's DeviceMesh)"
+
+
+def default_num_micro(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> int:
+    """Microbatch count: per-device microbatch tokens about 8k at most for
+    big models, fewer micro-steps for small ones (the JAX package's rule).
+    `mesh=None` is one device: the whole global batch on it."""
+    if cfg.num_micro_override:
+        return cfg.num_micro_override
+    if mesh is not None:
+        raise NotImplementedError(f"a mesh's data-parallel axes are not ported yet ({_MESH})")
+    per_dev = max(1, shape.global_batch)
+    if cfg.d_model >= 4096:
+        per_dev_micro = 1          # big models: one sequence per device/micro
+    elif cfg.d_model >= 2048:
+        per_dev_micro = min(per_dev, 4)
+    else:
+        per_dev_micro = min(per_dev, 8)
+    n = max(1, per_dev // per_dev_micro)
+    while shape.global_batch % n:
+        n -= 1
+    return n
+
+
+def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10_000, clip_norm: float = 1.0):
+    """train_step(params: LM, opt_state, batch, step: int) -> (params,
+    opt_state, metrics): params updated in place, metrics {"ce", "aux",
+    "loss", "grad_norm", "lr"} as 0-d fp32 tensors (loss, ce and aux the
+    means over the microbatches)."""
+    if cfg.optimizer != "adamw":
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.optimizer} in the train step: Adafactor's factored moments are "
+            "taken over the JAX package's stacked layer axis, which the port's per-layer "
+            "leaves do not have; no ported config trains with it (ROADMAP.md §1, slice 7c)")
+    acc_dt = torch.bfloat16 if cfg.grad_acc_dtype == "bfloat16" else torch.float32
+
+    def train_step(params, opt_state, batch, step):
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        for p in named.values():
+            p.grad = None
+        B = batch["tokens"].shape[0]
+        if B % num_micro:
+            raise ValueError(f"a batch of {B} does not split into {num_micro} microbatches")
+        mb = B // num_micro
+        grads, losses, ms = None, [], []
+        for i in range(num_micro):
+            micro = batch if num_micro == 1 else {k: v[i * mb:(i + 1) * mb]
+                                                  for k, v in batch.items()}
+            loss, m = loss_fn(cfg, params, micro)
+            loss.backward()
+            if num_micro == 1:
+                grads = {n: p.grad for n, p in named.items()}
+            else:
+                if grads is None:
+                    grads = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
+                             for n, p in named.items()}
+                for n, p in named.items():
+                    grads[n] += p.grad.to(acc_dt)
+            for p in named.values():
+                p.grad = None
+            losses.append(loss.detach())
+            ms.append({k: v.detach() for k, v in m.items()})
+        if num_micro > 1:
+            grads = {n: g / num_micro for n, g in grads.items()}
+        loss = torch.stack(losses).mean()
+        metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        lr_t = cosine_schedule(step, peak_lr=lr, warmup_steps=warmup, total_steps=total_steps)
+        updates, opt_state = adamw_update(grads, opt_state, params, lr_t)
+        del grads
+        apply_updates(params, updates)
+        return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr_t)
+
+    return train_step
+
+
+def abstract_train_state(cfg: ModelConfig):
+    """(params, opt_state) with every tensor on the `meta` device: their
+    shapes and dtypes, no memory."""
+    params = init_params(cfg, device=torch.device("meta"))
+    return params, init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype)

@@ -3,9 +3,9 @@
 The port of the dense-path part of the JAX package's `repro.models.layers`,
 with its type promotions: fp32 inside the norms, fp32 RoPE angles applied
 and cast back, matmuls cast to the input's dtype.  Causal attention with
-Sq == Sk (every prefill from position 0) goes through the attention kernel,
-`kernels.ops.flash_attention`, in place of the JAX package's blocked jnp
-paths; decode and prefill past position 0 attend over the cache with
+Sq == Sk (every prefill and training forward from position 0) goes through
+the attention kernel under autograd (`kernels.ops.FlashAttentionFn`) in
+place of the JAX package's blocked jnp paths; decode and prefill past position 0 attend over the cache with
 `_plain_attention`, as the JAX package does.  Weights keep the JAX layout
 (in, out).  Unlike JAX, `gqa_attention` writes the new k/v into the cache
 in place.
@@ -114,11 +114,12 @@ def attention_core(q, k, v, *, causal: bool = True, window=None, q_offset: int =
                    scale: float | None = None):
     """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd).  Causal
     attention with Sq == Sk from position 0 at the default scale is the
-    attention kernel's function and goes to `kernels.ops.flash_attention`
-    (on a CPU tensor, its plain version); anything else to
-    `_plain_attention`."""
+    attention kernel's function and goes through `kernels.ops.FlashAttentionFn`
+    (the kernel, or on a CPU tensor its plain version, under autograd with
+    the plain backward, so training gets attention's gradient on both
+    devices); anything else to `_plain_attention`."""
     if causal and q.shape[1] == k.shape[1] and q_offset == 0 and scale is None:
-        return kops.flash_attention(q, k, v, causal=True, window=window)
+        return kops.FlashAttentionFn.apply(q, k, v, True, window)
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _plain_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                             scale=scale)

@@ -8,15 +8,23 @@ leading axis and scans them; here `LM` is an `nn.Module` holding one
 over them.  Parameters are made on their device from a seeded
 `torch.Generator`, with the JAX package's distributions (normal over
 sqrt(fan-in), the embedding at 0.02, norm scales at zero); they keep JAX's
-(in, out) layout and do not require gradients (serving only: the training
-slice is not ported).  The cache keeps JAX's stacked layout,
-{"layers": {"k": (L, B, C, KV, hd), "v": ...}}, and is written in place.
+(in, out) layout and are made with `requires_grad=False`, so serving builds
+no graph: training turns gradients on explicitly (`params.requires_grad_()`,
+as `launch.train.make_train_step` does).  The cache keeps JAX's stacked
+layout, {"layers": {"k": (L, B, C, KV, hd), "v": ...}}, and is written in
+place.
+
+Training: `loss_fn` (next-token cross-entropy through `chunked_ce`, which
+never holds the (B, S, vocab) logits at once) and `cfg.remat`, read where
+a forward records a graph: "none" keeps every activation, "block" and
+"full" recompute each `Block` in the backward
+(`torch.utils.checkpoint`, non-reentrant), as the JAX package's
+`jax.checkpoint` per scanned layer does.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 slice: the moe, ssm, hybrid, encdec and vlm families, MLA and
-sliding-window configs, and the training-side activation sharding
-(`set_activation_spec`).  `cfg.remat` is a training knob that serving
-does not read.
+sliding-window configs, the multi-token-prediction loss, `remat="dots"`,
+and the training-side activation sharding (`set_activation_spec`).
 """
 
 from __future__ import annotations
@@ -25,13 +33,14 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.types import resolve_device
 from . import layers as ly
 from .config import ModelConfig
 
 __all__ = ["LM", "Block", "init_params", "init_cache", "embed", "unembed", "forward",
-           "decode_step", "check_ported", "set_activation_spec"]
+           "decode_step", "chunked_ce", "loss_fn", "check_ported", "set_activation_spec"]
 
 _SLICE = "ROADMAP.md §1, slice 7"
 
@@ -69,7 +78,8 @@ class _Init:
     """Draws parameters on `device` from one seeded generator."""
 
     def __init__(self, seed: int, device: torch.device, dtype: torch.dtype):
-        self.gen = torch.Generator(device=device).manual_seed(seed)
+        meta = device.type == "meta"      # shapes only: no generator, no draws
+        self.gen = None if meta else torch.Generator(device=device).manual_seed(seed)
         self.device, self.dtype = device, dtype
 
     def mat(self, shape, scale=None) -> nn.Parameter:
@@ -164,9 +174,28 @@ def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w)
 
 
+def _remat(cfg: ModelConfig, params: LM, cache: dict | None) -> bool:
+    """Whether a forward recomputes its blocks in the backward: when it
+    records a graph through trainable parameters, without a cache, and
+    `cfg.remat` asks for it."""
+    if cache is not None or not torch.is_grad_enabled() or not params.tok_embed.requires_grad:
+        return False
+    if cfg.remat == "dots":
+        raise NotImplementedError("remat='dots' (save the matmuls' outputs, recompute the "
+                                  "rest) is not ported yet (ROADMAP.md §1, item 6: the "
+                                  "launch tooling)")
+    if cfg.remat not in ("none", "block", "full"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    return cfg.remat != "none"
+
+
 def _run_layers(params: LM, x: torch.Tensor, positions: torch.Tensor, cache: dict | None,
                 cache_pos: int) -> torch.Tensor:
+    remat = _remat(params.cfg, params, cache)
     for i, block in enumerate(params.layers):
+        if remat:
+            x = checkpoint(block, x, positions, None, cache_pos, use_reentrant=False)
+            continue
         lc = None if cache is None else {n: cache["layers"][n][i] for n in ("k", "v")}
         x = block(x, positions, lc, cache_pos)
     return x
@@ -197,3 +226,48 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, tokens: torch.Tensor,
     x = _run_layers(params, x, positions, cache, pos)
     x = ly.norm(cfg, params.final_norm, x)
     return unembed(cfg, params, x[:, 0]).float(), cache
+
+
+def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean next-token cross-entropy over the mask's weight, a chunk of
+    positions at a time (the JAX package's rule: the largest chunk <= 512
+    dividing S, halving), the logits of a chunk in fp32: the (B, S, vocab)
+    logits are never held at once in the forward.  hidden (B, S, D),
+    targets (B, S) int, mask (B, S) fp32."""
+    B, S, _D = hidden.shape
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk //= 2
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, chunk):
+        logits = unembed(cfg, params, hidden[:, c0:c0 + chunk]).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, targets[:, c0:c0 + chunk, None].long())[..., 0]
+        m = mask[:, c0:c0 + chunk]
+        nll = nll + ((lse - gold) * m).sum()
+        cnt = cnt + m.sum()
+    return nll / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
+    """Next-token cross-entropy of batch["tokens"] (B, S), each position
+    predicting the next (the last position masked), times batch["mask"]
+    where given, plus 0.01 times the aux loss (0 for the dense family).
+    Returns (loss, {"ce", "aux"}), 0-d fp32 tensors."""
+    if cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: the multi-token-prediction loss is not ported "
+                                  "yet (ROADMAP.md §1, slice 7c: the MoE/MLA families)")
+    if cfg.family == "vlm":
+        raise NotImplementedError(f"{cfg.name}: the vlm loss is not ported yet (ROADMAP.md §1, "
+                                  "slice 7c: the VLM family)")
+    tokens = batch["tokens"]
+    hidden, aux, _ = forward(cfg, params, batch)
+    targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    mask[:, -1] = 0.0
+    if "mask" in batch:
+        mask = mask * batch["mask"]
+    ce = chunked_ce(cfg, params, hidden, targets, mask)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}

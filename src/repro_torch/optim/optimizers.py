@@ -1,0 +1,166 @@
+"""Optimizers: AdamW and Adafactor (factored second moment) over trees of
+tensors (counterpart of the JAX package's `repro.optim.optimizers`).
+
+A tree is a nested dict of tensors (None entries are empty), or an
+`nn.Module`, which stands for the flat dict of its `named_parameters()`.
+Every step keeps the JAX package's dtypes: moments in the state dtype, the
+update in fp32, a parameter updated as `(p.float() + u).to(p.dtype)`, the
+clip scaled in fp32 and cast back.  Unlike the JAX package, which returns
+new trees, the port writes in place where that saves device memory:
+`adamw_update` and `adafactor_update` write the new moments into the
+state's tensors (the returned `OptState` holds them, with step + 1), and
+`apply_updates` writes into the parameters, under `torch.no_grad()`.  The
+step counter is a 0-d int32 host tensor, so that the bias corrections and
+the schedule are host scalars a card kernel takes without a copy.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+from torch import nn
+
+__all__ = ["OptState", "init_opt_state", "adamw_update", "adafactor_update", "apply_updates",
+           "global_norm", "clip_by_global_norm"]
+
+
+class OptState(NamedTuple):
+    step: torch.Tensor
+    mu: Any        # first moment (adamw) or 0-d zeros (adafactor, momentum-free)
+    nu: Any        # second moment (adamw) | (row, col) factored (adafactor)
+
+
+def _tree(params) -> dict:
+    """`params` as a tree: a module's `named_parameters()` as a flat dict,
+    anything else as it is."""
+    if isinstance(params, nn.Module):
+        return dict(params.named_parameters())
+    return params
+
+
+def _map(fn, tree, *rest):
+    """`fn` over the leaves of `tree` (nested dicts; None stays None), with
+    the entries of `rest` at the same places (which may be tuples)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def _leaves(tree) -> list:
+    """The leaves of a nested dict in JAX's order (keys sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [] if tree is None else [tree]
+
+
+def _state_dtype(name: str) -> torch.dtype:
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def init_opt_state(params, optimizer: str = "adamw", dtype: str = "float32") -> OptState:
+    """Zero moments in `dtype` on the parameters' devices."""
+    params = _tree(params)
+    dt = _state_dtype(dtype)
+    if optimizer == "adamw":
+        mu = _map(lambda p: torch.zeros_like(p, dtype=dt), params)
+        nu = _map(lambda p: torch.zeros_like(p, dtype=dt), params)
+    elif optimizer == "adafactor":
+        mu = _map(lambda p: torch.zeros((), dtype=dt, device=p.device), params)
+
+        def factored(p):
+            if p.dim() >= 2:
+                return (torch.zeros(p.shape[:-1], dtype=dt, device=p.device),
+                        torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=dt, device=p.device))
+            return (torch.zeros(p.shape, dtype=dt, device=p.device),
+                    torch.zeros((), dtype=dt, device=p.device))
+        nu = _map(factored, params)
+    else:
+        raise ValueError(optimizer)
+    return OptState(torch.zeros((), dtype=torch.int32), mu, nu)
+
+
+@torch.no_grad()
+def adamw_update(grads, state: OptState, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
+                 weight_decay=0.1):
+    """(updates in fp32, the state with step + 1); the moments are written
+    in place."""
+    params = _tree(params)
+    step = state.step + 1
+    t = step.to(torch.float32)
+    c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+
+    def upd(g, p, m, v):
+        g32 = g.float()
+        m2 = b1 * m.float() + (1 - b1) * g32
+        v2 = b2 * v.float() + (1 - b2) * g32 * g32
+        u = (m2 / c1) / (torch.sqrt(v2 / c2) + eps) + weight_decay * p.float()
+        m.copy_(m2)
+        v.copy_(v2)
+        return -lr * u
+
+    return _map(upd, grads, params, state.mu, state.nu), OptState(step, state.mu, state.nu)
+
+
+@torch.no_grad()
+def adafactor_update(grads, state: OptState, params, lr, *, decay=0.8, eps=1e-30,
+                     clip_threshold=1.0, weight_decay=0.0):
+    """(updates in fp32, the state with step + 1); the factored second
+    moments are written in place.  A leaf of two or more dimensions keeps a
+    row and a column statistic over its last two axes; a 1-D leaf a full
+    one."""
+    params = _tree(params)
+    step = state.step + 1
+    t = step.to(torch.float32)
+    beta = 1.0 - t ** (-decay)
+
+    def upd(g, p, v):
+        g32 = g.float()
+        g2 = g32 * g32 + eps
+        vr, vc = v
+        if p.dim() >= 2:
+            vr2 = beta * vr.float() + (1 - beta) * g2.mean(dim=-1)
+            vc2 = beta * vc.float() + (1 - beta) * g2.mean(dim=-2)
+            r = vr2 / torch.clamp(vr2.mean(dim=-1, keepdim=True), min=eps)
+            u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(vc2)[..., None, :])
+            vc.copy_(vc2)
+        else:
+            vr2 = beta * vr.float() + (1 - beta) * g2
+            u = g32 / torch.sqrt(torch.clamp(vr2, min=eps))
+        vr.copy_(vr2)
+        rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+        u = u / torch.clamp(rms / clip_threshold, min=1.0)
+        if weight_decay:
+            u = u + weight_decay * p.float()
+        return -lr * u
+
+    return _map(upd, grads, params, state.nu), OptState(step, state.mu, state.nu)
+
+
+@torch.no_grad()
+def apply_updates(params, updates):
+    """Each parameter p becomes (p.float() + u).to(p.dtype), in place;
+    returns `params`."""
+    def one(p, u):
+        p.copy_((p.float() + u).to(p.dtype))
+        return p
+
+    _map(one, _tree(params), updates)
+    return params
+
+
+@torch.no_grad()
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in fp32 (0-d)."""
+    return torch.sqrt(sum(torch.sum(leaf.float() ** 2) for leaf in _leaves(_tree(tree))))
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """(grads scaled by min(1, max_norm / norm) in fp32 and cast back, the
+    global norm)."""
+    n = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(n, min=1e-12), max=1.0)
+    return _map(lambda g: (g.float() * scale).to(g.dtype), grads), n

@@ -243,8 +243,9 @@ def test_manifest_without_eclass_reads_as_simplex(tmp_path):
 def test_store_writes_the_reference_layout_for_any_tree(tmp_path):
     """Nested dicts, lists, tuples and None: the same manifest (JAX's
     structure string included) and bytes as the JAX package's store, both
-    restores of either checkpoint, host numpy out; the training-path parts
-    raise NotImplementedError."""
+    restores of either checkpoint, host numpy out; `sharded=True` on the
+    port's single-device tensors writes what the JAX package writes for
+    arrays of one shard."""
     rng = np.random.default_rng(0)
     tree = {"w": rng.standard_normal((3, 4)).astype(np.float32),
             "b": {"z": np.arange(5, dtype=np.int64), "a": [np.zeros(2, np.uint8), None,
@@ -261,8 +262,58 @@ def test_store_writes_the_reference_layout_for_any_tree(tmp_path):
         np.testing.assert_array_equal(a, b)
     with pytest.raises(AssertionError, match="tree structure changed"):
         restore_checkpoint(tmp_path / "port", {"w": host["w"]})
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        save_checkpoint(tmp_path / "s", tree, step=0, sharded=True)
-    with pytest.raises(NotImplementedError, match="slice 7b"):
-        AsyncCheckpointer(tmp_path)
+    save_checkpoint(tmp_path / "s", tree, step=0, sharded=True)
+    jstore.save_checkpoint(tmp_path / "js", host, step=0, sharded=True)
+    _assert_same_files(tmp_path / "s" / "step_0", tmp_path / "js" / "step_0")
+    assert json.loads((tmp_path / "s" / "step_0" / "manifest.json").read_text())["sharded"]
     assert latest_step(tmp_path / "none") is None
+
+
+def test_async_checkpointer_round_trip_and_writer_error(tmp_path):
+    """`AsyncCheckpointer` snapshots the tree to the host at `save` (later
+    changes to the tensors do not reach the file), writes the JAX package's
+    bytes on a thread, and `wait` raises the error a write met."""
+    t = torch.arange(12, dtype=torch.float32).reshape(3, 4)
+    tree = {"t": t, "b": torch.ones(5, dtype=torch.bfloat16) / 3, "n": None}
+    ck = AsyncCheckpointer(tmp_path / "a")
+    ck.save(tree, step=4)
+    t.add_(100.0)
+    ck.wait()
+    host = {"t": np.arange(12, dtype=np.float32).reshape(3, 4),
+            "b": __import__("ml_dtypes").bfloat16(1 / 3) * np.ones(5, "bfloat16"), "n": None}
+    jstore.save_checkpoint(tmp_path / "j", host, step=4)
+    _assert_same_files(tmp_path / "a" / "step_4", tmp_path / "j" / "step_4")
+    got, _ = restore_checkpoint(tmp_path / "a", tree)
+    np.testing.assert_array_equal(got["t"], host["t"])
+    assert got["b"].dtype == torch.bfloat16 and torch.equal(got["b"], tree["b"])
+    (tmp_path / "file").write_text("")
+    bad = AsyncCheckpointer(tmp_path / "file")       # a file where the directory goes
+    bad.save(tree, step=0)
+    with pytest.raises(OSError):
+        bad.wait()
+
+
+def test_restore_reassembles_shard_files_as_the_reference_does(tmp_path):
+    """A manifest entry of per-shard "files" (what the JAX package writes
+    for an array over several devices), bf16 included: the port restores
+    the same arrays as the JAX package's restore."""
+    tree = {"w": np.arange(24, dtype=np.float32).reshape(4, 6),
+            "b": torch.arange(8, dtype=torch.float32).bfloat16()}
+    step = save_checkpoint(tmp_path, tree, step=0)
+    manifest = json.loads((step / "manifest.json").read_text())
+    for entry in manifest["leaves"]:
+        arr = np.load(step / entry["file"])
+        half = arr.shape[0] // 2
+        entry["files"] = []
+        for j, (a, b) in enumerate(((0, half), (half, arr.shape[0]))):
+            fn = f"arr_{entry['index']}.shard0_{a}.npy"
+            np.save(step / fn, arr[a:b])
+            entry["files"].append({"file": fn, "index": [[a, b]] + [[0, n] for n in
+                                                                    arr.shape[1:]]})
+        (step / entry.pop("file")).unlink()
+    (step / "manifest.json").write_text(json.dumps(manifest))
+    got, _ = restore_checkpoint(tmp_path, tree)
+    want, _ = jstore.restore_checkpoint(tmp_path, {"w": tree["w"], "b": tree["w"]})
+    np.testing.assert_array_equal(got["w"], np.asarray(want["w"]))
+    assert got["b"].dtype == torch.bfloat16 and torch.equal(got["b"], tree["b"])
+    np.testing.assert_array_equal(got["b"].float().numpy(), np.asarray(want["b"], np.float32))

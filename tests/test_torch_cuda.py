@@ -950,3 +950,92 @@ def test_cuda_two_rank_processes_match_simcomm(tmp_path):
     assert TF.count_global(fs, sim) == n == facts[0]["n_global"]
     assert_ranks_equal(arrays, fs, gh)
     assert summed_bytes(facts) == {k: sim.bytes_for(k) for k in sim.counters}
+
+
+def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [None, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(2, 300, 16, 8, 128, None, True), (1, 257, 8, 1, 64, 100, True),
+                                  (1, 200, 4, 4, 32, None, False)])
+def test_cuda_flash_function_gradients_match_plain_autograd(case, dtype, rows, monkeypatch):
+    """`FlashAttentionFn` on the card (forward: one kernel launch, no plain
+    forward; backward: the plain backward) against autograd through the
+    plain forward on the same card tensors: each of dq, dk, dv within 1e-4
+    relative L2 in fp32; in bf16 each row (over hd) within 2e-2 of its own
+    norm, as FLASH_ROW_TOL's check does for the forward.  With `rows`, the
+    backward's block bound is cut to that many query rows, so it runs in
+    several blocks (and key windows) as it does at training's lengths."""
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, H, KV, hd, window, causal = case
+    if rows is not None:
+        monkeypatch.setattr(kref, "BACKWARD_BLOCK_BYTES", 4 * B * H * S * rows)
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(S)
+    base = [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dt) for n in (H, KV, KV)]
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+    got = [t.clone().requires_grad_(True) for t in base]
+    kops.reset_launch_counts()
+    kref.reset_call_counts()
+    kops.FlashAttentionFn.apply(*got, causal, window).backward(do)
+    assert kops.launch_counts["flash_attention"] == 1
+    assert kref.call_counts["flash_attention"] == 0
+    assert kref.call_counts["flash_attention_backward"] == 1
+    want = [t.clone().requires_grad_(True) for t in base]
+    kref.flash_attention(*want, causal=causal, window=window).backward(do)
+    for g, w in zip(got, want):
+        assert g.grad.dtype == dt and float(g.grad.float().abs().max()) > 0
+        if dtype == "float32":
+            assert _rel_l2(g.grad, w.grad) <= 1e-4
+        else:
+            diff = (g.grad.float() - w.grad.float()).norm(dim=-1)
+            assert float((diff / w.grad.float().norm(dim=-1).clamp_min(1e-6)).max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu():
+    """The `train_lm` twin's tiny preset (reduced qwen3, fp32, TF32 off) on
+    the same weights and batch: every gradient leaf on the card within
+    1e-4 relative L2 of the CPU's, wq, wk and wv of every layer nonzero
+    (attention's gradient reaches them through the kernel), then one
+    `make_train_step` each: the metrics and every parameter within 1e-4."""
+    from repro_torch.data import DataPipeline
+    from repro_torch.examples import train_lm
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import init_opt_state
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, shape = train_lm.preset("tiny")
+    batch = DataPipeline(cfg, shape, seed=0, device="cpu").batch(0)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        model = init_params(cfg, seed=0, device="cpu").to(device).requires_grad_()
+        kops.reset_launch_counts()
+        loss, _ = loss_fn(cfg, model, {k: v.to(device) for k, v in batch.items()})
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        launches = kops.launch_counts["flash_attention"]
+        model.zero_grad(set_to_none=True)
+        step = make_train_step(cfg, num_micro=1, lr=1e-3, warmup=1, total_steps=10)
+        model, _opt, m = step(model, init_opt_state(model), {k: v.to(device)
+                                                          for k, v in batch.items()}, 0)
+        runs.append((loss.item(), grads, launches, {k: float(v) for k, v in m.items()},
+                     {n: p.detach().cpu() for n, p in model.named_parameters()}))
+    (lg, gg, ng, mg, pg), (lc, gc, _nc, mc, pc) = runs
+    assert ng == 2 * cfg.num_layers          # forward and the remat recompute
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    for name in gc:
+        assert _rel_l2(gg[name], gc[name]) <= 1e-4, name
+        if name.split(".")[-1] in ("wq", "wk", "wv"):
+            assert float(gg[name].abs().max()) > 0, name
+    for k in ("loss", "grad_norm", "lr"):
+        assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
+    for name in pc:
+        assert _rel_l2(pg[name], pc[name]) <= 1e-4, name

@@ -155,7 +155,8 @@ def test_cpu_tensors_take_the_plain_version():
     assert kref.call_counts == {"morton_key": 2, "decode": 1, "parent": 1, "children": 1,
                                 "face_sweep": 1, "eval_route": 1, "inside_root": 1,
                                 "tree_transform": 1, "owner_rank": 1, "successor": 1,
-                                "face_neighbor": 1, "flash_attention": 0}
+                                "face_neighbor": 1, "flash_attention": 0,
+                                "flash_attention_backward": 0}
     assert not any(kops.launch_counts.values())
 
 
