@@ -16,8 +16,9 @@ byte faults, and with one rank killed and the rest recovered, asks
 the paper's element queries of every leaf, serves the dense LM qwen3-1.7b
 at full width and depth, checks the card against the CPU, and runs the
 twins of the JAX package's examples, Fig. 11's New to level 8 and the
-finite-volume solver at about 26 M leaves, and trains qwen3-1.7b at full
-width and depth.
+finite-volume solver at about 26 M leaves, trains qwen3-1.7b at full
+width and depth, and serves the MoE family (mixtral-8x7b and
+deepseek-v3-671b) at full width.
 Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
@@ -253,6 +254,30 @@ Phases, in the order they run; any failure exits nonzero:
      against autograd through the plain forward (fp32 1e-4 relative L2,
      bf16 2e-2 a row), and the plain backward timed there beside
      scaled_dot_product_attention's forward + backward (a yardstick only);
+  9. serving the MoE family (`models/moe.py`, the ring cache and MLA in
+     `models/layers.py`), weights drawn on the card from a seed, each
+     model's weights freed before the next: first row 12 alone at 9a's
+     prefill shape (B 2, S 8192, H 32, KV 8, hd 128, window 4096, bf16)
+     against its plain version, with its device time beside its bound and
+     beside SDPA with a boolean band mask; 9a, mixtral-8x7b at full width,
+     16 of its 32 layers: 2 prompts of 8192 into a cache of 8320 (a ring
+     of 4096 slots) and 128 greedy steps that wrap it; 9b,
+     deepseek-v3-671b at full width, 2 of its 61 layers and no
+     multi-token-prediction head: 4 prompts of 1024 into the latent
+     cache, 64 greedy steps; each prints its prefill wall and tokens/s,
+     decode ms a step beside its floor, peak memory, the share of routed
+     pairs dropped at capacity, the `_plain_attention` and ring decode
+     attention calls (every logit finite; the router called once a layer
+     a prefill and a step; 9a's ring holding positions 4224..8319 at p mod
+     4096); then the first layer's bf16 `moe_layer` on the prefill's own
+     hidden input against an fp32 reference computed expert by expert
+     (its own top-k and capacity positions by a running count; routed
+     pairs agreeing, output within MOE_BF16_TOL of its largest value),
+     then a prefill and a decode step under torch.profiler; 9c, both reduced
+     (mixtral's window 64) in fp32: a prompt of 80 into a cache of 96 and
+     16 greedy steps, card against CPU (equal tokens, logits within 1e-4)
+     and prefill + decode against forward over the whole sequence on the
+     card (within 1e-3), nothing dropped;
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
@@ -270,7 +295,11 @@ Phases, in the order they run; any failure exits nonzero:
      kernel phase 3 launches, and no plain version runs in 3t or 3r(a); in
      phase 6,
      flash_attention launched once a layer a prefill (6c: the prefill and
-     forward) and no plain version called; in phase 8a, as above.
+     forward) and no plain version called; in phase 8a, as above; in 9a
+     once a layer (16) and no plain version called; in 9b never, no plain
+     version called, and plain attention once a layer a prefill and a
+     decode step (130); in 9c once a layer for mixtral's prefill and its
+     forward on the card, and its plain version as often on the CPU.
 
 With `--marker-sweep` the script runs phase 1, the launch cost and the P
 sweeps of 2 and 2h, 3 and 3p, and prints their rows as one JSON line: run
@@ -314,8 +343,10 @@ counts and the store's rate, phase 7's facts under `examples` and phase
 launches in phase 3h and its queries, and its phase-2h times and bounds at
 d = 3 and (`_d2`) d = 2.  The `flash_attention_kernel` entry has its
 launches in phase 6a (and 6b, 6c, 7, and 8a's 5 steps with
-`launches_phase8_a_step`), its phase-2a numbers at qwen3's shape, and
-phase 6's serving facts under `serve`.  Without a card, or without the repository beside
+`launches_phase8_a_step`, and 9a, 9b, 9c), its phase-2a numbers at
+qwen3's shape, its numbers at 9a's prefill shape under `shape_9a` (the
+library call there SDPA with a boolean band mask), phase 6's serving facts
+under `serve` and phase 9's under `moe_serve`.  Without a card, or without the repository beside
 it, the script exits nonzero and prints no result.  It imports nothing of
 JAX.
 """
@@ -2879,7 +2910,10 @@ FLASH_EARLIER_DEVICE_MS = 1.5954
 # causal=False (`attention_core` sends only causal attention to the kernel,
 # but the wrapper takes the flag): 1, 2, 3 and 8 query tiles (the
 # persistent grid runs an odd count's middle tile alone), G = 1, 2, 4 and
-# MQA, and windows below, at and past the tile
+# MQA, and windows below, at and past the tile; last, mixtral-8x7b's
+# prefill of phase 9a (a window of 4096 at S = 8192: 75 % of the causal
+# pairs)
+FLASH_9A = (2, 8192, 32, 8, 128, 4096, True)
 FLASH_CASES = [
     (8, 2048, 16, 8, 128, None, True),
     (1, 1, 16, 8, 128, None, True), (2, 127, 16, 8, 128, None, True),
@@ -2900,6 +2934,7 @@ FLASH_CASES = [
     (1, 1000, 16, 8, 128, None, False), (1, 257, 16, 8, 128, None, False),
     (1, 300, 16, 1, 128, 100, False), (2, 200, 4, 2, 32, 20, False),
     (1, 1000, 16, 8, 128, 129, False),
+    FLASH_9A,
 ]
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 2048, 2304, 128
 REQUEST_LENGTHS = (1, 127, 129, 300, 777, 1000, 1536, 2047)
@@ -3208,32 +3243,31 @@ def serve_consistency(cfg, serve) -> dict:
     return {"max_abs_err": err, "max_abs_logit": scale}
 
 
-def serve_breakdown(cfg, params, serve) -> dict:
-    """Where phase 6a's time goes, outside the counted run: one 8 x 2048
-    prefill and one decode step of 8 after it, each under torch.profiler —
-    the host's time to enqueue, the wall to a synchronize, the kernels'
-    device time summed, kernel launches and aten ops, and the three aten
-    ops with the most device time.  A decode step's device idle share is 1
-    - device / wall.  (`device_ms` cannot time a whole step: a step's
-    thousands of launches fill the launch queue behind its spinning kernel.)
-    A profile that sees no device time prints "not measured"."""
+def step_breakdown(label: str, cfg, params, serve, tokens: torch.Tensor,
+                   cache_len: int) -> dict:
+    """Where a serving run's time goes, outside its counted run: one prefill
+    of `tokens` (B, S) into a fresh cache of `cache_len` and one decode
+    step of B after it, each under torch.profiler — the host's time to
+    enqueue, the wall to a synchronize, the kernels' device time summed,
+    kernel launches and aten ops, and the three aten ops with the most
+    device time.  A decode step's device idle share is 1 - device / wall.
+    (`device_ms` cannot time a whole step: a step's thousands of launches
+    fill the launch queue behind its spinning kernel.)  A profile that sees
+    no device time prints "not measured"."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import init_cache
 
-    dev = torch.device("cuda")
-    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(dev)
     prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
-    cache = init_cache(cfg, SERVE_BATCH, SERVE_CACHE, device=dev)
+    cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device)
     holder = {}
 
     def run_prefill():
         holder["logits"], _ = prefill(params, {"tokens": tokens}, cache)
 
     def run_decode():
-        step(params, cache, holder["logits"].argmax(-1, keepdim=True), SERVE_PROMPT)
+        step(params, cache, holder["logits"].argmax(-1, keepdim=True), tokens.shape[1])
 
     out = {}
     for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
@@ -3255,8 +3289,8 @@ def serve_breakdown(cfg, params, serve) -> dict:
                "launches": launches, "aten_ops": aten,
                "top": {e.key: e.self_device_time_total / 1e3 for e in top}}
         idle = f"device idle {1 - dev_ms / row['wall_ms']:.1%}" if dev_ms else "not measured"
-        print(f"  6a {name} under the profiler: host enqueue {row['host_ms']:.2f} ms, wall "
-              f"{row['wall_ms']:.2f} ms, kernels' device time "
+        print(f"  {label} {name} under the profiler: host enqueue {row['host_ms']:.2f} ms, "
+              f"wall {row['wall_ms']:.2f} ms, kernels' device time "
               f"{f'{dev_ms:.2f} ms' if dev_ms else 'not measured'} ({idle}); {launches} "
               f"launches, {aten} aten ops; most device time: "
               f"{', '.join(f'{k} {v:.2f} ms' for k, v in row['top'].items())}", flush=True)
@@ -3298,7 +3332,9 @@ def serve_path(kops, kref) -> dict:
         facts, launches, plain, _cls = counted(kops, kref, run)
         out[key] = (facts, launches, plain)
         if key == "6a":
-            facts["breakdown"] = serve_breakdown(cfg, params, serve)
+            tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+                0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(params.tok_embed.device)
+            facts["breakdown"] = step_breakdown("6a", cfg, params, serve, tokens, SERVE_CACHE)
             torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -3979,6 +4015,406 @@ def train_variants(kops, kref, smi: str, variants: list) -> int:
     return 0
 
 
+# ---------------------------------------- 9: serving the MoE family
+# Phase 9 serves the moe family at full width on one card, its depth cut to
+# what the card holds beside the run: 9a mixtral-8x7b at 16 of its 32
+# layers (46.9 GB of bf16 weights), 9b deepseek-v3-671b at 2 of its 61
+# (49.7 GB; its training-only multi-token-prediction head cut), each drawn
+# on the card from SEED; 9c holds reduced configs on the card against the
+# CPU.
+MOE_SERVE = {
+    # arch: (layers kept, batch, prompt, cache, greedy steps)
+    "9a": ("mixtral-8x7b", 16, 2, 8192, 8320, 128),
+    "9b": ("deepseek-v3-671b", 2, 4, 1024, 1088, 64),
+}
+MOE_CPU_PROMPT, MOE_CPU_CACHE, MOE_CPU_STEPS = 80, 96, 16
+# 9c, card against CPU, fp32 on identical weights (no TF32): the kernel
+# against the plain version and cuBLAS against the CPU's BLAS sum in other
+# orders, about 1e-6 relative over 2 layers (phase 4's tolerance).
+MOE_CPU_TOL = 1e-4
+# 9c on the card: prefill + decode against forward over the whole sequence
+# (deepseek-v3: MLA's absorbed form against its expanded one; mixtral: the
+# ring against the kernel's window), fp32, sums in other orders.
+MOE_CONSIST_TOL = 1e-3
+# 9a / 9b: one full-width layer's bf16 moe_layer against its fp32
+# reference, max |difference| over max |reference| (the CPU tests' bf16
+# tolerance), and the share of routed pairs whose expert or keep differ.
+MOE_BF16_TOL = 2e-2
+MOE_PAIR_TOL = 1e-3
+
+
+class AttentionTally:
+    """Inside `with`: counts `models.layers._plain_attention` and
+    `_ring_decode_attend` calls and each `models.moe.route` call's routed
+    and dropped pairs (the drops as device tensors, summed after the run:
+    no host sync in the run), and keeps the first `moe_layer` call's
+    parameters and hidden input (`first_moe`).  It wraps the module
+    functions and puts them back on exit; the callers' counts
+    (`moe_serve`) fail if a path goes around a wrapper."""
+
+    def __init__(self):
+        from repro_torch.models import layers, lm, moe
+        self.layers, self.lm, self.moe = layers, lm, moe
+        self.plain_calls, self.ring_calls, self.routed, self.dropped = 0, 0, [], []
+        self.first_moe = None
+
+    def __enter__(self):
+        plain, ring = self.layers._plain_attention, self.layers._ring_decode_attend
+        route, layer = self.moe.route, self.lm.moe_layer
+        self._saved = (plain, ring, route, layer)
+
+        def counted_plain(*args, **kwargs):
+            self.plain_calls += 1
+            return plain(*args, **kwargs)
+
+        def counted_ring(*args, **kwargs):
+            self.ring_calls += 1
+            return ring(*args, **kwargs)
+
+        def kept_layer(cfg, p, x):
+            if self.first_moe is None:
+                self.first_moe = (p, x)
+            return layer(cfg, p, x)
+
+        def counted_route(cfg, router, xt):
+            out = route(cfg, router, xt)
+            self.routed.append(out[4].numel())
+            self.dropped.append((~out[4]).sum())
+            return out
+
+        self.layers._plain_attention = counted_plain
+        self.layers._ring_decode_attend = counted_ring
+        self.moe.route, self.lm.moe_layer = counted_route, kept_layer
+        return self
+
+    def __exit__(self, *exc):
+        (self.layers._plain_attention, self.layers._ring_decode_attend, self.moe.route,
+         self.lm.moe_layer) = self._saved
+        return False
+
+    def drops(self, first: int = 0, last: int | None = None) -> tuple[int, int]:
+        """(dropped, routed) pairs over the route calls [first, last)."""
+        d = self.dropped[first:last]
+        return (int(torch.stack(d).sum()) if d else 0), sum(self.routed[first:last])
+
+
+def flash_at_9a(kops, kref) -> dict:
+    """Row 12 alone at 9a's prefill shape (bf16): device time behind a
+    spinning kernel and events over a loop, the plain version's time, and
+    the yardstick SDPA with a boolean band mask (k and v repeated to the
+    query heads), each output against the plain one, beside the bound."""
+    import torch.nn.functional as tF
+
+    B, S, H, KV, hd, window, _causal = FLASH_9A
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+               for n in (H, KV, KV))
+    kernel = lambda: kops.flash_attention(q, k, v, window=window)            # noqa: E731
+    plain = lambda: kref.flash_attention(q, k, v, window=window)             # noqa: E731
+    want = plain()
+    err, row = flash_check(f"9a shape B={B} S={S} H={H} KV={KV} hd={hd} window={window} "
+                           "bf16", kernel(), want)
+    qpos = torch.arange(S, device=dev)
+    band = (qpos[None, :] <= qpos[:, None]) & (qpos[None, :] > qpos[:, None] - window)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (k, v))
+    library = lambda: tF.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)  # noqa: E731
+    lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
+    del want
+    ms, dev_ms = cuda_ms(kernel, 20), device_ms(kernel)
+    plain_ms = cuda_ms(plain, 2)
+    library_ms, library_dev_ms = cuda_ms(library, 10), device_ms(library, 10)
+    bound_ms, bound_by, flops, moved = flash_bound(B, S, H, KV, hd, window, 2)
+    print(f"  flash_attention at 9a's prefill shape (B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"window={window}, bf16; {flash_pairs(S, window)} pairs a head): kernel {ms:.4f} ms "
+          f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA with a boolean band mask "
+          f"{library_ms:.4f} ms (device {library_dev_ms:.4f} ms; max |SDPA - plain| "
+          f"{lib_err:.3g}), bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, {moved} B), "
+          f"bound/device {bound_ms / dev_ms:.1%}, {flops / dev_ms / 1e9:.1f} TFLOP/s",
+          flush=True)
+    del q, k, v, qt, kt, vt, band
+    torch.cuda.empty_cache()
+    return {"shape": list(FLASH_9A[:6]), "max_abs_err": err, "max_row_rel_err": row,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "flops": flops, "bytes": moved, "library_ms": library_ms,
+            "library_device_ms": library_dev_ms, "library": "SDPA, boolean band mask",
+            "library_max_abs_err": lib_err}
+
+
+def moe_model(key: str, device):
+    """The config of phase `key` with its depth cut, and its parameters
+    drawn from SEED on `device`, checked against the config's count; the
+    draw's wall and peak memory printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    arch, layers, *_ = MOE_SERVE[key]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers, mtp_depth=0)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=device)
+    sync()
+    wall = time.perf_counter() - t
+    n = sum(p.numel() for p in params.parameters())
+    if n != cfg.param_count() + (2 * cfg.num_layers + 1) * cfg.d_model + cfg.num_layers * (
+            (cfg.mla.q_lora_rank + cfg.mla.kv_lora_rank) if cfg.mla else 0):
+        raise AssertionError(f"{arch}: {n} parameters")
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    expert_bytes = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                       if ".moe.experts_" in name)
+    cut = [f"{full.num_layers} -> {layers} layers"] + (["the MTP head (training only)"]
+                                                       if full.mtp_depth else [])
+    print(f"  {key}: {arch} at full width (d {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, {cfg.moe.num_experts} experts top {cfg.moe.top_k}, "
+          f"d_ff {cfg.moe.d_ff_expert}, {cfg.moe.num_shared} shared"
+          f"{', MLA' if cfg.mla else f', window {cfg.window}'}); cut: {', '.join(cut)}; "
+          f"{n:,} parameters, {weight_bytes} B ({expert_bytes} B routed experts), drawn on "
+          f"the card in {wall:.2f} s, peak {torch.cuda.max_memory_allocated()} B", flush=True)
+    return cfg, params, {"weight_bytes": weight_bytes, "expert_bytes": expert_bytes,
+                         "draw_s": wall, "cut": cut, "parameters": n}
+
+
+def moe_serve(key: str, cfg, params, serve, model: dict) -> dict:
+    """Phase 9a / 9b's run: a prefill of `batch` prompts into a cache of
+    `cache` slots, then greedy decode steps; walls on the host clock ending
+    in a synchronize, peak memory, the share of routed pairs dropped in the
+    prefill, the `_plain_attention` and ring decode attention calls, and
+    the decode floor (every weight but the embedding table, and the cache,
+    read once a step; the routed experts alone, as every expert's slots are
+    in the buffer).  The router must run once a layer a prefill and a
+    step, and the ring decode attention once a layer a step with a ring
+    (none without); then `moe_bf16_check` on the prefill's first layer."""
+    from repro_torch.models import init_cache
+    from repro_torch.models.moe import moe_capacity
+
+    _arch, _layers, B, prompt, cache_len, steps = MOE_SERVE[key]
+    dev = torch.device("cuda")
+    tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, prompt))).to(dev)
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    cache = init_cache(cfg, B, cache_len, device=dev)
+    with AttentionTally() as tally:
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": tokens}, cache)
+        sync()
+        t_prefill = time.perf_counter() - t
+        plain_prefill, n_route = tally.plain_calls, len(tally.routed)
+        out, toks = [logits], []
+        t = time.perf_counter()
+        for i in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok)
+            logits, cache = step(params, cache, tok, prompt + i)
+            out.append(logits)
+        sync()
+        t_decode = time.perf_counter() - t
+    _finite(f"{key} prefill and decode", torch.stack(out))
+    ring = "pos" in cache["layers"]
+    if (len(tally.routed) != cfg.num_layers * (1 + steps)
+            or tally.ring_calls != (cfg.num_layers * steps if ring else 0)):
+        raise AssertionError(f"{key}: {len(tally.routed)} router calls and {tally.ring_calls} "
+                             f"ring decode attention calls over {cfg.num_layers} layers, a "
+                             f"prefill and {steps} steps")
+    dropped, routed = tally.drops(0, n_route)
+    dropped_dec, routed_dec = tally.drops(n_route)
+    capacity = moe_capacity(cfg, B * prompt)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache["layers"].values())
+    read = model["weight_bytes"] - params.tok_embed.numel() * params.tok_embed.element_size()
+    floor_ms = (read + cache_bytes) / MEM_BYTES_PER_S * 1e3
+    expert_floor_ms = model["expert_bytes"] / MEM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    facts = {"prefill_s": t_prefill, "prefill_tok_s": B * prompt / t_prefill,
+             "decode_ms_step": t_decode / steps * 1e3, "decode_tok_s": B * steps / t_decode,
+             "decode_floor_ms": floor_ms, "expert_floor_ms": expert_floor_ms,
+             "cache_bytes": cache_bytes, "peak_bytes": peak, "capacity": capacity,
+             "dropped": dropped, "routed": routed, "dropped_share": dropped / routed,
+             "dropped_decode": dropped_dec, "plain_attention_prefill": plain_prefill,
+             "plain_attention": tally.plain_calls, "ring_decode_attention": tally.ring_calls,
+             "first_tokens": torch.cat(toks[:8], 1)[0].tolist(), **model}
+    print(f"  {key}: prefill {B} x {prompt} tokens into a cache of {cache_len} in "
+          f"{t_prefill:.4f} s ({facts['prefill_tok_s']:.0f} tokens/s); {steps} decode steps of "
+          f"{B} in {t_decode:.4f} s ({facts['decode_ms_step']:.3f} ms/step, "
+          f"{facts['decode_tok_s']:.1f} tokens/s) against a floor of {floor_ms:.3f} ms/step "
+          f"(weights but the embedding table {read} B + cache {cache_bytes} B once a step; "
+          f"the routed experts alone {expert_floor_ms:.3f} ms); peak {peak} B; prefill routed "
+          f"pairs dropped at capacity {capacity}: {dropped} of {routed} "
+          f"({facts['dropped_share']:.4%}), decode {dropped_dec} of {routed_dec}; "
+          f"`_plain_attention` calls {plain_prefill} in the prefill, {tally.plain_calls} in "
+          f"all; ring decode attention calls {tally.ring_calls}; request 0's first tokens "
+          f"{facts['first_tokens']}", flush=True)
+    if "pos" in cache["layers"]:
+        C = cache["layers"]["pos"].shape[-1]
+        last = prompt + steps - 1
+        p = torch.arange(last - C + 1, last + 1, device=dev)
+        held = cache["layers"]["pos"][..., p % C]
+        if not (held == p.to(torch.int32)).all() or C != cfg.window:
+            raise AssertionError(f"{key}: the ring does not hold positions {last - C + 1}.."
+                                 f"{last} at slots p mod {C}")
+        print(f"  {key}: the ring's {C} slots hold positions {last - C + 1}..{last} at p mod "
+              f"{C} in every layer and row", flush=True)
+        facts["ring"] = [int(p[0]), last, C]
+    layer_p, layer_x = tally.first_moe
+    facts["bf16_layer"] = moe_bf16_check(key, cfg, layer_p, layer_x)
+    return facts
+
+
+def moe_bf16_check(key: str, cfg, p, x) -> dict:
+    """The first layer's `moe_layer` (bf16, on the card) on the prefill's
+    own hidden input x (B, S, D), against an fp32 reference computed apart
+    from the layer's dispatch: its own top k of the fp32 router, each
+    pair's capacity position by a running count per expert (in place of
+    the sort), and each expert's SwiGLU on its kept tokens with the
+    expert's weights upcast to fp32, added by token.  Fails if more than
+    MOE_PAIR_TOL of the routed pairs differ in expert or keep from the
+    layer's `route`, or if the output differs from the reference by more
+    than MOE_BF16_TOL of the reference's largest |value|."""
+    import torch.nn.functional as tF
+    from repro_torch.models import moe
+
+    m = cfg.moe
+    B, S, D = x.shape
+    T, E, K = B * S, m.num_experts, m.top_k
+    C = moe.moe_capacity(cfg, T)
+    with torch.no_grad():
+        out = moe.moe_layer(cfg, p, x)[0].reshape(T, D).float()
+        _probs, _gate, ids_l, _pos, keep_l = moe.route(cfg, p["router"], x.reshape(T, D))
+        xf = x.reshape(T, D).float()
+        gate, ids = torch.topk(torch.softmax(xf @ p["router"].float(), dim=-1), K, dim=-1)
+        gate = (gate / gate.sum(-1, keepdim=True)).reshape(-1)
+        flat = ids.reshape(-1)
+        pos = torch.cumsum(tF.one_hot(flat, E), 0).gather(1, flat[:, None])[:, 0] - 1
+        keep = pos < C
+        differ = int(((flat != ids_l.reshape(-1)) | (keep != keep_l)).sum())
+        tok = torch.arange(T * K, device=x.device) // K
+        ref = torch.zeros(T, D, dtype=torch.float32, device=x.device)
+        for e in range(E):
+            j = torch.nonzero((flat == e) & keep)[:, 0]
+            t = tok[j]
+            h = (tF.silu(xf[t] @ p["experts_gate"][e].float())
+                 * (xf[t] @ p["experts_up"][e].float()))
+            ref.index_add_(0, t, (h @ p["experts_down"][e].float()) * gate[j, None])
+        for i in range(m.num_shared):
+            h = tF.silu(xf @ p["shared_gate"][i].float()) * (xf @ p["shared_up"][i].float())
+            ref += h @ p["shared_down"][i].float()
+    err, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    rel = err / scale
+    print(f"  {key}: layer 0's bf16 moe_layer on the prefill's hidden input ({T} tokens, "
+          f"capacity {C}) against an fp32 reference expert by expert: {differ} of {T * K} "
+          f"routed pairs differ in expert or keep (limit {MOE_PAIR_TOL:.0e} of them), "
+          f"{int((~keep).sum())} dropped; max |difference| {err:.6g} = {rel:.6g} of max "
+          f"|reference| {scale:.6g} (limit {MOE_BF16_TOL})", flush=True)
+    if differ > MOE_PAIR_TOL * T * K or not rel <= MOE_BF16_TOL:
+        raise AssertionError(f"{key}: bf16 moe_layer against its fp32 reference: {differ} "
+                             f"pairs differ, relative error {rel}")
+    return {"pairs": T * K, "pairs_differ": differ, "dropped": int((~keep).sum()),
+            "max_abs_err": err, "max_abs_ref": scale, "rel_err": rel}
+
+
+def moe_card_vs_cpu() -> dict:
+    """Phase 9c: reduced mixtral (window 64) and reduced deepseek-v3 in fp32
+    (no TF32) on identical weights on both devices: a prompt of 80 into a
+    cache of 96 (mixtral's ring of 64 slots wraps while decoding) and 16
+    greedy decode steps give equal tokens and logits within MOE_CPU_TOL;
+    on the card, prefill + decode against forward over the whole sequence
+    within MOE_CONSIST_TOL.  The reduced capacity factor E / k drops
+    nothing."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.models.lm import unembed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch in ("mixtral-8x7b", "deepseek-v3-671b"):
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+        prompt = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (2, MOE_CPU_PROMPT)))
+        prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+        params = init_params(cfg, seed=SEED, device="cpu")
+        runs = []
+        for dev in ("cuda", "cpu"):
+            p = params.to(dev)
+            with AttentionTally() as tally:
+                cache = init_cache(cfg, 2, MOE_CPU_CACHE, device=dev)
+                logits, cache = prefill(p, {"tokens": prompt.to(dev)}, cache)
+                lg, toks = [logits], []
+                for i in range(MOE_CPU_STEPS):
+                    tok = logits.argmax(-1, keepdim=True)
+                    toks.append(tok)
+                    logits, cache = step(p, cache, tok, MOE_CPU_PROMPT + i)
+                    lg.append(logits)
+                seq = torch.cat([prompt.to(dev), *toks], 1)
+                full = unembed(cfg, p, forward(cfg, p, {"tokens": seq})[0]).float()
+            lg = torch.stack(lg, 1)
+            dropped, routed = tally.drops()
+            ring = "pos" in cache["layers"]
+            if (len(tally.routed) != cfg.num_layers * (MOE_CPU_STEPS + 2)
+                    or tally.ring_calls != (cfg.num_layers * MOE_CPU_STEPS if ring else 0)):
+                raise AssertionError(f"9c {arch} on {dev}: {len(tally.routed)} router calls, "
+                                     f"{tally.ring_calls} ring decode attention calls")
+            if dropped:
+                raise AssertionError(f"9c {arch} on {dev}: {dropped} of {routed} dropped")
+            consist = float((lg - full[:, MOE_CPU_PROMPT - 1:]).abs().max())
+            runs.append((lg.cpu(), torch.cat(toks, 1).cpu(), consist, ring))
+        (lgc, tgc, consist, ring), (lgh, tgh, consist_cpu, _ring) = runs
+        err = float((lgc - lgh).abs().max())
+        scale = float(lgh.abs().max())
+        if not torch.equal(tgc, tgh) or err > MOE_CPU_TOL * (1 + scale):
+            raise AssertionError(f"9c {arch}: card vs CPU tokens {tgc.tolist()} vs "
+                                 f"{tgh.tolist()}, max |logit err| {err}")
+        if consist > MOE_CONSIST_TOL or (arch == "mixtral-8x7b") != ring:
+            raise AssertionError(f"9c {arch}: prefill + decode differ from forward by {consist}")
+        print(f"  9c {arch} reduced, fp32: card == CPU greedy tokens {tgc[0].tolist()}; max "
+              f"|logit difference| {err:.3g} (max |logit| {scale:.3g}; tolerance "
+              f"{MOE_CPU_TOL}); prefill {MOE_CPU_PROMPT} + decode {MOE_CPU_STEPS} against "
+              f"forward over {MOE_CPU_PROMPT + MOE_CPU_STEPS} positions: {consist:.3g} on the "
+              f"card, {consist_cpu:.3g} on the CPU (tolerance {MOE_CONSIST_TOL})"
+              f"{'; the ring of 64 slots wrapped' if ring else ''}; nothing dropped "
+              f"({routed} routed pairs on the CPU)", flush=True)
+        out[arch] = {"max_abs_err": err, "max_abs_logit": scale, "consistency": consist,
+                     "consistency_cpu": consist_cpu}
+    return out
+
+
+def moe_path(kops, kref) -> dict:
+    """Phase 9: row 12 at 9a's shape, then 9a and 9b each counted on its
+    own (`counted`) after an uncounted warm-up (a 128-token prefill and
+    one decode step), then a prefill and a decode step of it profiled
+    (`step_breakdown`), its weights freed before the next; then 9c.
+    Returns each part's facts and counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    out = {"flash_9a": flash_at_9a(kops, kref)}
+    for key in ("9a", "9b"):
+        cfg, params, model = moe_model(key, dev)
+        B = MOE_SERVE[key][2]
+        warm = torch.zeros((B, 128), dtype=torch.int64, device=dev)
+        logits, cache = serve.make_prefill_step(cfg)(params, {"tokens": warm},
+                                                     init_cache(cfg, B, 129, device=dev))
+        serve.make_decode_step(cfg)(params, cache, logits.argmax(-1, keepdim=True), 128)
+        del cache, logits
+        sync()
+        facts, launches, plain, _cls = counted(kops, kref,
+                                               lambda: moe_serve(key, cfg, params, serve, model))
+        out[key] = (facts, launches, plain)
+        _arch, _layers, B, prompt, cache_len, _steps = MOE_SERVE[key]
+        tokens = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, cfg.vocab_size, (B, prompt))).to(dev)
+        facts["breakdown"] = step_breakdown(key, cfg, params, serve, tokens, cache_len)
+        del params, tokens
+        torch.cuda.empty_cache()
+    facts, launches, plain, _cls = counted(kops, kref, moe_card_vs_cpu)
+    out["9c"] = (facts, launches, plain)
+    return out
+
+
 def marker_sweep_only(smi: str) -> int:
     """`--marker-sweep`: the launch cost, phases 2 and 2h's P sweeps and
     phase 3p alone (after the build and phase 3), and their rows as one
@@ -4008,7 +4444,7 @@ def main() -> int:
         print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import get_config, reduced
     from repro_torch.kernels import build, ops as kops, ref as kref
 
     print("== 1. card and build", flush=True)
@@ -4134,6 +4570,9 @@ def main() -> int:
     print(f"== 8. training {SERVE_ARCH} on the card (card {smi})", flush=True)
     trained = train_path(kops, kref, smi)
 
+    print(f"== 9. serving the moe family at full width (card {smi})", flush=True)
+    moe_runs = moe_path(kops, kref)
+
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
@@ -4187,6 +4626,29 @@ def main() -> int:
             raise AssertionError(f"phase {key}: flash_attention launched "
                                  f"{lc['flash_attention']} times, want {layers} x "
                                  f"{prefills[key]}; plain calls {pc}")
+    for key in ("9a", "9b", "9c"):
+        _facts, lc, pc = moe_runs[key]
+        print(f"  phase {key}: kernel launches {lc}; plain calls {pc}", flush=True)
+    layers9a, steps9b = MOE_SERVE["9a"][1], MOE_SERVE["9b"][5]
+    plain9b = MOE_SERVE["9b"][1] * (1 + steps9b)
+    if moe_runs["9a"][1]["flash_attention"] != layers9a or any(moe_runs["9a"][2].values()):
+        raise AssertionError(f"phase 9a: flash_attention launched "
+                             f"{moe_runs['9a'][1]['flash_attention']} times, want {layers9a} "
+                             f"(one a layer, the prefill); plain calls {moe_runs['9a'][2]}")
+    if (moe_runs["9b"][1]["flash_attention"] or any(moe_runs["9b"][2].values())
+            or moe_runs["9b"][0]["plain_attention"] != plain9b):
+        raise AssertionError(f"phase 9b: flash_attention launched "
+                             f"{moe_runs['9b'][1]['flash_attention']} times, plain calls "
+                             f"{moe_runs['9b'][2]}, plain attention "
+                             f"{moe_runs['9b'][0]['plain_attention']} (want 0, none, {plain9b})")
+    # 9c: mixtral's prefill and forward launch the kernel once a layer each
+    # on the card, and run its plain version as often on the CPU
+    n9c = 2 * reduced(get_config("mixtral-8x7b")).num_layers
+    plain9c = {k: v for k, v in moe_runs["9c"][2].items() if k != "flash_attention"}
+    if (moe_runs["9c"][1]["flash_attention"] != n9c or any(plain9c.values())
+            or moe_runs["9c"][2]["flash_attention"] != n9c):
+        raise AssertionError(f"phase 9c: kernel launches {moe_runs['9c'][1]}, plain calls "
+                             f"{moe_runs['9c'][2]}, want {n9c} and {n9c} (the CPU's)")
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows[3] if x["name"] == name)
@@ -4244,8 +4706,13 @@ def main() -> int:
         "launches_phase6c": served["6c"][1]["flash_attention"],
         "launches_phase7": launches7["flash_attention"],
         "launches_phase8": trained["8a"]["launches"],
-        "launches_phase8_a_step": trained["8a"]["launches_a_step"], **flash,
-        "serve": {k: v[0] for k, v in served.items()}})
+        "launches_phase8_a_step": trained["8a"]["launches_a_step"],
+        "launches_phase9a": moe_runs["9a"][1]["flash_attention"],
+        "launches_phase9b": moe_runs["9b"][1]["flash_attention"],
+        "launches_phase9c": moe_runs["9c"][1]["flash_attention"], **flash,
+        "shape_9a": moe_runs["flash_9a"],
+        "serve": {k: v[0] for k, v in served.items()},
+        "moe_serve": {k: moe_runs[k][0] for k in ("9a", "9b", "9c")}})
     print(json.dumps({"runtime": {"3m": {k: v for k, v in multi.items() if k != "launches"},
                                   "3r_faults": chaos,
                                   "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},

@@ -217,29 +217,43 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, device=None) -> LM:
     return load_lm_params(LM(cfg, 0, device), params)
 
 
+def _slots(module, prefix: str = ""):
+    """(name, parameter or None) of every parameter slot under `module`, a
+    slot registered as None included (the non-parametric norms, a tied
+    head)."""
+    for name, p in module._parameters.items():
+        yield prefix + name, p
+    for name, sub in module._modules.items():
+        yield from _slots(sub, f"{prefix}{name}.")
+
+
 def _reference_tree(model: LM, flat: dict) -> dict:
-    """The JAX package's tree of the dense LM, with the entry of each port
+    """The JAX package's tree of the LM, with the entry of each port
     parameter name taken from `flat` (name -> tensor) and the layers'
     entries stacked on a leading axis: tok_embed, out_head unless tied,
-    final_norm, layers {attn_norm, attn {wq, wk, wv, wo[, q_norm, k_norm]},
-    mlp_norm, mlp {w_gate, w_up, w_down}}; None where the config has no
-    such parameter (the non-parametric norms)."""
-    cfg, L = model.cfg, len(model.layers)
-
-    def stacked(path: str):
-        key = f"layers.0.{path}"
-        if key not in flat:
-            return None
-        return torch.stack([flat[f"layers.{i}.{path}"].detach() for i in range(L)])
-
-    block = model.layers[0]
-    tree = {"tok_embed": flat["tok_embed"].detach(),
-            "final_norm": flat["final_norm"].detach() if "final_norm" in flat else None,
-            "layers": {"attn_norm": stacked("attn_norm"), "mlp_norm": stacked("mlp_norm"),
-                       "attn": {n: stacked(f"attn.{n}") for n in block.attn},
-                       "mlp": {n: stacked(f"mlp.{n}") for n in block.mlp}}}
-    if not cfg.tie_embeddings:
-        tree["out_head"] = flat["out_head"].detach()
+    final_norm, layers {attn_norm, attn {...}, mlp_norm, mlp {...} or moe
+    {...}}, and mtp_proj, mtp_block, mtp_norm with the multi-token
+    prediction head; None where the config has no such parameter (the
+    non-parametric norms)."""
+    L = len(model.layers)
+    tree: dict = {}
+    for name, p in _slots(model):
+        parts = name.split(".")
+        if parts[0] == "layers":
+            if parts[1] != "0":
+                continue
+            path = ".".join(parts[2:])
+            parts = ["layers", *parts[2:]]
+            leaf = None if p is None else torch.stack(
+                [flat[f"layers.{i}.{path}"].detach() for i in range(L)])
+        else:
+            leaf = None if p is None else flat[name].detach()
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+    if model.cfg.tie_embeddings:
+        del tree["out_head"]
     return tree
 
 

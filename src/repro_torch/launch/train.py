@@ -53,6 +53,11 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
     opt_state, metrics): params updated in place, metrics {"ce", "aux",
     "loss", "grad_norm", "lr"} as 0-d fp32 tensors (loss, ce and aux the
     means over the microbatches)."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"{cfg.name}: the MoE family's training (its aux loss, the "
+                                  "multi-token-prediction loss, Adafactor in the step) is not "
+                                  "ported yet (ROADMAP.md §1, item 4 (slice 7c): the MoE "
+                                  "family's training)")
     if cfg.optimizer != "adamw":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.optimizer} in the train step: Adafactor's factored moments are "

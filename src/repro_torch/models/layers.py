@@ -1,14 +1,16 @@
-"""Neural layers of the dense decoder: norms, RoPE, GQA attention, SwiGLU.
+"""Neural layers of the LM: norms, RoPE, GQA and MLA attention, SwiGLU.
 
-The port of the dense-path part of the JAX package's `repro.models.layers`,
-with its type promotions: fp32 inside the norms, fp32 RoPE angles applied
-and cast back, matmuls cast to the input's dtype.  Causal attention with
-Sq == Sk (every prefill and training forward from position 0) goes through
-the attention kernel under autograd (`kernels.ops.FlashAttentionFn`) in
-place of the JAX package's blocked jnp paths; decode and prefill past position 0 attend over the cache with
-`_plain_attention`, as the JAX package does.  Weights keep the JAX layout
-(in, out).  Unlike JAX, `gqa_attention` writes the new k/v into the cache
-in place.
+The port of the JAX package's `repro.models.layers`, with its type
+promotions: fp32 inside the norms, fp32 RoPE angles applied and cast back,
+matmuls cast to the input's dtype, fp32 inside attention.  Causal
+attention with Sq == Sk from position 0 (every prefill and training
+forward from position 0) goes through the attention kernel under autograd
+(`kernels.ops.FlashAttentionFn`) in place of the JAX package's blocked jnp
+paths, where its head dims lie in the kernel's domain; decode, prefill
+past position 0, the ring cache's writes shorter than the ring, and both
+forms of MLA attend with `_plain_attention` or `_ring_decode_attend`, as
+the JAX package does.  Weights keep the JAX layout (in, out).  Unlike JAX,
+`gqa_attention` and `mla_attention` write the cache in place.
 """
 
 from __future__ import annotations
@@ -112,15 +114,22 @@ def _plain_attention(q, k, v, *, causal: bool, window, q_offset: int, scale: flo
 
 def attention_core(q, k, v, *, causal: bool = True, window=None, q_offset: int = 0,
                    scale: float | None = None):
-    """Attention of q (B, Sq, H, hd) over k, v (B, Sk, KV, hd).  Causal
-    attention with Sq == Sk from position 0 at the default scale is the
-    attention kernel's function and goes through `kernels.ops.FlashAttentionFn`
-    (the kernel, or on a CPU tensor its plain version, under autograd with
-    the plain backward, so training gets attention's gradient on both
-    devices); anything else to `_plain_attention`."""
-    if causal and q.shape[1] == k.shape[1] and q_offset == 0 and scale is None:
+    """Attention of q (B, Sq, H, hd) over k (B, Sk, KV, hd) and v
+    (B, Sk, KV, vd).  The attention kernel's function, and so its path
+    through `kernels.ops.FlashAttentionFn` (the kernel, or on a CPU tensor
+    its plain version, under autograd with the plain backward, so training
+    gets attention's gradient on both devices), is this shape rule: causal,
+    Sq == Sk from position 0 (q_offset 0), the default scale 1/sqrt(hd),
+    and one head dim for q, k and v (a head dim outside
+    `kops.FLASH_HEAD_DIMS` raises there).  Anything else goes to
+    `_plain_attention`: decode and prefill past position 0, MLA's expanded
+    form (q and k 192 wide, v 128) and its absorbed form (an explicit
+    scale, v narrower than k)."""
+    hd = q.shape[-1]
+    if (causal and q.shape[1] == k.shape[1] and q_offset == 0 and scale is None
+            and k.shape[-1] == v.shape[-1] == hd):
         return kops.FlashAttentionFn.apply(q, k, v, True, window)
-    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     return _plain_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                             scale=scale)
 
@@ -129,14 +138,27 @@ def attention_core(q, k, v, *, causal: bool = True, window=None, q_offset: int =
 def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
                   cache: dict | None = None, cache_pos: int | None = None,
                   causal: bool = True, window=None):
-    """Grouped-query attention with RoPE and optional qk-norm.
+    """Grouped-query attention with RoPE, optional qk-norm and window.
 
-    cache: dict(k=(B, C, KV, hd), v=...), a linear cache; the new k and v
-    are written into it in place at [cache_pos, cache_pos + S), and the
-    cache is returned.  From cache_pos 0 the queries attend over the fresh
-    k and v through the kernel (every later slot is masked for them, as in
-    the JAX package's attention over the whole cache); past 0 they attend
-    over the whole cache.  Returns (out (B, S, D), cache)."""
+    cache: dict(k=(B, C, KV, hd), v=...), written in place and returned.
+    - A linear cache: the new k and v go to [cache_pos, cache_pos + S).
+      From cache_pos 0 the queries attend over the fresh k and v through
+      `attention_core` (every later slot is masked for them, as in the JAX
+      package's attention over the whole cache); past 0 over the whole
+      cache.
+    - A ring (the sliding-window cache shorter than the sequence, with
+      `pos` (B, C) int32, each slot's position or -1): a write of S >= C
+      tokens from position 0 attends over the fresh k and v with the
+      window, and puts the last C of them into the ring rolled so that
+      position t sits at slot t mod C.  A shorter write goes to slots
+      [i, i + S), i = min(cache_pos mod C, C - S) (JAX's
+      `dynamic_update_slice` clamps a start that would run past the ring;
+      it does not wrap), and attends over the ring by each slot's position
+      (`_ring_decode_attend`).  A write of S >= C tokens past position 0
+      raises: the JAX package's answer there depends on its dispatch (its
+      blocked path drops q_offset, its plain path shifts the causal mask by
+      it), and its serving path never makes one.
+    Returns (out (B, S, D), cache)."""
     B, S, _D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = dense(x, p["wq"]).reshape(B, S, H, hd)
@@ -151,21 +173,104 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tens
 
     q_offset = 0
     if cache is not None:
-        if "pos" in cache:
-            raise NotImplementedError("the sliding-window ring cache is not ported yet "
-                                      "(ROADMAP.md §1, slice 7: the window ring cache)")
         C = cache["k"].shape[1]
-        if cache_pos < 0 or cache_pos + S > C:
-            raise ValueError(f"positions [{cache_pos}, {cache_pos + S}) outside a cache of {C}")
-        cache["k"][:, cache_pos:cache_pos + S] = k
-        cache["v"][:, cache_pos:cache_pos + S] = v
-        if cache_pos:
-            k, v, q_offset = cache["k"], cache["v"], cache_pos
+        if "pos" in cache:
+            if S >= C:
+                if cache_pos:
+                    raise ValueError(f"a write of {S} >= {C} tokens into the ring past position "
+                                     f"0 (at {cache_pos})")
+                shift = (S - C) % C
+                cache["k"].copy_(torch.roll(k[:, -C:], shift, 1))
+                cache["v"].copy_(torch.roll(v[:, -C:], shift, 1))
+                cache["pos"].copy_(torch.roll(positions[:, -C:], shift, 1))
+            else:
+                i = min(cache_pos % C, C - S)
+                cache["k"][:, i:i + S] = k
+                cache["v"][:, i:i + S] = v
+                cache["pos"][:, i:i + S] = positions
+                return _ring_decode_attend(cfg, p, q, cache, positions), cache
+        else:
+            if cache_pos < 0 or cache_pos + S > C:
+                raise ValueError(f"positions [{cache_pos}, {cache_pos + S}) outside a cache "
+                                 f"of {C}")
+            cache["k"][:, cache_pos:cache_pos + S] = k
+            cache["v"][:, cache_pos:cache_pos + S] = v
+            if cache_pos:
+                k, v, q_offset = cache["k"], cache["v"], cache_pos
     out = attention_core(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return dense(out.reshape(B, S, H * hd), p["wo"]), cache
 
 
-def mla_attention(*_args, **_kwargs):
-    """Multi-head Latent Attention (DeepSeek-V3): not ported yet."""
-    raise NotImplementedError("MLA attention is not ported yet (ROADMAP.md §1, slice 7: "
-                              "the MoE/MLA families)")
+def _ring_decode_attend(cfg: ModelConfig, p, q: torch.Tensor, cache: dict,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """Attention of q (B, S, H, hd) at `positions` (B, S) over the ring
+    `cache`, each slot masked by its own position: valid where it was
+    written (pos >= 0), at or before the query, and inside the window
+    (`cfg.window`, or 2^30 without one).  fp32 scores over sqrt(hd), as the
+    JAX package's `_ring_decode_attend`; returns the output projection
+    (B, S, D)."""
+    B, S, H, hd = q.shape
+    KV = cfg.num_kv_heads
+    k, v, kpos = cache["k"], cache["v"], cache["pos"]
+    qg = q.reshape(B, S, KV, H // KV, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
+    qpos = positions.reshape(B, -1)[..., None]
+    kp = kpos[:, None, :]
+    valid = (kp >= 0) & (kp <= qpos) & (kp > qpos - (cfg.window or 1 << 30))
+    pr = torch.softmax(scores.masked_fill(~valid[:, None, None], NEG_INF), dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", pr, v.float())
+    return dense(out.reshape(B, S, H * hd).to(q.dtype), p["wo"])
+
+
+# --------------------------------------------------------------- MLA layer
+def mla_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
+                  cache: dict | None = None, cache_pos: int | None = None):
+    """Multi-head Latent Attention (DeepSeek-V3), in the JAX package's two
+    forms.
+
+    Without a cache, the expanded form: per-head k and v made from the
+    latent, q and k of nope + rope dims, v of v_head_dim, attended through
+    `attention_core` (outside the kernel's domain: `_plain_attention`).
+    With a cache, the absorbed form: the latent (kv_lora + rope) of
+    positions [cache_pos, cache_pos + S) is written into cache["lat"]
+    (B, cache_len, kv_lora + rope) in place, the queries are projected
+    into the latent space through k_up (fp32), and attention runs MQA-style
+    over the whole latent cache (values its first kv_lora dims, scale
+    1/sqrt(nope + rope)); v_up is applied to the output (fp32).
+    Returns (out (B, S, D), cache, or None without one)."""
+    m = cfg.mla
+    B, S, _D = x.shape
+    H = cfg.num_heads
+    nope, rope, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
+    cq = rms_norm(dense(x, p["q_down"]), p["q_down_norm"])
+    q = dense(cq, p["q_up"]).reshape(B, S, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    kv = dense(x, p["kv_down"])
+    c_kv = rms_norm(kv[..., :r], p["kv_down_norm"])
+    k_rope = kv[..., r:].reshape(B, S, 1, rope)
+    cos, sin = rope_angles(positions, rope, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope, cos, sin)
+    scale = 1.0 / math.sqrt(nope + rope)
+
+    if cache is not None:
+        lat_cache = cache["lat"]
+        if cache_pos < 0 or cache_pos + S > lat_cache.shape[1]:
+            raise ValueError(f"positions [{cache_pos}, {cache_pos + S}) outside a cache of "
+                             f"{lat_cache.shape[1]}")
+        lat_cache[:, cache_pos:cache_pos + S] = torch.cat([c_kv, k_rope[:, :, 0]], dim=-1)
+        w_uk = p["k_up"].reshape(r, H, nope)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+        q_all = torch.cat([q_lat, q_rope.float()], dim=-1).to(x.dtype)
+        o_lat = attention_core(q_all, lat_cache[:, :, None, :], lat_cache[:, :, None, :r],
+                               causal=True, q_offset=cache_pos, scale=scale)
+        w_uv = p["v_up"].reshape(r, H, m.v_head_dim)
+        out = torch.einsum("bqhr,rhv->bqhv", o_lat.float(), w_uv.float())
+        out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype)
+        return dense(out, p["wo"]), cache
+
+    k_nope = dense(c_kv, p["k_up"]).reshape(B, S, H, nope)
+    v = dense(c_kv, p["v_up"]).reshape(B, S, H, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
+    out = attention_core(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True)
+    return dense(out.reshape(B, S, H * m.v_head_dim), p["wo"]), None

@@ -854,6 +854,8 @@ FLASH_CASES = [
     (1, 300, 16, 1, 128, 100, False),
     (2, 200, 4, 2, 32, 20, False),
     (1, 1000, 16, 8, 128, 129, False),
+    # mixtral-8x7b's prefill (chip_smoke.py phase 9a): a window of 4096 at S = 8192
+    (2, 8192, 32, 8, 128, 4096, True),
 ]
 
 
@@ -1039,3 +1041,140 @@ def test_cuda_train_step_matches_cpu():
         assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
     for name in pc:
         assert _rel_l2(pg[name], pc[name]) <= 1e-4, name
+
+
+def _moe_cfg(arch, **moe):
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    return replace(cfg, moe=replace(cfg.moe, **moe)) if moe else cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,moe", [("mixtral-8x7b", {}),
+                                      ("mixtral-8x7b", {"capacity_factor": 0.5}),
+                                      ("deepseek-v3-671b", {"num_experts": 16, "top_k": 8})])
+def test_cuda_moe_layer_matches_cpu(arch, moe):
+    """The reduced MoE layer in fp32 (no TF32) on the same weights and
+    inputs: the routing (ids, pos, keep) equal on both devices, drops
+    included, the aux loss within 1e-6, the output within 1e-4 of its max
+    |value| (cuBLAS and the CPU's BLAS sum in other orders)."""
+    from repro_torch.models import lm, moe as tmoe
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(arch, **moe)
+    init = lm._Init(5, torch.device("cpu"), torch.float32)
+    p = {n: t.data for n, t in lm._moe_params(cfg, init).items()}
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 24, cfg.d_model),
+                                                                  dtype=np.float32))
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        pd = {n: t.to(device) for n, t in p.items()}
+        out, aux = tmoe.moe_layer(cfg, pd, x.to(device))
+        route = tmoe.route(cfg, pd["router"], x.to(device).reshape(48, -1))
+        runs.append((out.cpu(), float(aux), [t.cpu() for t in route[2:]]))
+    (og, ag, rg), (oc, ac, rc) = runs
+    for a, b in zip(rg, rc, strict=True):
+        assert torch.equal(a, b)
+    if moe.get("capacity_factor") == 0.5:
+        assert not rc[2].all()
+    assert abs(ag - ac) <= 1e-6
+    assert float((og - oc).abs().max()) <= 1e-4 * float(oc.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_ring_cache_and_mla_match_cpu():
+    """Reduced mixtral's ring (window 16, 16 slots): a long prefill of 20
+    through the kernel with the window, then 6 decode steps past the wrap;
+    and reduced deepseek-v3's MLA, expanded and absorbed (a prefill of 20
+    into 32 slots, 3 decode steps): each output within 1e-4 card against
+    CPU, the ring's positions equal."""
+    from dataclasses import replace
+
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.models import layers as ly
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    for arch in ("mixtral-8x7b", "deepseek-v3-671b"):
+        cfg = _moe_cfg(arch)
+        if cfg.window:
+            cfg = replace(cfg, window=16)
+        blk = init_params(replace(cfg, num_layers=1), seed=2, device="cpu").layers[0]
+        xs = [rng.standard_normal((2, n, cfg.d_model), dtype=np.float32)
+              for n in (20, 1, 1, 1)]
+        runs = []
+        for device in (dev, torch.device("cpu")):
+            attn = {n: t.to(device) for n, t in blk.attn.items()}
+            cache = {n: t[0] for n, t in init_cache(replace(cfg, num_layers=1), 2, 24 if
+                                                    cfg.window else 32,
+                                                    device=device)["layers"].items()}
+            kops.reset_launch_counts()
+            outs, start = [], 0
+            for x in xs:
+                n = x.shape[1]
+                pos = torch.arange(start, start + n, dtype=torch.int32,
+                                   device=device)[None].expand(2, n)
+                xt = torch.from_numpy(x).to(device)
+                if cfg.mla is None:
+                    o, _ = ly.gqa_attention(cfg, attn, xt, positions=pos, cache=cache,
+                                            cache_pos=start, window=cfg.window)
+                else:
+                    if start == 0:
+                        outs.append(ly.mla_attention(cfg, attn, xt, positions=pos)[0].cpu())
+                    o, _ = ly.mla_attention(cfg, attn, xt, positions=pos, cache=cache,
+                                            cache_pos=start)
+                outs.append(o.cpu())
+                start += n
+            runs.append((outs, {n: t.cpu() for n, t in cache.items()},
+                         kops.launch_counts["flash_attention"]))
+        (og, cg, lg), (oc, cc, _lc) = runs
+        assert lg == (1 if cfg.mla is None else 0)
+        for a, b in zip(og, oc, strict=True):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+        if "pos" in cc:
+            assert torch.equal(cg["pos"], cc["pos"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "deepseek-v3-671b"])
+def test_cuda_moe_serving_matches_cpu(arch):
+    """Reduced mixtral (window 64) and deepseek-v3 in fp32, the same weights
+    on both devices: a prefill of 80 into a cache of 96 and 8 greedy decode
+    steps (mixtral's ring wraps) give equal tokens and logits within 1e-4;
+    on the card mixtral's prefill launches the kernel once a layer and
+    deepseek-v3's none (MLA is outside its domain); no plain flash call."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _moe_cfg(arch)
+    params = init_params(cfg, seed=0, device="cpu")
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 80)))
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        p = params.to(device)
+        kops.reset_launch_counts()
+        kref.reset_call_counts()
+        logits, cache = prefill(p, {"tokens": prompt.to(device)},
+                                init_cache(cfg, 2, 96, device=device))
+        out, toks = [logits.cpu()], []
+        for i in range(8):
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok.cpu())
+            logits, cache = step(p, cache, tok, 80 + i)
+            out.append(logits.cpu())
+        runs.append((out, toks, dict(kops.launch_counts), dict(kref.call_counts)))
+    (og, tg, lg, cg), (oc, tc, _l, _c) = runs
+    assert lg["flash_attention"] == (cfg.num_layers if cfg.mla is None else 0)
+    assert not any(cg.values())
+    for a, b in zip(tg, tc, strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(og, oc, strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
