@@ -2907,12 +2907,14 @@ FLASH_EARLIER_DEVICE_MS = 1.5954
 # bf16/fp16, 32 fp32); then the 128 x 128 tiles' edges: S = 128, 255, 257,
 # windows of 128 and 129 and one longer than S, 3 x 16 x 9 = 432 blocks (3
 # waves of 132 and a partial one), and hd 32, 64, 96 around a tile; then
-# causal=False (`attention_core` sends only causal attention to the kernel,
-# but the wrapper takes the flag): 1, 2, 3 and 8 query tiles (the
+# causal=False (an encoder's self-attention): 1, 2, 3 and 8 query tiles (the
 # persistent grid runs an odd count's middle tile alone), G = 1, 2, 4 and
-# MQA, and windows below, at and past the tile; last, mixtral-8x7b's
-# prefill of phase 9a (a window of 4096 at S = 8192: 75 % of the causal
-# pairs)
+# MQA, and windows below, at and past the tile; mixtral-8x7b's prefill of
+# phase 9a (a window of 4096 at S = 8192: 75 % of the causal pairs); hd
+# 256 (its own body, 64-key tiles): ragged S, causal and not, a window of
+# one tile; last, the causal shapes of phase 10 that 10f does not time:
+# whisper-medium's decoder prompt (one 64-row tile, G = 1, hd 64) and
+# pixtral-12b's prefill of 10d
 FLASH_9A = (2, 8192, 32, 8, 128, 4096, True)
 FLASH_CASES = [
     (8, 2048, 16, 8, 128, None, True),
@@ -2935,6 +2937,9 @@ FLASH_CASES = [
     (1, 300, 16, 1, 128, 100, False), (2, 200, 4, 2, 32, 20, False),
     (1, 1000, 16, 8, 128, 129, False),
     FLASH_9A,
+    (1, 300, 4, 1, 256, None, True), (2, 129, 4, 2, 256, None, False),
+    (1, 257, 8, 1, 256, 64, True),
+    (8, 64, 16, 16, 64, None, True), (4, 2048, 32, 8, 128, None, True),
 ]
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 2048, 2304, 128
 REQUEST_LENGTHS = (1, 127, 129, 300, 777, 1000, 1536, 2047)
@@ -2953,20 +2958,21 @@ CONSIST_TOL = 1e-3
 LM_CPU_TOL = 1e-4
 
 
-def flash_pairs(S: int, window: int | None) -> int:
-    """Unmasked (query, key) pairs of one (b, h): causal, and with a window
-    min(q + 1, window) a query."""
-    if window is None:
-        return S * (S + 1) // 2
-    q = np.arange(S)
-    return int(np.minimum(q + 1, window).sum())
+def flash_pairs(S: int, window: int | None, causal: bool = True) -> int:
+    """Unmasked (query, key) pairs of one (b, h): query q sees keys up to q
+    (causal) or S - 1, and with a window from q - window + 1."""
+    q = np.arange(S, dtype=np.int64)
+    hi = q if causal else np.full(S, S - 1)
+    lo = np.zeros(S, np.int64) if window is None else np.maximum(0, q - window + 1)
+    return int((hi - lo + 1).sum())
 
 
-def flash_bound(B: int, S: int, H: int, KV: int, hd: int, window, elsize: int) -> tuple:
+def flash_bound(B: int, S: int, H: int, KV: int, hd: int, window, elsize: int,
+                causal: bool = True) -> tuple:
     """(bound ms, what bounds it, FLOPs, bytes): 4 hd FLOPs a pair over the
     tensor cores' peak, against q and o once each and k and v once each
     over the memory rate."""
-    flops = 4 * B * H * hd * flash_pairs(S, window)
+    flops = 4 * B * H * hd * flash_pairs(S, window, causal)
     moved = (2 * B * S * H * hd + 2 * B * S * KV * hd) * elsize
     f_ms, b_ms = flops / TC_FLOPS_PER_S * 1e3, moved / MEM_BYTES_PER_S * 1e3
     return max(f_ms, b_ms), ("operations" if f_ms >= b_ms else "bytes"), flops, moved
@@ -2976,8 +2982,8 @@ def flash_instructions(build) -> dict:
     """The Hopper instructions in the built attention library's SASS
     (`cuobjdump --dump-sass`): wgmma (HGMMA) and TMA loads (UTMALDG) and
     stores (UTMASTG); raises if the library holds no HGMMA or no UTMALDG.
-    Prints the ptxas register and spill lines of the bf16 hd-128 body
-    from the build's log."""
+    Prints the ptxas register and spill lines of the bf16 hd-128 and hd-256
+    bodies from the build's log."""
     lib = build.build("flash_attention")
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)], check=True,
@@ -2986,17 +2992,21 @@ def flash_instructions(build) -> dict:
     print(f"  SASS of {lib.name}: {counts}", flush=True)
     if not counts["HGMMA"] or not counts["UTMALDG"]:
         raise AssertionError(f"flash_attention: no wgmma or no TMA load in the SASS: {counts}")
-    lines, entry = [], False
+    bodies = {"hd128": ("flash_tc_kernel", "nv_bfloat16", "Li128E"),
+              "hd256": ("flash_tc256_kernel", "nv_bfloat16")}
+    lines, entry = {b: [] for b in bodies}, None
     for line in (build.BUILD_DIR / "flash_attention.log").read_text().splitlines():
         if "Compiling entry function" in line:
-            entry = all(w in line for w in ("flash_tc_kernel", "nv_bfloat16", "Li128E"))
+            entry = next((b for b, words in bodies.items() if all(w in line for w in words)),
+                         None)
         elif entry and ("registers" in line or "spill" in line):
-            lines.append(line.strip())
-    if not lines:
-        raise AssertionError("flash_attention: no ptxas lines for the bf16 hd-128 body")
-    for line in lines:
-        print(f"  ptxas, bf16 hd 128: {line}", flush=True)
-    return {**counts, "ptxas_bf16_hd128": lines}
+            lines[entry].append(line.strip())
+    for body, got in lines.items():
+        if not got:
+            raise AssertionError(f"flash_attention: no ptxas lines for the bf16 {body} body")
+        for line in got:
+            print(f"  ptxas, bf16 {body[:2]} {body[2:]}: {line}", flush=True)
+    return {**counts, **{f"ptxas_bf16_{body}": got for body, got in lines.items()}}
 
 
 def flash_check(label: str, got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -3244,10 +3254,11 @@ def serve_consistency(cfg, serve) -> dict:
 
 
 def step_breakdown(label: str, cfg, params, serve, tokens: torch.Tensor,
-                   cache_len: int) -> dict:
+                   cache_len: int, extra: dict | None = None) -> dict:
     """Where a serving run's time goes, outside its counted run: one prefill
-    of `tokens` (B, S) into a fresh cache of `cache_len` and one decode
-    step of B after it, each under torch.profiler — the host's time to
+    of `tokens` (B, S) (with `extra`'s frames or patches: a patch prefix
+    moves the decode position past it) into a fresh cache of `cache_len`
+    and one decode step of B after it, each under torch.profiler — the host's time to
     enqueue, the wall to a synchronize, the kernels' device time summed,
     kernel launches and aten ops, and the three aten ops with the most
     device time.  A decode step's device idle share is 1 - device / wall.
@@ -3263,11 +3274,14 @@ def step_breakdown(label: str, cfg, params, serve, tokens: torch.Tensor,
     cache = init_cache(cfg, tokens.shape[0], cache_len, device=tokens.device)
     holder = {}
 
+    extra = extra or {}
+    pos = tokens.shape[1] + (extra["patches"].shape[1] if "patches" in extra else 0)
+
     def run_prefill():
-        holder["logits"], _ = prefill(params, {"tokens": tokens}, cache)
+        holder["logits"], _ = prefill(params, {"tokens": tokens, **extra}, cache)
 
     def run_decode():
-        step(params, cache, holder["logits"].argmax(-1, keepdim=True), tokens.shape[1])
+        step(params, cache, holder["logits"].argmax(-1, keepdim=True), pos)
 
     out = {}
     for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
@@ -4098,48 +4112,60 @@ class AttentionTally:
         return (int(torch.stack(d).sum()) if d else 0), sum(self.routed[first:last])
 
 
-def flash_at_9a(kops, kref) -> dict:
-    """Row 12 alone at 9a's prefill shape (bf16): device time behind a
-    spinning kernel and events over a loop, the plain version's time, and
-    the yardstick SDPA with a boolean band mask (k and v repeated to the
-    query heads), each output against the plain one, beside the bound."""
+def flash_at_shape(label: str, case: tuple, kops, kref, seed: int = SEED + 9) -> dict:
+    """Row 12 alone at a main path's prefill shape `case` (B, S, H, KV, hd,
+    window, causal): the kernel against its plain version, its device time
+    behind a spinning kernel and events over a loop, the plain version's
+    time, and the yardstick SDPA (k and v repeated to the query heads; with
+    a window a boolean band mask, else its own causal flag), each output
+    against the plain one, beside the bound."""
     import torch.nn.functional as tF
 
-    B, S, H, KV, hd, window, _causal = FLASH_9A
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
-    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+    B, S, H, KV, hd, window, causal = case
+    dev, dtype = torch.device("cuda"), torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev).to(dtype)
                for n in (H, KV, KV))
-    kernel = lambda: kops.flash_attention(q, k, v, window=window)            # noqa: E731
-    plain = lambda: kref.flash_attention(q, k, v, window=window)             # noqa: E731
+    kernel = lambda: kops.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+    plain = lambda: kref.flash_attention(q, k, v, causal=causal, window=window)   # noqa: E731
     want = plain()
-    err, row = flash_check(f"9a shape B={B} S={S} H={H} KV={KV} hd={hd} window={window} "
-                           "bf16", kernel(), want)
-    qpos = torch.arange(S, device=dev)
-    band = (qpos[None, :] <= qpos[:, None]) & (qpos[None, :] > qpos[:, None] - window)
+    shape = (f"B={B} S={S} H={H} KV={KV} hd={hd} window={window}"
+             f"{'' if causal else ' causal=False'} {str(dtype)[6:]}")
+    err, row = flash_check(f"{label} shape {shape}", kernel(), want)
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (k, v))
-    library = lambda: tF.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)  # noqa: E731
+    if window is None:
+        kind = f"SDPA, is_causal={causal}"
+        library = lambda: tF.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
+                                                          is_causal=causal)
+    else:
+        qpos = torch.arange(S, device=dev)
+        band = qpos[None, :] > qpos[:, None] - window
+        if causal:
+            band &= qpos[None, :] <= qpos[:, None]
+        kind = "SDPA, boolean band mask"
+        library = lambda: tF.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
+                                                          attn_mask=band)
     lib_err = float((library().transpose(1, 2).float() - want.float()).abs().max())
     del want
     ms, dev_ms = cuda_ms(kernel, 20), device_ms(kernel)
     plain_ms = cuda_ms(plain, 2)
     library_ms, library_dev_ms = cuda_ms(library, 10), device_ms(library, 10)
-    bound_ms, bound_by, flops, moved = flash_bound(B, S, H, KV, hd, window, 2)
-    print(f"  flash_attention at 9a's prefill shape (B={B} S={S} H={H} KV={KV} hd={hd} "
-          f"window={window}, bf16; {flash_pairs(S, window)} pairs a head): kernel {ms:.4f} ms "
-          f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, SDPA with a boolean band mask "
-          f"{library_ms:.4f} ms (device {library_dev_ms:.4f} ms; max |SDPA - plain| "
-          f"{lib_err:.3g}), bound {bound_ms:.4f} ms by {bound_by} ({flops:.4g} FLOP, {moved} B), "
-          f"bound/device {bound_ms / dev_ms:.1%}, {flops / dev_ms / 1e9:.1f} TFLOP/s",
-          flush=True)
-    del q, k, v, qt, kt, vt, band
+    bound_ms, bound_by, flops, moved = flash_bound(B, S, H, KV, hd, window, dtype.itemsize,
+                                                   causal)
+    print(f"  flash_attention at {label}'s prefill shape ({shape}; "
+          f"{flash_pairs(S, window, causal)} pairs a head): kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, {kind} {library_ms:.4f} ms (device "
+          f"{library_dev_ms:.4f} ms; max |SDPA - plain| {lib_err:.3g}), bound {bound_ms:.4f} "
+          f"ms by {bound_by} ({flops:.4g} FLOP, {moved} B), bound/device "
+          f"{bound_ms / dev_ms:.1%}, {flops / dev_ms / 1e9:.1f} TFLOP/s", flush=True)
+    del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
-    return {"shape": list(FLASH_9A[:6]), "max_abs_err": err, "max_row_rel_err": row,
-            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "flops": flops, "bytes": moved, "library_ms": library_ms,
-            "library_device_ms": library_dev_ms, "library": "SDPA, boolean band mask",
-            "library_max_abs_err": lib_err}
+    return {"shape": list(case[:6]) + ([] if causal else [False]), "dtype": str(dtype)[6:],
+            "max_abs_err": err, "max_row_rel_err": row, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "flops": flops,
+            "bytes": moved, "library_ms": library_ms, "library_device_ms": library_dev_ms,
+            "library": kind, "library_max_abs_err": lib_err}
 
 
 def moe_model(key: str, device):
@@ -4391,7 +4417,7 @@ def moe_path(kops, kref) -> dict:
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
-    out = {"flash_9a": flash_at_9a(kops, kref)}
+    out = {"flash_9a": flash_at_shape("9a", FLASH_9A, kops, kref)}
     for key in ("9a", "9b"):
         cfg, params, model = moe_model(key, dev)
         B = MOE_SERVE[key][2]
@@ -4412,6 +4438,303 @@ def moe_path(kops, kref) -> dict:
         torch.cuda.empty_cache()
     facts, launches, plain, _cls = counted(kops, kref, moe_card_vs_cpu)
     out["9c"] = (facts, launches, plain)
+    return out
+
+
+# Phase 10: the ssm, hybrid, encdec and vlm families served at full width and
+# depth, in bf16, from random weights drawn on the card from SEED, each model
+# freed before the next; then the four reduced in fp32, card against CPU
+# (10e), and row 12 at 10b's and 10c's shapes and at hd 256 in fp16 and fp32
+# (10f).
+FAMILY_SERVE = {
+    # key: (arch, batch, prompt, cache, greedy steps, row 12's launches a prefill)
+    "10a": ("mamba2-130m", 8, 8192, 8320, 128, 0),
+    "10b": ("recurrentgemma-9b", 2, 8192, 8320, 128, 12),
+    "10c": ("whisper-medium", 8, 64, 192, 128, 48),
+    "10d": ("pixtral-12b", 4, 1024, 2176, 128, 40),
+}
+FRAME_SCALE = 0.1           # frames and patches: 0.1 times a standard normal
+FLASH_10B = (2, 8192, 16, 1, 256, 2048, True)
+FLASH_10C = (8, 1500, 16, 16, 64, None, False)
+# 10f at hd 256 in fp16 and fp32: a ragged S, MQA, a window under a tile
+FLASH_10F_SMALL = (1, 1000, 16, 1, 256, 100, True)
+FAMILY_CPU_PROMPT, FAMILY_CPU_STEPS = 64, 32
+# 10e: the tolerances of 9c (MOE_CPU_TOL, MOE_CONSIST_TOL), for the same
+# reasons: fp32 without TF32 on identical weights, sums in other orders.
+FAMILY_CPU_TOL, FAMILY_CONSIST_TOL = 1e-4, 1e-3
+
+
+def attention_layers(cfg) -> int:
+    """The layers whose prefill attention takes row 12: every attention
+    layer (the hybrid's one a super-block; the encoder's and the decoder's
+    self-attention)."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // len(cfg.rglru.pattern) * cfg.rglru.pattern.count("attn")
+    return cfg.num_layers + cfg.encoder_layers
+
+
+def family_inputs(cfg, B: int, prompt: int, device, seed: int = SEED) -> dict:
+    """A batch of `prompt` tokens a request, and for encdec its frames (B,
+    encoder_seq, D), for vlm its patches (B, the config's num_patches, D),
+    drawn from `seed` at FRAME_SCALE (the JAX package's
+    smoke test draws them so; the audio and image frontends are stubs
+    there too), in the model's dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, prompt), generator=gen,
+                                     device=device)}
+    if cfg.family == "encdec":
+        batch["frames"] = (FRAME_SCALE * torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                                     generator=gen, device=device)).to(dt)
+    if cfg.family == "vlm":
+        batch["patches"] = (FRAME_SCALE * torch.randn(B, cfg.num_patches, cfg.d_model,
+                                                      generator=gen, device=device)).to(dt)
+    return batch
+
+
+def family_model(key: str, device):
+    """Phase `key`'s config at full width and depth, its parameters drawn
+    from SEED on `device`; the count, bytes, draw wall and peak memory
+    printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+
+    arch = FAMILY_SERVE[key][0]
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=device)
+    sync()
+    wall = time.perf_counter() - t
+    n = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    # what a decode step reads: every weight but the encoder and the rows of
+    # the embedding table not looked up (the whole table where it is tied,
+    # as the output head reads it)
+    unread = sum(p.numel() * p.element_size() for name, p in params.named_parameters()
+                 if name.split(".")[0] in ("enc", "enc_norm")
+                 or (name == "tok_embed" and not cfg.tie_embeddings))
+    if attention_layers(cfg) != FAMILY_SERVE[key][5]:
+        raise AssertionError(f"{key}: {attention_layers(cfg)} attention layers")
+    print(f"  {key}: {arch} at full width and depth ({cfg.family}: {cfg.num_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}, d "
+          f"{cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, hd "
+          f"{cfg.resolved_head_dim}, vocab {cfg.vocab_size}); {n:,} parameters "
+          f"(`param_count` {cfg.param_count():,}), {weight_bytes} B, drawn on the card in "
+          f"{wall:.2f} s, peak {torch.cuda.max_memory_allocated()} B", flush=True)
+    return cfg, params, {"weight_bytes": weight_bytes, "decode_weight_bytes":
+                         weight_bytes - unread, "draw_s": wall, "parameters": n}
+
+
+def family_serve(key: str, cfg, params, serve, model: dict) -> dict:
+    """Phase 10a-10d's run: a prefill of the batch (prompts, and the frames
+    or patches) into a cache, then greedy decode steps; walls on the host
+    clock ending in a synchronize, tokens/s, decode ms a step beside its
+    floor (the weights a step reads and the whole cache, once, over the
+    memory rate), peak memory, and the plain and ring attention calls
+    (`AttentionTally`), which must be: none in a prefill but the encdec's
+    cross attention (Sq != Sk: plain, a layer), and in a step one a layer
+    for every attention the kernel's rule leaves out (self attention over
+    the cache, cross attention; the ring's instead where there is one)."""
+    from repro_torch.models import init_cache
+
+    _arch, B, prompt, cache_len, steps, _launches = FAMILY_SERVE[key]
+    dev = torch.device("cuda")
+    batch = family_inputs(cfg, B, prompt, dev)
+    P = batch["patches"].shape[1] if "patches" in batch else 0
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    cache = init_cache(cfg, B, cache_len, device=dev)
+    with AttentionTally() as tally:
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        t = time.perf_counter()
+        logits, cache = prefill(params, batch, cache)
+        sync()
+        t_prefill = time.perf_counter() - t
+        plain_prefill = tally.plain_calls
+        out, toks = [logits], []
+        t = time.perf_counter()
+        for i in range(steps):
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok)
+            logits, cache = step(params, cache, tok, P + prompt + i)
+            out.append(logits)
+        sync()
+        t_decode = time.perf_counter() - t
+    _finite(f"{key} prefill and decode", torch.stack(out))
+    L, attn_layers = cfg.num_layers, FAMILY_SERVE[key][5]
+    want_prefill = L if cfg.family == "encdec" else 0
+    ring = cfg.family == "hybrid" and "pos" in cache["super"]["attn2"]
+    want_steps = {"ssm": 0, "hybrid": 0 if ring else attn_layers, "encdec": 2 * L,
+                  "vlm": L}[cfg.family]
+    if (plain_prefill != want_prefill or tally.plain_calls - plain_prefill != want_steps * steps
+            or tally.ring_calls != (attn_layers * steps if ring else 0)):
+        raise AssertionError(f"{key}: {plain_prefill} plain attention calls in the prefill "
+                             f"(want {want_prefill}), {tally.plain_calls - plain_prefill} in "
+                             f"{steps} steps (want {want_steps} a step), {tally.ring_calls} "
+                             f"ring decode attention calls")
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+
+    cache_bytes = sum(t.numel() * t.element_size() for t in leaves(cache))
+    floor_ms = (model["decode_weight_bytes"] + cache_bytes) / MEM_BYTES_PER_S * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    positions = B * (P + prompt)
+    facts = {"prefill_s": t_prefill, "prefill_tok_s": B * prompt / t_prefill,
+             "prefill_positions_s": positions / t_prefill,
+             "decode_ms_step": t_decode / steps * 1e3, "decode_tok_s": B * steps / t_decode,
+             "decode_floor_ms": floor_ms, "cache_bytes": cache_bytes, "peak_bytes": peak,
+             "plain_attention_prefill": plain_prefill, "plain_attention": tally.plain_calls,
+             "ring_decode_attention": tally.ring_calls,
+             "first_tokens": torch.cat(toks[:8], 1)[0].tolist(), **model}
+    inputs, rates = f"{B} x {prompt} tokens", f"{facts['prefill_tok_s']:.0f} tokens/s"
+    if P:
+        inputs += f" after {P} patches"
+        rates += f", {positions / t_prefill:.0f} positions/s"
+    if cfg.family == "encdec":
+        facts["prefill_frames_s"] = B * cfg.encoder_seq / t_prefill
+        inputs += f" with {cfg.encoder_seq} frames each"
+        rates += f", {facts['prefill_frames_s']:.0f} frames/s"
+    print(f"  {key}: prefill {inputs} into a cache of {cache_len} in {t_prefill:.4f} s "
+          f"({rates}); {steps} decode steps of {B} in {t_decode:.4f} s ({facts['decode_ms_step']:.3f} "
+          f"ms/step, {facts['decode_tok_s']:.1f} tokens/s) against a floor of {floor_ms:.3f} "
+          f"ms/step (weights read a step {model['decode_weight_bytes']} B + cache "
+          f"{cache_bytes} B once); peak {peak} B; `_plain_attention` calls {plain_prefill} in "
+          f"the prefill, {tally.plain_calls} in all; ring decode attention calls "
+          f"{tally.ring_calls}; request 0's first tokens {facts['first_tokens']}", flush=True)
+    if ring:
+        C = cache["super"]["attn2"]["pos"].shape[-1]
+        last = P + prompt + steps - 1
+        pos = torch.arange(last - C + 1, last + 1, device=dev)
+        for name, c in cache["super"].items():
+            if "pos" in c and not (c["pos"][..., pos % C] == pos.to(torch.int32)).all():
+                raise AssertionError(f"{key}: {name}'s ring does not hold positions "
+                                     f"{last - C + 1}..{last} at slots p mod {C}")
+        if C != cfg.rglru.window:
+            raise AssertionError(f"{key}: a ring of {C} slots, not the window's")
+        print(f"  {key}: each attention layer's ring of {C} slots holds positions "
+              f"{last - C + 1}..{last} at p mod {C}", flush=True)
+        facts["ring"] = [last - C + 1, last, C]
+    return facts
+
+
+def family_card_vs_cpu() -> dict:
+    """Phase 10e: the four families reduced, in fp32 (no TF32), on identical
+    weights and inputs on both devices: a prompt of 64 (after 16 patches
+    for the vlm; 32 frames for the encdec) into a cache of 96 (+ 16) and 32
+    greedy decode steps (the hybrid's ring of 64 slots wraps) give equal
+    tokens and logits within FAMILY_CPU_TOL; on the card, prefill + decode
+    against forward over the whole sequence within FAMILY_CONSIST_TOL."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.models.lm import unembed
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for key, (arch, *_rest) in FAMILY_SERVE.items():
+        cfg = dc.replace(reduced(get_config(arch)), dtype="float32")
+        batch = family_inputs(cfg, 2, FAMILY_CPU_PROMPT, torch.device("cpu"))
+        P = batch["patches"].shape[1] if "patches" in batch else 0
+        prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+        params = init_params(cfg, seed=SEED, device="cpu")
+        runs = []
+        for dev in ("cuda", "cpu"):
+            p = params.to(dev)
+            b = {k: v.to(dev) for k, v in batch.items()}
+            cache = init_cache(cfg, 2, P + FAMILY_CPU_PROMPT + FAMILY_CPU_STEPS, device=dev)
+            logits, cache = prefill(p, b, cache)
+            lg, toks = [logits], []
+            for i in range(FAMILY_CPU_STEPS):
+                tok = logits.argmax(-1, keepdim=True)
+                toks.append(tok)
+                logits, cache = step(p, cache, tok, P + FAMILY_CPU_PROMPT + i)
+                lg.append(logits)
+            seq = torch.cat([b["tokens"], *toks], 1)
+            full = unembed(cfg, p, forward(cfg, p, dict(b, tokens=seq))[0]).float()
+            lg = torch.stack(lg, 1)
+            consist = float((lg - full[:, P + FAMILY_CPU_PROMPT - 1:]).abs().max())
+            runs.append((lg.cpu(), torch.cat(toks, 1).cpu(), consist))
+        (lgc, tgc, consist), (lgh, tgh, consist_cpu) = runs
+        err, scale = float((lgc - lgh).abs().max()), float(lgh.abs().max())
+        if not torch.equal(tgc, tgh) or err > FAMILY_CPU_TOL * (1 + scale):
+            raise AssertionError(f"10e {arch}: card vs CPU tokens {tgc.tolist()} vs "
+                                 f"{tgh.tolist()}, max |logit err| {err}")
+        if consist > FAMILY_CONSIST_TOL:
+            raise AssertionError(f"10e {arch}: prefill + decode differ from forward by {consist}")
+        print(f"  10e {arch} reduced, fp32: card == CPU greedy tokens {tgc[0].tolist()}; max "
+              f"|logit difference| {err:.3g} (max |logit| {scale:.3g}; tolerance "
+              f"{FAMILY_CPU_TOL}); prefill {FAMILY_CPU_PROMPT} + decode {FAMILY_CPU_STEPS} "
+              f"against forward over {FAMILY_CPU_PROMPT + FAMILY_CPU_STEPS} positions"
+              f"{f' after {P} patches' if P else ''}: {consist:.3g} on the card, "
+              f"{consist_cpu:.3g} on the CPU (tolerance {FAMILY_CONSIST_TOL})", flush=True)
+        out[arch] = {"max_abs_err": err, "max_abs_logit": scale, "consistency": consist,
+                     "consistency_cpu": consist_cpu}
+    return out
+
+
+def family_flash(kops, kref) -> dict:
+    """Phase 10f: row 12 against its plain version on the card within
+    FLASH_TOL, at 10b's shape (hd 256, window 2048) in bf16 and 10c's
+    (non-causal, S 1500) in bf16, each timed beside its bound and SDPA
+    (`flash_at_shape`); and at hd 256 in fp16 and fp32 at a ragged S."""
+    out = {"10b": flash_at_shape("10b", FLASH_10B, kops, kref, seed=SEED + 10),
+           "10c": flash_at_shape("10c", FLASH_10C, kops, kref, seed=SEED + 11)}
+    B, S, H, KV, hd, window, causal = FLASH_10F_SMALL
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for dt in (torch.float16, torch.float32):
+        q, k, v = (torch.randn(B, S, n, hd, generator=gen, device="cuda").to(dt)
+                   for n in (H, KV, KV))
+        got = kops.flash_attention(q, k, v, causal=causal, window=window)
+        err, row = flash_check(f"10f B={B} S={S} H={H} KV={KV} hd={hd} window={window} "
+                               f"{str(dt)[6:]}", got,
+                               kref.flash_attention(q, k, v, causal=causal, window=window))
+        out[f"hd256_{str(dt)[6:]}"] = {"shape": list(FLASH_10F_SMALL[:6]), "max_abs_err": err,
+                                       "max_row_rel_err": row}
+    return out
+
+
+def family_path(kops, kref) -> dict:
+    """Phase 10: 10a-10d each counted on its own (`counted`) after an
+    uncounted warm-up (a prefill of one 128-token request and one decode
+    step), then a prefill and a decode step of it profiled
+    (`step_breakdown`), its weights freed before the next; then 10e and
+    10f, each counted.  Returns each part's facts and counts."""
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    out = {}
+    for key in FAMILY_SERVE:
+        cfg, params, model = family_model(key, dev)
+        warm = family_inputs(cfg, 1, 128, dev, seed=SEED + 1)
+        P = warm["patches"].shape[1] if "patches" in warm else 0
+        logits, cache = serve.make_prefill_step(cfg)(params, warm,
+                                                     init_cache(cfg, 1, P + 129, device=dev))
+        serve.make_decode_step(cfg)(params, cache, logits.argmax(-1, keepdim=True), P + 128)
+        del cache, logits, warm
+        sync()
+        facts, launches, plain, _cls = counted(
+            kops, kref, lambda: family_serve(key, cfg, params, serve, model))
+        out[key] = (facts, launches, plain)
+        _arch, B, prompt, cache_len, _steps, _n = FAMILY_SERVE[key]
+        batch = family_inputs(cfg, B, prompt, dev)
+        tokens = batch.pop("tokens")
+        facts["breakdown"] = step_breakdown(key, cfg, params, serve, tokens, cache_len, batch)
+        del params, tokens, batch
+        torch.cuda.empty_cache()
+    facts, launches, plain, _cls = counted(kops, kref, family_card_vs_cpu)
+    out["10e"] = (facts, launches, plain)
+    facts, launches, plain, _cls = counted(kops, kref, lambda: family_flash(kops, kref))
+    out["10f"] = (facts, launches, plain)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4573,6 +4896,10 @@ def main() -> int:
     print(f"== 9. serving the moe family at full width (card {smi})", flush=True)
     moe_runs = moe_path(kops, kref)
 
+    print(f"== 10. serving the ssm, hybrid, encdec and vlm families at full width and depth "
+          f"(card {smi})", flush=True)
+    family_runs = family_path(kops, kref)
+
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
@@ -4649,6 +4976,23 @@ def main() -> int:
             or moe_runs["9c"][2]["flash_attention"] != n9c):
         raise AssertionError(f"phase 9c: kernel launches {moe_runs['9c'][1]}, plain calls "
                              f"{moe_runs['9c'][2]}, want {n9c} and {n9c} (the CPU's)")
+    for key, (_arch, _B, _prompt, _cache, _steps, per_prefill) in FAMILY_SERVE.items():
+        _facts, lc, pc = family_runs[key]
+        print(f"  phase {key}: kernel launches {lc}; plain calls {pc}", flush=True)
+        if lc["flash_attention"] != per_prefill or any(pc.values()):
+            raise AssertionError(f"phase {key}: flash_attention launched "
+                                 f"{lc['flash_attention']} times, want {per_prefill} (one a "
+                                 f"prefill's attention layer); plain calls {pc}")
+    # 10e: each prefill and forward launches the kernel once an attention
+    # layer on the card, and runs its plain version as often on the CPU
+    n10e = 2 * sum(attention_layers(reduced(get_config(arch)))
+                   for arch, *_rest in FAMILY_SERVE.values())
+    _facts, lc, pc = family_runs["10e"]
+    print(f"  phase 10e: kernel launches {lc}; plain calls {pc}", flush=True)
+    if (lc["flash_attention"] != n10e or pc["flash_attention"] != n10e
+            or any(v for k, v in pc.items() if k != "flash_attention")):
+        raise AssertionError(f"phase 10e: kernel launches {lc}, plain calls {pc}, want {n10e} "
+                             f"and {n10e} (the CPU's)")
     kernels = []
     for name in REPLACES:
         r = next(x for x in rows[3] if x["name"] == name)
@@ -4709,10 +5053,15 @@ def main() -> int:
         "launches_phase8_a_step": trained["8a"]["launches_a_step"],
         "launches_phase9a": moe_runs["9a"][1]["flash_attention"],
         "launches_phase9b": moe_runs["9b"][1]["flash_attention"],
-        "launches_phase9c": moe_runs["9c"][1]["flash_attention"], **flash,
-        "shape_9a": moe_runs["flash_9a"],
+        "launches_phase9c": moe_runs["9c"][1]["flash_attention"],
+        **{f"launches_phase{k}": family_runs[k][1]["flash_attention"]
+           for k in (*FAMILY_SERVE, "10e", "10f")}, **flash,
+        "shape_9a": moe_runs["flash_9a"], "shape_10b": family_runs["10f"][0]["10b"],
+        "shape_10c": family_runs["10f"][0]["10c"],
+        "hd256_small": {k: v for k, v in family_runs["10f"][0].items() if k.startswith("hd256")},
         "serve": {k: v[0] for k, v in served.items()},
-        "moe_serve": {k: moe_runs[k][0] for k in ("9a", "9b", "9c")}})
+        "moe_serve": {k: moe_runs[k][0] for k in ("9a", "9b", "9c")},
+        "family_serve": {k: family_runs[k][0] for k in (*FAMILY_SERVE, "10e")}})
     print(json.dumps({"runtime": {"3m": {k: v for k, v in multi.items() if k != "launches"},
                                   "3r_faults": chaos,
                                   "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},

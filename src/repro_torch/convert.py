@@ -157,16 +157,24 @@ def ghost_to_reference(ghost: dict) -> dict:
     return {name: to_numpy(ghost[name]).astype(np.int32) for name in GHOST_FIELDS}
 
 
+# The JAX tree's roots whose leaves are stacked on a leading layer axis (the
+# port's `nn.ModuleList`s of the same names): the decoder's layers, the
+# hybrid family's super-blocks and tail, and the encoder-decoder's stacks.
+STACKED = ("layers", "super", "tail", "enc", "dec")
+
+
 def _ref_leaf(tree: dict, name: str):
     """The entry of the JAX tree `tree` for the port's parameter `name`:
-    "layers.<i>.<path>" is layer i of the stacked leaf at layers/<path>."""
+    "<root>.<i>.<path>", for a stacked root (`STACKED`), is layer i of the
+    stacked leaf at <root>/<path> (for `super`, <path> starts with the
+    block's name in the pattern, rec0, rec1, attn2)."""
     path = name.split(".")
-    if path[0] != "layers":
+    if path[0] not in STACKED:
         node = tree
         for part in path:
             node = node[part]
         return node
-    node = tree["layers"]
+    node = tree[path[0]]
     for part in path[2:]:
         node = node[part]
     return node[int(path[1])]
@@ -198,7 +206,7 @@ def load_lm_params(model: LM, params: dict) -> LM:
         with torch.no_grad():
             p.copy_(leaf)
     n_port = sum(1 for name, _ in model.named_parameters()
-                 if not name.startswith("layers.") or name.startswith("layers.0."))
+                 if name.split(".")[0] not in STACKED or name.split(".")[1] == "0")
     n_ref = sum(1 for _ in _leaves(params))
     if n_port != n_ref:
         raise ValueError(f"the reference tree has {n_ref} leaves, the port {n_port}")
@@ -209,8 +217,10 @@ def lm_params_from_reference(cfg: ModelConfig, params: dict, device=None) -> LM:
     """The port's `LM` holding the JAX package's parameters: `params` is the
     JAX tree (tok_embed, out_head, final_norm, and layers with a leading
     layer axis), as numpy arrays, anything `np.asarray` takes, or tensors
-    (a restored checkpoint's bfloat16 leaves).  The stacked layer axis is
-    split into the blocks; every weight keeps JAX's (in, out) layout, so no
+    (a restored checkpoint's bfloat16 leaves); the hybrid family's `super`
+    and `tail`, the encoder-decoder's `enc`, `enc_norm` and `dec` where the
+    config has them.  Each stacked layer axis is split into the blocks of
+    the root of its name; every weight keeps JAX's (in, out) layout, so no
     matrix is transposed.  Each leaf is cast to the parameter's dtype (bf16
     leaves go through fp32, exactly).  Raises if a leaf is missing, left
     over or of another shape.  On `device`, the card unless given."""
@@ -229,23 +239,24 @@ def _slots(module, prefix: str = ""):
 
 def _reference_tree(model: LM, flat: dict) -> dict:
     """The JAX package's tree of the LM, with the entry of each port
-    parameter name taken from `flat` (name -> tensor) and the layers'
-    entries stacked on a leading axis: tok_embed, out_head unless tied,
-    final_norm, layers {attn_norm, attn {...}, mlp_norm, mlp {...} or moe
-    {...}}, and mtp_proj, mtp_block, mtp_norm with the multi-token
-    prediction head; None where the config has no such parameter (the
-    non-parametric norms)."""
-    L = len(model.layers)
+    parameter name taken from `flat` (name -> tensor) and the entries of
+    each stacked root (`STACKED`) stacked on a leading axis: tok_embed,
+    out_head unless tied, final_norm, and layers {attn_norm, attn {...},
+    mlp_norm, mlp {...} or moe {...}} (ssm: {norm, ssm {...}}); super
+    {rec0, rec1, attn2} and tail (hybrid); enc, enc_norm and dec (encdec);
+    mtp_proj, mtp_block, mtp_norm with the multi-token prediction head;
+    None where the config has no such parameter (the non-parametric
+    norms)."""
     tree: dict = {}
     for name, p in _slots(model):
         parts = name.split(".")
-        if parts[0] == "layers":
+        if parts[0] in STACKED:
             if parts[1] != "0":
                 continue
-            path = ".".join(parts[2:])
-            parts = ["layers", *parts[2:]]
+            root, path = parts[0], ".".join(parts[2:])
+            parts = [root, *parts[2:]]
             leaf = None if p is None else torch.stack(
-                [flat[f"layers.{i}.{path}"].detach() for i in range(L)])
+                [flat[f"{root}.{i}.{path}"].detach() for i in range(len(getattr(model, root)))])
         else:
             leaf = None if p is None else flat[name].detach()
         node = tree

@@ -7,7 +7,8 @@
 // masked score is the finite -1e30 (causal: kpos <= qpos; with a window w
 // also kpos > qpos - w; and kpos < S for the ragged last tile); an online
 // softmax with fp32 running max, sum and accumulator; out = acc / max(l,
-// 1e-30) in q's dtype.  Any S >= 1; hd 32, 64, 96 or 128; bf16, fp16, fp32.
+// 1e-30) in q's dtype.  Any S >= 1, causal or not; hd 32, 64, 96, 128 or 256;
+// bf16, fp16, fp32.
 //
 // What bounds it: the multiply-adds.  A (b, h) pair needs 4 hd FLOPs per
 // unmasked (query, key) pair (q.k and p.v) but reads q, k, v and writes o
@@ -66,6 +67,10 @@
 //    as at 384, and setmaxnreg did not raise it for the consumers' code, so
 //    the design keeps a consumer within 168: one S tile, P and O (64 + 32
 //    + 64 registers) and no second S tile in flight.
+//  * hd 256 (recurrentgemma): O alone is 128 registers a consumer thread,
+//    so that kernel (`flash_tc256_kernel`, below) has no producer warp:
+//    256 threads under a ceiling of 255 registers, 64-key tiles, thread 0
+//    issuing the loads, one Q buffer; 192 KB of shared memory.
 //  * fp32: CUDA cores only (never TF32), so that it holds 2e-5 against the
 //    plain version.  One block of 8 warps per (b, h, 32-query tile); warp w
 //    owns rows w, w + 8, w + 16, w + 24, lane j owns key j of a 32-key tile,
@@ -233,6 +238,17 @@ template <> struct Wgmma<__nv_bfloat16> {
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "l"(a), "l"(b), "r"(scale_d));
   }
+  // d (64 x 64) = a . b (+ d if scale_d): a 64 x 16 and b 16 x 64 in shared memory, K-major.
+  static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
   // d (64 x N) += a . b: a 64 x 16 in registers, b 16 x N in shared memory, MN-major.
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
     asm volatile(
@@ -267,6 +283,17 @@ template <> struct Wgmma<__half> {
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
         "%64, %65, p, 1, 1, 0, 0;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(a), "l"(b), "r"(scale_d));
+  }
+  // d (64 x 64) = a . b (+ d if scale_d): a 64 x 16 and b 16 x 64 in shared memory, K-major.
+  static __device__ __forceinline__ void ss64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(a), "l"(b), "r"(scale_d));
   }
   static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
@@ -345,17 +372,20 @@ __device__ __forceinline__ void issue_pv(float (&o)[Geo<HD>::HDP / 2], uint32_t 
   wgmma_commit();
 }
 
-// Scale the scores of the tile at key k0 into the log2 domain, masking only
+// Scale the scores of the tile at key k0 (NS / 2 of a row's 2 NS keys a
+// thread: BK keys, or W_BK at hd 256) into the log2 domain, masking only
 // a tile that reaches past the causal diagonal of a row in [row_lo,
 // row_hi], below its window, or past S; update the running max m and sum l
 // of the thread's rows qpos[0..1] (the four lanes of a quad hold a row's
-// BK scores between them); turn the scores into p; return each row's
+// scores between them); turn the scores into p; return each row's
 // correction of the accumulator in corr.
-__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Shape& sh, int k0,
+template <int NS>
+__device__ __forceinline__ void online_softmax(float (&sc)[NS], const Shape& sh, int k0,
                                                int row_lo, int row_hi, const int (&qpos)[2],
                                                int tq, float scale_log2, float (&m)[2],
                                                float (&l)[2], float (&corr)[2]) {
-  const bool edge = (sh.causal && k0 + BK - 1 > row_lo) || k0 + BK > sh.S ||
+  constexpr int BKT = 2 * NS;
+  const bool edge = (sh.causal && k0 + BKT - 1 > row_lo) || k0 + BKT > sh.S ||
                     (sh.window > 0 && k0 <= row_hi - sh.window);
   if (edge) {
 #pragma unroll
@@ -364,7 +394,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Shape&
       const int hi = (sh.causal ? min(qpos[r], sh.S - 1) : sh.S - 1) - k0 - 2 * tq;
       const int lo = (sh.window > 0 ? qpos[r] - sh.window + 1 : 0) - k0 - 2 * tq;
 #pragma unroll
-      for (int j = 0; j < BK / 8; ++j)
+      for (int j = 0; j < BKT / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float& x = sc[4 * j + 2 * r + e];
@@ -373,13 +403,13 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Shape&
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) sc[i] *= scale_log2;
+    for (int i = 0; i < BKT / 2; ++i) sc[i] *= scale_log2;
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float mx = kNegInf;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    for (int j = 0; j < BKT / 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m[r], mx);
@@ -387,7 +417,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Shape&
     m[r] = m_new;
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int j = 0; j < BKT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float& x = sc[4 * j + 2 * r + e];
@@ -400,10 +430,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], const Shape&
 
 // P in wgmma's register-A layout: keys [16 kk, 16 kk + 16) are score
 // columns 2 kk and 2 kk + 1 of 8.
-template <typename T>
-__device__ __forceinline__ void pack_p(const float (&sc)[BK / 2], uint32_t (&p)[BK / 16][4]) {
+template <typename T, int NS>
+__device__ __forceinline__ void pack_p(const float (&sc)[NS], uint32_t (&p)[NS / 8][4]) {
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk)
+  for (int kk = 0; kk < NS / 8; ++kk)
 #pragma unroll
     for (int x = 0; x < 4; ++x) p[kk][x] = Wgmma<T>::pack(sc[8 * kk + 2 * x], sc[8 * kk + 2 * x + 1]);
 }
@@ -429,6 +459,7 @@ struct Item {
   int qt, h, b, t_lo, t_hi;
 };
 
+template <int BKT = BK>
 __device__ __forceinline__ bool unit_item(const Shape& sh, int u, int second, Item* it) {
   const int n_qt = (sh.S + BQ - 1) / BQ, n_pairs = (n_qt + 1) / 2;
   const int j = u % n_pairs, bh = u / n_pairs;
@@ -437,7 +468,7 @@ __device__ __forceinline__ bool unit_item(const Shape& sh, int u, int second, It
   it->h = bh % sh.H;
   it->b = bh / sh.H;
   const int q0 = it->qt * BQ;
-  tile_range(sh, q0, min(q0 + BQ, sh.S) - 1, BK, &it->t_lo, &it->t_hi);
+  tile_range(sh, q0, min(q0 + BQ, sh.S) - 1, BKT, &it->t_lo, &it->t_hi);
   return true;
 }
 
@@ -593,6 +624,183 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       }
     if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
   }
+}
+
+// ------------------------------------------------------------ hd 256, fp16 / bf16
+// recurrentgemma's local attention (hd 256, MQA).  At hd 128's tiling a
+// consumer would hold O (64 x 256 fp32: 128 registers), an S tile of 64 x
+// 128 (64) and P (32), far over the 168 registers ptxas keeps at 288
+// threads, and two Q buffers with two stages of 128-key K and V would take
+// 384 KB of shared memory.  So this kernel keeps the two consumer
+// warpgroups and drops the producer warp: 256 threads, a ceiling of 255
+// registers (O 128, S 32, P 16), 64-key tiles, and thread 0 issues the TMA
+// loads between its own tiles.  The two warpgroups walk the k/v tiles in
+// step, a __syncthreads ending each tile, so that the stage a tile freed is
+// the one the next tile's prefetch fills: tile t + 1 is in flight while
+// tile t computes.  One Q buffer (64 KB) and two stages of 32 + 32 KB: 192
+// KB of shared memory.  The item walk, the mask, the online softmax and the
+// epilogue are hd 128's.  O's 256 columns are two m64n128k16 products a
+// k-step, over V's boxes 0-1 and 2-3.
+constexpr int W_BK = 64;         // keys a k/v tile at hd 256
+constexpr int W_THREADS = 256;   // warpgroups 0 and 1 compute; thread 0 also loads
+
+struct Geo256 {
+  static constexpr int NB = 4;                      // boxes a row
+  static constexpr int QB = BQ * ROW;               // bytes of one box of the Q tile
+  static constexpr int KB = W_BK * ROW;             // ... of a K or V tile
+  static constexpr int Q_OFF = 0;                   // Q[box], one buffer
+  static constexpr int K_OFF = NB * QB;             // K[stage][box]
+  static constexpr int V_OFF = K_OFF + STAGES * NB * KB;
+  static constexpr int BAR_OFF = V_OFF + STAGES * NB * KB;
+  static constexpr int SMEM = BAR_OFF + 8 * (1 + 2 * STAGES) + 1024;   // + alignment slack
+};
+
+template <typename T>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_tc256_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap, Shape sh, float scale_log2) {
+  using G = Geo256;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;   // the swizzle's 1024-byte atoms
+  const uint32_t q_s = base + G::Q_OFF, k_s = base + G::K_OFF, v_s = base + G::V_OFF;
+  // Barriers: q_full, then k_full and v_full of each stage.
+  const uint32_t bars = base + G::BAR_OFF, q_full = bars;
+  const auto k_full = [&](int s) { return bars + 8 * (1 + s); };
+  const auto v_full = [&](int s) { return bars + 8 * (1 + STAGES + s); };
+  const int units = num_units(sh.B, sh.S, sh.H);
+  const bool loader = threadIdx.x == 0;
+
+  if (loader) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // k/v tile t of KV head kvh, batch b, into stage s.
+  const auto load_kv = [&](int t, int s, int kvh, int b) {
+    mbar_expect_tx(k_full(s), G::NB * G::KB);
+#pragma unroll
+    for (int c = 0; c < G::NB; ++c)
+      tma_load(k_s + (s * G::NB + c) * G::KB, &kmap, k_full(s), c * BOX, kvh, t * W_BK, b);
+    mbar_expect_tx(v_full(s), G::NB * G::KB);
+#pragma unroll
+    for (int c = 0; c < G::NB; ++c)
+      tma_load(v_s + (s * G::NB + c) * G::KB, &vmap, v_full(s), c * BOX, kvh, t * W_BK, b);
+  };
+
+  const int cw = threadIdx.x / 128;               // rows [64 cw, 64 cw + 64) of a tile
+  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32, g = lane / 4, tq = lane % 4;
+  float o[2][64], sc[W_BK / 2];
+  uint32_t p[W_BK / 16][4];
+#pragma unroll
+  for (int i = 0; i < W_BK / 2; ++i) sc[i] = 0.f;
+  int n = 0, it = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x)
+    for (int second = 0; second < 2; ++second) {
+      Item item;
+      if (!unit_item<W_BK>(sh, u, second, &item)) continue;
+      const int kvh = item.h / (sh.H / sh.KV);
+      // Every thread is done with the stages, and the last item's output
+      // store has read the Q buffer (its thread waited for that first).
+      __syncthreads();
+      if (loader) {
+        mbar_expect_tx(q_full, G::NB * G::QB);
+#pragma unroll
+        for (int c = 0; c < G::NB; ++c)
+          tma_load(q_s + c * G::QB, &qmap, q_full, c * BOX, item.h, item.qt * BQ, item.b);
+        load_kv(item.t_lo, it % STAGES, kvh, item.b);
+      }
+      const int row_lo = item.qt * BQ + 64 * cw, row_hi = min(row_lo + 63, sh.S - 1);
+      const int qpos[2] = {row_lo + 16 * warp + g, row_lo + 16 * warp + g + 8};
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, corr[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+
+      mbar_wait(q_full, n & 1);
+      for (int t = item.t_lo; t <= item.t_hi; ++t, ++it) {
+        const int s = it % STAGES;
+        const uint32_t phase = (it / STAGES) & 1;
+        // Tile t + 1 goes to the other stage, which tile t - 1 freed.
+        if (loader && t < item.t_hi) load_kv(t + 1, (it + 1) % STAGES, kvh, item.b);
+        mbar_wait(k_full(s), phase);
+        // S = Q K^T: 16 k-steps, 32 bytes apart along a box row.
+        reg_fence(sc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::NB * 4; ++kk) {
+          const uint32_t off = (kk % 4) * 32;
+          const uint64_t da = sw128_desc(q_s + (kk / 4) * G::QB + cw * 64 * ROW + off, 16);
+          const uint64_t db = sw128_desc(k_s + (s * G::NB + kk / 4) * G::KB + off, 16);
+          Wgmma<T>::ss64(sc, da, db, kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(sc);
+        online_softmax(sc, sh, t * W_BK, row_lo, row_hi, qpos, tq, scale_log2, m, l, corr);
+        rescale(o[0], corr);
+        rescale(o[1], corr);
+        pack_p<T>(sc, p);
+        mbar_wait(v_full(s), phase);
+        // O += P V: 4 k-steps of 16 rows, each over V's boxes 0-1 and 2-3.
+        reg_fence(o[0]);
+        reg_fence(o[1]);
+        reg_fence(p);
+        wgmma_fence();
+        const uint32_t vt = v_s + s * G::NB * G::KB;
+#pragma unroll
+        for (int kk = 0; kk < W_BK / 16; ++kk) {
+          Wgmma<T>::rs(o[0], p[kk], sw128_desc(vt + kk * 16 * ROW, G::KB));
+          Wgmma<T>::rs(o[1], p[kk], sw128_desc(vt + 2 * G::KB + kk * 16 * ROW, G::KB));
+        }
+        wgmma_commit();
+        wgmma_wait_all();
+        reg_fence(o[0]);
+        reg_fence(o[1]);
+        __syncthreads();          // stage s is free for tile t + 2
+      }
+
+      // Epilogue, as hd 128's: normalise, stage the rows in this
+      // warpgroup's 64 rows of the Q buffer, store them by TMA.
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float lsum = l[r];
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+        lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+        inv[r] = 1.f / fmaxf(lsum, 1e-30f);
+      }
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = 64 * cw + 16 * warp + g + 8 * r;
+          const uint32_t dst =
+              q_s + (c / 8) * G::QB + row * ROW + (((c % 8) ^ (row % 8)) << 4) + 4 * tq;
+          const int e = 4 * (c % 16) + 2 * r;
+          asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst),
+                       "r"(Wgmma<T>::pack(o[c / 16][e] * inv[r], o[c / 16][e + 1] * inv[r]))
+                       : "memory");
+        }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      if (threadIdx.x % 128 == 0 && row_lo < sh.S) {
+#pragma unroll
+        for (int bx = 0; bx < G::NB; ++bx)
+          tma_store(&omap, q_s + bx * G::QB + cw * 64 * ROW, bx * BOX, item.h, row_lo, item.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      }
+      ++n;
+    }
+  if (threadIdx.x % 128 == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // ------------------------------------------------------------------------ fp32
@@ -768,6 +976,34 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, cons
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_tc256(const void* q, const void* k, const void* v, void* o, const Shape& sh,
+                         cudaStream_t stream) {
+  constexpr int HD = 256;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return cudaErrorNotSupported;
+  const CUtensorMapDataType dt = std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap qm, km, vm, om;
+  if (!tensor_map(&qm, enc, dt, q, sh.B, sh.S, sh.H, HD, sh.qs_b, sh.qs_s, sh.qs_h, BQ) ||
+      !tensor_map(&km, enc, dt, k, sh.B, sh.S, sh.KV, HD, sh.ks_b, sh.ks_s, sh.ks_h, W_BK) ||
+      !tensor_map(&vm, enc, dt, v, sh.B, sh.S, sh.KV, HD, sh.ks_b, sh.ks_s, sh.ks_h, W_BK) ||
+      !tensor_map(&om, enc, dt, o, sh.B, sh.S, sh.H, HD, sh.qs_b, sh.qs_s, sh.qs_h, BQ / 2))
+    return cudaErrorInvalidValue;
+  const int smem = Geo256::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_tc256_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device, sms;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const int grid = min(sms, num_units(sh.B, sh.S, sh.H));   // persistent: one block an SM
+  const float scale_log2 = kLog2e / sqrtf((float)HD);
+  flash_tc256_kernel<T><<<grid, W_THREADS, smem, stream>>>(qm, km, vm, om, sh, scale_log2);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, const Shape& sh,
                        cudaStream_t stream) {
@@ -788,8 +1024,12 @@ cudaError_t launch_hd(int dtype, const void* q, const void* k, const void* v, vo
                       const Shape& sh, cudaStream_t stream) {
   switch (dtype) {
     case 0: return launch_f32<HD>(q, k, v, o, sh, stream);
-    case 1: return launch_tc<__nv_bfloat16, HD>(q, k, v, o, sh, stream);
-    case 2: return launch_tc<__half, HD>(q, k, v, o, sh, stream);
+    case 1:
+      if constexpr (HD == 256) return launch_tc256<__nv_bfloat16>(q, k, v, o, sh, stream);
+      else return launch_tc<__nv_bfloat16, HD>(q, k, v, o, sh, stream);
+    case 2:
+      if constexpr (HD == 256) return launch_tc256<__half>(q, k, v, o, sh, stream);
+      else return launch_tc<__half, HD>(q, k, v, o, sh, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -811,6 +1051,7 @@ extern "C" int fa_flash_attention(int dtype, int B, int S, int H, int KV, int hd
     case 64: return (int)launch_hd<64>(dtype, q, k, v, o, sh, st);
     case 96: return (int)launch_hd<96>(dtype, q, k, v, o, sh, st);
     case 128: return (int)launch_hd<128>(dtype, q, k, v, o, sh, st);
+    case 256: return (int)launch_hd<256>(dtype, q, k, v, o, sh, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

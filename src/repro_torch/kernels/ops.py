@@ -375,7 +375,7 @@ def face_neighbor(anchor: torch.Tensor, level: torch.Tensor, stype: torch.Tensor
     return outs
 
 
-FLASH_HEAD_DIMS = (32, 64, 96, 128)
+FLASH_HEAD_DIMS = (32, 64, 96, 128, 256)
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..models.config import ModelConfig, ShapeConfig
-from ..models.lm import init_params, loss_fn
+from ..models.lm import check_trained, init_params, loss_fn
 from ..optim import (adamw_update, apply_updates, clip_by_global_norm, cosine_schedule,
                      init_opt_state)
 
@@ -52,12 +52,9 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
     """train_step(params: LM, opt_state, batch, step: int) -> (params,
     opt_state, metrics): params updated in place, metrics {"ce", "aux",
     "loss", "grad_norm", "lr"} as 0-d fp32 tensors (loss, ce and aux the
-    means over the microbatches)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: the MoE family's training (its aux loss, the "
-                                  "multi-token-prediction loss, Adafactor in the step) is not "
-                                  "ported yet (ROADMAP.md §1, item 4 (slice 7c): the MoE "
-                                  "family's training)")
+    means over the microbatches).  Raises NotImplementedError for a family
+    whose training is not ported (`models.lm.check_trained`)."""
+    check_trained(cfg)
     if cfg.optimizer != "adamw":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.optimizer} in the train step: Adafactor's factored moments are "

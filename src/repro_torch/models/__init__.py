@@ -1,5 +1,5 @@
-"""The LM family of the port: configs, layers and the dense decoder, with its
-training loss.
+"""The LM family of the port: configs, layers and the LM of every family,
+with the dense family's training loss.
 
 Exports what the JAX package's `repro.models` does."""
 

@@ -2,15 +2,17 @@
 
 The port of the JAX package's `repro.models.layers`, with its type
 promotions: fp32 inside the norms, fp32 RoPE angles applied and cast back,
-matmuls cast to the input's dtype, fp32 inside attention.  Causal
-attention with Sq == Sk from position 0 (every prefill and training
-forward from position 0) goes through the attention kernel under autograd
+matmuls cast to the input's dtype, fp32 inside attention.  Attention with
+Sq == Sk from position 0 at the default scale, causal or not (every
+prefill and training forward from position 0, and an encoder's
+self-attention), goes through the attention kernel under autograd
 (`kernels.ops.FlashAttentionFn`) in place of the JAX package's blocked jnp
-paths, where its head dims lie in the kernel's domain; decode, prefill
-past position 0, the ring cache's writes shorter than the ring, and both
-forms of MLA attend with `_plain_attention` or `_ring_decode_attend`, as
-the JAX package does.  Weights keep the JAX layout (in, out).  Unlike JAX,
-`gqa_attention` and `mla_attention` write the cache in place.
+and plain paths, where its head dims lie in the kernel's domain; decode,
+prefill past position 0, the ring cache's writes shorter than the ring,
+cross attention (Sq != Sk) and both forms of MLA attend with
+`_plain_attention` or `_ring_decode_attend`, as the JAX package does.
+Weights keep the JAX layout (in, out).  Unlike JAX, `gqa_attention` and
+`mla_attention` write the cache in place.
 """
 
 from __future__ import annotations
@@ -118,17 +120,18 @@ def attention_core(q, k, v, *, causal: bool = True, window=None, q_offset: int =
     (B, Sk, KV, vd).  The attention kernel's function, and so its path
     through `kernels.ops.FlashAttentionFn` (the kernel, or on a CPU tensor
     its plain version, under autograd with the plain backward, so training
-    gets attention's gradient on both devices), is this shape rule: causal,
-    Sq == Sk from position 0 (q_offset 0), the default scale 1/sqrt(hd),
-    and one head dim for q, k and v (a head dim outside
-    `kops.FLASH_HEAD_DIMS` raises there).  Anything else goes to
-    `_plain_attention`: decode and prefill past position 0, MLA's expanded
-    form (q and k 192 wide, v 128) and its absorbed form (an explicit
-    scale, v narrower than k)."""
+    gets attention's gradient on both devices), is this shape rule: Sq ==
+    Sk from position 0 (q_offset 0), causal or not (an encoder's
+    self-attention), the default scale 1/sqrt(hd), and one head dim for q,
+    k and v (a head dim outside `kops.FLASH_HEAD_DIMS` raises there).
+    Anything else goes to `_plain_attention`: decode and prefill past
+    position 0, cross attention (Sq != Sk), MLA's expanded form (q and k
+    192 wide, v 128) and its absorbed form (an explicit scale, v narrower
+    than k)."""
     hd = q.shape[-1]
-    if (causal and q.shape[1] == k.shape[1] and q_offset == 0 and scale is None
+    if (q.shape[1] == k.shape[1] and q_offset == 0 and scale is None
             and k.shape[-1] == v.shape[-1] == hd):
-        return kops.FlashAttentionFn.apply(q, k, v, True, window)
+        return kops.FlashAttentionFn.apply(q, k, v, causal, window)
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     return _plain_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
                             scale=scale)
@@ -137,8 +140,13 @@ def attention_core(q, k, v, *, causal: bool = True, window=None, q_offset: int =
 # --------------------------------------------------------------- GQA layer
 def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tensor,
                   cache: dict | None = None, cache_pos: int | None = None,
-                  causal: bool = True, window=None):
+                  causal: bool = True, window=None, kv_override=None):
     """Grouped-query attention with RoPE, optional qk-norm and window.
+
+    kv_override: (k, v), each (B, Sk, KV, hd), for cross attention (the
+    whisper decoder over its encoder's output): taken as they are (no
+    k-norm, and no RoPE on q or k), no cache, attended through
+    `attention_core` (plain for Sq != Sk, as the JAX package's).
 
     cache: dict(k=(B, C, KV, hd), v=...), written in place and returned.
     - A linear cache: the new k and v go to [cache_pos, cache_pos + S).
@@ -162,6 +170,12 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tens
     B, S, _D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     q = dense(x, p["wq"]).reshape(B, S, H, hd)
+    if kv_override is not None:
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        k, v = kv_override
+        out = attention_core(q, k, v, causal=causal, window=window)
+        return dense(out.reshape(B, S, H * hd), p["wo"]), cache
     k = dense(x, p["wk"]).reshape(B, S, KV, hd)
     v = dense(x, p["wv"]).reshape(B, S, KV, hd)
     if cfg.qk_norm:

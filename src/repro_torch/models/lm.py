@@ -1,13 +1,21 @@
-"""The decoder LM: parameters, cache, forward and decode.
+"""The LM of every family: parameters, cache, forward and decode.
 
-The port of the decoder part of the JAX package's `repro.models.lm`: the
-dense family (llama-style decoders: qwen3 with qk-norm, olmo with the
-non-parametric LayerNorm, phi3, deepseek-coder) and the moe family
-(mixtral: top-2 MoE over 8 experts, GQA with a sliding window and its ring
-cache; deepseek-v3: MLA attention, top-8 MoE over 256 routed experts and a
-shared one, and the multi-token-prediction head's parameters).  The JAX
-package stacks the layers on a leading axis and scans them; here `LM` is
-an `nn.Module` holding one `Block` a layer in an `nn.ModuleList`, and
+The port of the JAX package's `repro.models.lm`: the dense family
+(llama-style decoders: qwen3 with qk-norm, olmo with the non-parametric
+LayerNorm, phi3, deepseek-coder), the moe family (mixtral: top-2 MoE over 8
+experts, GQA with a sliding window and its ring cache; deepseek-v3: MLA
+attention, top-8 MoE over 256 routed experts and a shared one, and the
+multi-token-prediction head's parameters), ssm (mamba2: a stack of Mamba-2
+blocks, `models.ssm`), hybrid (recurrentgemma: super-blocks of the
+pattern (rec, rec, attn) and a tail of rec blocks, the RG-LRU of
+`models.rglru` and local attention over a ring of `cfg.rglru.window`
+slots), encdec (whisper: a non-causal encoder over precomputed frame
+embeddings, `batch["frames"]`, and a decoder with cross attention) and
+vlm (pixtral: precomputed patch embeddings, `batch["patches"]`, prepended
+to the tokens).  The JAX package stacks the layers on a leading axis and
+scans them; here `LM` is an `nn.Module` holding one `Block` a layer in an
+`nn.ModuleList` under the JAX tree's stacked root (`layers`; `super`, an
+`nn.ModuleDict` a super-block, and `tail`; `enc` and `dec`), and
 `forward` / `decode_step` loop over them.  Parameters are made on their
 device from a seeded `torch.Generator`, with the JAX package's
 distributions (normal over sqrt(first axis), the embedding at 0.02, norm
@@ -15,10 +23,7 @@ scales at zero); they keep JAX's (in, out) layout and are made with
 `requires_grad=False`, so serving builds no graph: training turns
 gradients on explicitly (`params.requires_grad_()`, as
 `launch.train.make_train_step` does).  The cache keeps JAX's stacked
-layout, {"layers": {"k": (L, B, C, KV, hd), "v": ...}} (with a window
-shorter than the cache, a ring of C = window slots and "pos" (L, B, C)
-int32; with MLA, {"layers": {"lat": (L, B, C, kv_lora + rope)}}), and is
-written in place.
+layout (`init_cache`) and is written in place.
 
 Training: `loss_fn` (next-token cross-entropy through `chunked_ce`, which
 never holds the (B, S, vocab) logits at once) and `cfg.remat`, read where
@@ -29,10 +34,10 @@ a forward records a graph: "none" keeps every activation, "block" and
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item (`ROADMAP.md` §1):
-- item 4 (slice 7c): the ssm, hybrid (RG-LRU), encdec and vlm families
-  (`check_ported`), and the moe family's training: `loss_fn` on a moe
-  config (the aux loss under autograd), the multi-token-prediction loss,
-  and Adafactor in the train step (`launch.train.make_train_step`);
+- item 4 (slice 7c): the training of every family but the dense one:
+  `loss_fn` and `launch.train.make_train_step` on a moe (the aux loss
+  under autograd, the multi-token-prediction loss, Adafactor), ssm,
+  hybrid, encdec or vlm config;
 - item 6 (the launch tooling): `remat="dots"`, the training-side
   activation sharding (`set_activation_spec`), and the all-to-all MoE
   dispatch (`moe_a2a`), which needs a mesh.
@@ -50,25 +55,44 @@ from ..core.types import resolve_device
 from . import layers as ly
 from .config import ModelConfig
 from .moe import moe_layer
+from .rglru import rglru_layer
+from .ssm import mamba2_layer
 
 __all__ = ["LM", "Block", "init_params", "init_cache", "embed", "unembed", "forward",
-           "decode_step", "chunked_ce", "loss_fn", "check_ported", "set_activation_spec"]
+           "decode_step", "chunked_ce", "loss_fn", "check_ported", "check_trained",
+           "decoder_kind", "set_activation_spec"]
 
 _ITEM4 = "ROADMAP.md §1, item 4 (slice 7c)"
+_FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot run yet: the
-    ssm, hybrid, encdec and vlm families (item 4 of ROADMAP.md §1).  The
-    dense and moe families run: GQA (qk-norm, windows and their ring
-    cache) or MLA, SwiGLU or sort-based MoE.  What of a ported config
-    still raises is named where it does: the moe family's training
-    (`loss_fn`, `launch.train.make_train_step`; item 4), `remat="dots"`,
+    """Raise ValueError for a family the JAX package does not have.  Every
+    family of it serves: GQA (qk-norm, windows and their ring cache) or
+    MLA, SwiGLU or sort-based MoE, Mamba-2, RG-LRU with local attention,
+    encoder-decoder, patch prefixes.  What of a config still raises is
+    named where it does: training outside the dense family (`loss_fn`,
+    `launch.train.make_train_step`; item 4), `remat="dots"`,
     `set_activation_spec` and `moe_a2a` (item 6)."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is not ported yet "
-                                  f"({_ITEM4}: the SSM, RG-LRU, encoder-decoder and VLM "
-                                  "families)")
+    if cfg.family not in _FAMILIES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not one of {_FAMILIES}")
+
+
+def check_trained(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError, naming ROADMAP.md §1 item 4, for a family
+    whose training is not ported (no family trains without a parity test
+    of its gradients against `jax.grad`)."""
+    if cfg.family == "moe":
+        raise NotImplementedError(f"{cfg.name}: the MoE family's training (its aux loss, the "
+                                  "multi-token-prediction loss, Adafactor in the step) is not "
+                                  f"ported yet ({_ITEM4}: the MoE family's training)")
+    if cfg.mtp_depth:
+        raise NotImplementedError(f"{cfg.name}: the multi-token-prediction loss is not ported "
+                                  f"yet ({_ITEM4}: the MoE family's training)")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's training is not "
+                                  f"ported yet ({_ITEM4}: the training of the ssm, hybrid, "
+                                  "encdec and vlm families)")
 
 
 def set_activation_spec(spec) -> None:
@@ -116,7 +140,10 @@ class _Init:
         return _param(out)
 
     def zeros(self, n: int) -> nn.Parameter:
-        return _param(torch.zeros(n, dtype=torch.float32, device=self.device))
+        return self.full(n, 0.0)
+
+    def full(self, n: int, value: float) -> nn.Parameter:
+        return _param(torch.full((n,), value, dtype=torch.float32, device=self.device))
 
 
 def _attn_params(cfg: ModelConfig, init: _Init) -> dict:
@@ -143,6 +170,31 @@ def _mla_params(cfg: ModelConfig, init: _Init) -> dict:
             "wo": init.mat((H * m.v_head_dim, D))}
 
 
+def _ssm_params(cfg: ModelConfig, init: _Init) -> dict:
+    """Mamba-2's in_proj (D, 2 din + 2N + H), conv_w (d_conv, din + 2N)
+    fp32 at 0.5, dt_bias and a_log zeros, d_skip ones (all (H,) fp32) and
+    out_proj (din, D) (the JAX package's `_ssm_init`)."""
+    s, D = cfg.ssm, cfg.d_model
+    din = s.expand * D
+    H, N = din // s.head_dim, s.d_state
+    return {"in_proj": init.mat((D, 2 * din + 2 * N + H)),
+            "conv_w": init.mat((s.d_conv, din + 2 * N), scale=0.5, dtype=torch.float32),
+            "dt_bias": init.zeros(H), "a_log": init.zeros(H), "d_skip": init.full(H, 1.0),
+            "out_proj": init.mat((din, D))}
+
+
+def _rec_params(cfg: ModelConfig, init: _Init) -> dict:
+    """The RG-LRU's in_proj and gate_proj (D, W), conv_w (conv_width, W)
+    fp32 at 0.5, w_r and w_i (W, W), lam (W,) fp32 at 0.5 and out_proj (W,
+    D) (the JAX package's `_rec_init`)."""
+    r, D = cfg.rglru, cfg.d_model
+    W = r.lru_width or D
+    return {"in_proj": init.mat((D, W)), "gate_proj": init.mat((D, W)),
+            "conv_w": init.mat((r.conv_width, W), scale=0.5, dtype=torch.float32),
+            "w_r": init.mat((W, W)), "w_i": init.mat((W, W)), "lam": init.full(W, 0.5),
+            "out_proj": init.mat((W, D))}
+
+
 def _moe_params(cfg: ModelConfig, init: _Init) -> dict:
     """The router (fp32, (D, E)), the expert stacks (E, D, F) and (E, F, D),
     and the shared experts' with `num_shared`, at the JAX package's
@@ -161,25 +213,50 @@ def _moe_params(cfg: ModelConfig, init: _Init) -> dict:
     return p
 
 
-class Block(nn.Module):
-    """One decoder block: pre-norm attention (GQA, or MLA with `cfg.mla`)
-    and a pre-norm SwiGLU, or MoE with `cfg.moe`, each residual.
-    Parameters mirror the JAX block's tree: `attn` (GQA: wq, wk, wv, wo,
-    and q_norm / k_norm with qk-norm; MLA: q_down, q_down_norm, q_up,
-    kv_down, kv_down_norm, k_up, v_up, wo), `mlp` (w_gate, w_up, w_down) or
-    `moe` (router, experts_*, shared_*), `attn_norm` and `mlp_norm` (None
-    for the non-parametric norm)."""
+def decoder_kind(cfg: ModelConfig) -> str:
+    """The block kind of a `layers` stack: ssm, mla or attn."""
+    if cfg.family == "ssm":
+        return "ssm"
+    return "mla" if cfg.mla is not None else "attn"
 
-    def __init__(self, cfg: ModelConfig, init: _Init):
+
+class Block(nn.Module):
+    """One block of `kind`, its parameters mirroring the JAX block's tree:
+    - attn, mla: pre-norm attention (GQA `attn`: wq, wk, wv, wo, and
+      q_norm / k_norm with qk-norm; MLA `attn`: q_down, q_down_norm, q_up,
+      kv_down, kv_down_norm, k_up, v_up, wo) and a pre-norm SwiGLU `mlp`
+      (w_gate, w_up, w_down), or MoE `moe` (router, experts_*, shared_*)
+      with `cfg.moe`, each residual; `attn_norm` and `mlp_norm` (None for
+      the non-parametric norm);
+    - attn_local (the hybrid's attention, at `cfg.rglru.window`) and enc
+      (the encoder's, non-causal): attn's parameters, with `mlp`;
+    - dec: attn's, and `cross_norm` and `cross` (wq, wk, wv, wo: attention
+      over the encoder's output), with `mlp`;
+    - rec: `attn_norm`, the RG-LRU `rec` (in_proj, gate_proj, conv_w,
+      w_r, w_i, lam, out_proj), `mlp_norm` and `mlp`;
+    - ssm: `norm` and the Mamba-2 `ssm` (in_proj, conv_w, dt_bias, a_log,
+      d_skip, out_proj)."""
+
+    def __init__(self, cfg: ModelConfig, init: _Init, kind: str):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.kind = cfg, kind
         D = cfg.d_model
-        parametric = not cfg.nonparametric_norm
-        self.register_parameter("attn_norm", init.zeros(D) if parametric else None)
-        self.attn = nn.ParameterDict(_mla_params(cfg, init) if cfg.mla is not None
-                                     else _attn_params(cfg, init))
-        self.register_parameter("mlp_norm", init.zeros(D) if parametric else None)
-        if cfg.moe is not None:
+        norm = (lambda: None) if cfg.nonparametric_norm else (lambda: init.zeros(D))
+        if kind == "ssm":
+            self.register_parameter("norm", norm())
+            self.ssm = nn.ParameterDict(_ssm_params(cfg, init))
+            return
+        self.register_parameter("attn_norm", norm())
+        if kind == "rec":
+            self.rec = nn.ParameterDict(_rec_params(cfg, init))
+        else:
+            self.attn = nn.ParameterDict(_mla_params(cfg, init) if kind == "mla"
+                                         else _attn_params(cfg, init))
+        if kind == "dec":
+            self.register_parameter("cross_norm", norm())
+            self.cross = nn.ParameterDict(_attn_params(cfg, init))
+        self.register_parameter("mlp_norm", norm())
+        if cfg.moe is not None and kind in ("attn", "mla"):
             self.moe = nn.ParameterDict(_moe_params(cfg, init))
         else:
             self.mlp = nn.ParameterDict({"w_gate": init.mat((D, cfg.d_ff)),
@@ -187,28 +264,61 @@ class Block(nn.Module):
                                          "w_down": init.mat((cfg.d_ff, D))})
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor, cache: dict | None,
-                cache_pos: int):
-        """Returns (x, the MoE layer's aux loss, or None without MoE)."""
-        cfg = self.cfg
+                cache_pos: int, enc_out: torch.Tensor | None = None):
+        """Returns (x, the MoE layer's aux loss, or None without MoE).  A
+        dec block's cross attention reads k and v from `enc_out` (B, Se, D)
+        where given, writing them into cache["cross_k"] / ["cross_v"] with a
+        cache, else from the cache."""
+        cfg, kind = self.cfg, self.kind
+        if kind == "ssm":
+            h, _ = mamba2_layer(cfg, self.ssm, ly.norm(cfg, self.norm, x), cache=cache)
+            return x + h, None
         h_in = ly.norm(cfg, self.attn_norm, x)
-        if cfg.mla is not None:
+        if kind == "rec":
+            h, _ = rglru_layer(cfg, self.rec, h_in, cache=cache)
+        elif kind == "mla":
             h, _ = ly.mla_attention(cfg, self.attn, h_in, positions=positions, cache=cache,
                                     cache_pos=cache_pos)
         else:
-            h, _ = ly.gqa_attention(cfg, self.attn, h_in, positions=positions, cache=cache,
-                                    cache_pos=cache_pos, window=cfg.window)
+            window = cfg.rglru.window if kind == "attn_local" else cfg.window
+            self_cache = cache["self"] if kind == "dec" and cache is not None else cache
+            h, _ = ly.gqa_attention(cfg, self.attn, h_in, positions=positions, cache=self_cache,
+                                    cache_pos=cache_pos, causal=kind != "enc", window=window)
         x = x + h
+        if kind == "dec":
+            x = x + self._cross(x, cache, enc_out)
         h_in = ly.norm(cfg, self.mlp_norm, x)
-        if cfg.moe is None:
+        if cfg.moe is None or kind not in ("attn", "mla"):
             return x + ly.swiglu(self.mlp, h_in), None
         h, aux = moe_layer(cfg, self.moe, h_in)
         return x + h, aux
 
+    def _cross(self, x: torch.Tensor, cache: dict | None, enc_out: torch.Tensor | None):
+        cfg = self.cfg
+        if enc_out is None:
+            k, v = cache["cross_k"], cache["cross_v"]
+        else:
+            B, Se, _D = enc_out.shape
+            shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
+            k = ly.dense(enc_out, self.cross["wk"]).reshape(shape)
+            v = ly.dense(enc_out, self.cross["wv"]).reshape(shape)
+            if cache is not None:
+                cache["cross_k"].copy_(k)
+                cache["cross_v"].copy_(v)
+        h, _ = ly.gqa_attention(cfg, self.cross, ly.norm(cfg, self.cross_norm, x), positions=None,
+                                causal=False, kv_override=(k, v))
+        return h
+
 
 class LM(nn.Module):
-    """The decoder: `tok_embed` (vocab, d), `out_head` (d, vocab) unless
-    the embeddings are tied, `final_norm`, `layers`, one `Block` a layer,
-    and with `cfg.mtp_depth` the multi-token-prediction head's `mtp_proj`
+    """The model: `tok_embed` (vocab, d), `out_head` (d, vocab) unless the
+    embeddings are tied, `final_norm`, and the blocks under the JAX tree's
+    stacked roots: `layers` (one `Block` a layer: attn, mla or ssm); for
+    the hybrid family `super` (one `nn.ModuleDict` a super-block, a
+    `Block` for each entry of `cfg.rglru.pattern`, named "<kind><i>":
+    rec0, rec1, attn2) and `tail` (the rec blocks past the last whole
+    super-block); for encdec `enc` (non-causal), `enc_norm` and `dec`.
+    With `cfg.mtp_depth` also the multi-token-prediction head's `mtp_proj`
     (2d, d), `mtp_block` and `mtp_norm` (held for the JAX package's tree;
     serving does not run them).  Built from `seed` on `device` (the card
     unless given)."""
@@ -218,17 +328,30 @@ class LM(nn.Module):
         check_ported(cfg)
         self.cfg = cfg
         init = _Init(seed, resolve_device(device), _dt(cfg))
+        norm = (lambda: None) if cfg.nonparametric_norm else (lambda: init.zeros(cfg.d_model))
         self.tok_embed = init.mat((cfg.vocab_size, cfg.d_model), scale=0.02)
         self.register_parameter(
             "out_head", None if cfg.tie_embeddings else init.mat((cfg.d_model, cfg.vocab_size)))
-        self.register_parameter(
-            "final_norm", None if cfg.nonparametric_norm else init.zeros(cfg.d_model))
-        self.layers = nn.ModuleList(Block(cfg, init) for _ in range(cfg.num_layers))
+        self.register_parameter("final_norm", norm())
+        if cfg.family == "hybrid":
+            pat = cfg.rglru.pattern
+            nb, rem = divmod(cfg.num_layers, len(pat))
+            self.super = nn.ModuleList(
+                nn.ModuleDict({f"{k}{i}": Block(cfg, init, "rec" if k == "rec" else "attn_local")
+                               for i, k in enumerate(pat)}) for _ in range(nb))
+            if rem:
+                self.tail = nn.ModuleList(Block(cfg, init, "rec") for _ in range(rem))
+        elif cfg.family == "encdec":
+            self.enc = nn.ModuleList(Block(cfg, init, "enc") for _ in range(cfg.encoder_layers))
+            self.register_parameter("enc_norm", norm())
+            self.dec = nn.ModuleList(Block(cfg, init, "dec") for _ in range(cfg.num_layers))
+        else:
+            self.layers = nn.ModuleList(Block(cfg, init, decoder_kind(cfg))
+                                        for _ in range(cfg.num_layers))
         if cfg.mtp_depth:
             self.mtp_proj = init.mat((2 * cfg.d_model, cfg.d_model))
-            self.mtp_block = Block(cfg, init)
-            self.register_parameter(
-                "mtp_norm", None if cfg.nonparametric_norm else init.zeros(cfg.d_model))
+            self.mtp_block = Block(cfg, init, decoder_kind(cfg))
+            self.register_parameter("mtp_norm", norm())
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
@@ -241,27 +364,63 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype 
                device=None) -> dict:
     """A zeroed decode cache in the model's dtype unless given, on `device`
     (the card unless given; "meta" for shapes only), stacked per layer as
-    the JAX package's `init_cache`: {"layers": {"k", "v"}} each
-    (L, batch, C, KV, hd), C = min(cache_len, window) with a window; with a
-    window shorter than cache_len also "pos" (L, batch, C) int32, filled
-    with -1 (the ring); with MLA {"layers": {"lat": (L, batch, cache_len,
-    kv_lora + rope)}}."""
+    the JAX package's `init_cache`.  Attention: {"k", "v"} each (L, batch,
+    C, KV, hd), C = min(cache_len, window) with a window, and with a window
+    shorter than cache_len also "pos" (L, batch, C) int32 filled with -1
+    (the ring); with MLA {"lat": (L, batch, cache_len, kv_lora + rope)}.
+    By family:
+    - dense, moe, vlm: {"layers": attention's};
+    - ssm: {"layers": {"conv" (L, batch, d_conv - 1, din + 2N), "state"
+      (L, batch, H, P, N) fp32}};
+    - hybrid: {"super": {"rec<i>": {"conv" (nb, batch, conv_width - 1, W),
+      "h" (nb, batch, W) fp32}, "attn<i>": attention's at
+      `cfg.rglru.window`}, "tail": rec's (rem, ...) with a tail};
+    - encdec: {"dec": {"self": attention's, "cross_k", "cross_v" (L,
+      batch, encoder_seq, KV, hd)}}."""
     check_ported(cfg)
     dev = resolve_device(device)
     dt = dtype or _dt(cfg)
+    KV, hd, D = cfg.num_kv_heads, cfg.resolved_head_dim, cfg.d_model
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    def attn(n: int, window) -> dict:
+        C = min(cache_len, window) if window else cache_len
+        c = {"k": zeros(n, batch, C, KV, hd), "v": zeros(n, batch, C, KV, hd)}
+        if window and cache_len > window:
+            c["pos"] = torch.full((n, batch, C), -1, dtype=torch.int32, device=dev)
+        return c
+
     L = cfg.num_layers
+    if cfg.family == "ssm":
+        s = cfg.ssm
+        din = s.expand * D
+        return {"layers": {"conv": zeros(L, batch, s.d_conv - 1, din + 2 * s.d_state),
+                           "state": zeros(L, batch, din // s.head_dim, s.head_dim, s.d_state,
+                                          dtype=torch.float32)}}
+    if cfg.family == "hybrid":
+        r = cfg.rglru
+        W = r.lru_width or D
+        nb, rem = divmod(L, len(r.pattern))
+
+        def rec(n: int) -> dict:
+            return {"conv": zeros(n, batch, r.conv_width - 1, W),
+                    "h": zeros(n, batch, W, dtype=torch.float32)}
+
+        out = {"super": {f"{k}{i}": rec(nb) if k == "rec" else attn(nb, r.window)
+                         for i, k in enumerate(r.pattern)}}
+        if rem:
+            out["tail"] = rec(rem)
+        return out
+    if cfg.family == "encdec":
+        cross = (L, batch, cfg.encoder_seq, KV, hd)
+        return {"dec": {"self": attn(L, None), "cross_k": zeros(*cross),
+                        "cross_v": zeros(*cross)}}
     if cfg.mla is not None:
         width = cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
-        return {"layers": {"lat": torch.zeros((L, batch, cache_len, width), dtype=dt,
-                                              device=dev)}}
-    window = cfg.window
-    C = min(cache_len, window) if window else cache_len
-    shape = (L, batch, C, cfg.num_kv_heads, cfg.resolved_head_dim)
-    layers = {"k": torch.zeros(shape, dtype=dt, device=dev),
-              "v": torch.zeros(shape, dtype=dt, device=dev)}
-    if window and cache_len > window:
-        layers["pos"] = torch.full((L, batch, C), -1, dtype=torch.int32, device=dev)
-    return {"layers": layers}
+        return {"layers": {"lat": zeros(L, batch, cache_len, width)}}
+    return {"layers": attn(L, cfg.window)}
 
 
 def embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:
@@ -292,35 +451,84 @@ def _remat(cfg: ModelConfig, params: LM, cache: dict | None) -> bool:
     return cfg.remat != "none"
 
 
-def _run_layers(params: LM, x: torch.Tensor, positions: torch.Tensor, cache: dict | None,
-                cache_pos: int):
-    """(x after every block, the summed aux loss of the MoE layers, 0-d
-    fp32, or None without MoE)."""
+def _layer(cache, i: int):
+    """Layer i's entries of a stacked cache (views: written in place)."""
+    if cache is None or isinstance(cache, torch.Tensor):
+        return None if cache is None else cache[i]
+    return {name: _layer(t, i) for name, t in cache.items()}
+
+
+def _run_stack(params: LM, blocks, x: torch.Tensor, positions: torch.Tensor,
+               cache: dict | None, cache_pos: int, enc_out: torch.Tensor | None = None):
+    """x after each block of `blocks` in turn, layer i reading and writing
+    layer i of the stacked `cache`; and the summed aux loss of the MoE
+    layers (0-d fp32), or None without MoE."""
     remat = _remat(params.cfg, params, cache)
     aux = None
-    for i, block in enumerate(params.layers):
+    for i, block in enumerate(blocks):
         if remat:
-            x, a = checkpoint(block, x, positions, None, cache_pos, use_reentrant=False)
+            x, a = checkpoint(block, x, positions, None, cache_pos, enc_out, use_reentrant=False)
         else:
-            lc = None if cache is None else {n: t[i] for n, t in cache["layers"].items()}
-            x, a = block(x, positions, lc, cache_pos)
+            x, a = block(x, positions, _layer(cache, i), cache_pos, enc_out)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
 
 
+def _run_hybrid(params: LM, x: torch.Tensor, positions: torch.Tensor, cache: dict | None,
+                cache_pos: int) -> torch.Tensor:
+    """The hybrid family's blocks: each super-block's in pattern order, then
+    the tail's."""
+    remat = _remat(params.cfg, params, cache)
+    for j, sup in enumerate(params.super):
+        for name, block in sup.items():
+            if remat:
+                x, _ = checkpoint(block, x, positions, None, cache_pos, use_reentrant=False)
+            else:
+                x, _ = block(x, positions, None if cache is None else _layer(cache["super"][name], j),
+                             cache_pos)
+    if hasattr(params, "tail"):
+        x, _ = _run_stack(params, params.tail, x, positions,
+                          None if cache is None else cache["tail"], cache_pos)
+    return x
+
+
+def _positions(B: int, S: int, start: int, device) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S) + start
+
+
 def forward(cfg: ModelConfig, params: LM, batch: dict, cache: dict | None = None,
             cache_pos: int = 0):
-    """Full-sequence forward (prefill): batch["tokens"] (B, S).  With a
-    cache, k and v of positions [cache_pos, cache_pos + S) are written into
-    it in place.  Returns (hidden (B, S, D), the MoE layers' summed aux
-    loss (0-d fp32; 0.0 without MoE), cache)."""
+    """Full-sequence forward (prefill): batch["tokens"] (B, S); for encdec
+    batch["frames"] (B, Se, D), the encoder's input (run non-causal, RoPE
+    on the frame positions 0 ... Se - 1); for vlm batch["patches"] (B, P,
+    D), prepended to the token embeddings, positions 0 ... P + S - 1 (from
+    0 whatever cache_pos, as the JAX package).  With a cache, the positions
+    [cache_pos, cache_pos + S) (+ P) are written into it in place, and an
+    encdec prefill writes the cross attention's k and v.  Returns (hidden
+    (B, S (+ P), D), the MoE layers' summed aux loss (0-d fp32; 0.0
+    without MoE), cache)."""
     tokens = batch["tokens"]
     B, S = tokens.shape
+    dev = tokens.device
     x = embed(cfg, params, tokens)
-    positions = (torch.arange(S, dtype=torch.int32, device=tokens.device)[None].expand(B, S)
-                 + cache_pos)
-    x, aux = _run_layers(params, x, positions, cache, cache_pos)
+    positions = _positions(B, S, cache_pos, dev)
+    aux = None
+    if cfg.family == "encdec":
+        enc_x = batch["frames"].to(_dt(cfg))
+        enc_out, _ = _run_stack(params, params.enc, enc_x, _positions(B, enc_x.shape[1], 0, dev),
+                                None, 0)
+        enc_out = ly.norm(cfg, params.enc_norm, enc_out)
+        x, aux = _run_stack(params, params.dec, x, positions,
+                            None if cache is None else cache["dec"], cache_pos, enc_out)
+    elif cfg.family == "hybrid":
+        x = _run_hybrid(params, x, positions, cache, cache_pos)
+    else:
+        if cfg.family == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(_dt(cfg)), x], dim=1)
+            positions = _positions(B, x.shape[1], 0, dev)
+        x, aux = _run_stack(params, params.layers, x, positions,
+                            None if cache is None else cache["layers"], cache_pos)
     x = ly.norm(cfg, params.final_norm, x)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -328,13 +536,19 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, cache: dict | None = None
 
 
 def decode_step(cfg: ModelConfig, params: LM, cache: dict, tokens: torch.Tensor, pos: int):
-    """One decode step: tokens (B, 1) at absolute position `pos`, attending
-    over the cache, which it updates in place.  Returns (logits (B, vocab)
-    fp32, cache)."""
+    """One decode step: tokens (B, 1) at absolute position `pos` (for vlm,
+    past its patch prefix: P + the token's index), attending over the
+    cache, which it updates in place (encdec: cross attention over the
+    prefill's cross_k / cross_v).  Returns (logits (B, vocab) fp32,
+    cache)."""
     B = tokens.shape[0]
     x = embed(cfg, params, tokens)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
-    x, _ = _run_layers(params, x, positions, cache, pos)
+    if cfg.family == "hybrid":
+        x = _run_hybrid(params, x, positions, cache, pos)
+    else:
+        root = "dec" if cfg.family == "encdec" else "layers"
+        x, _ = _run_stack(params, getattr(params, root), x, positions, cache[root], pos)
     x = ly.norm(cfg, params.final_norm, x)
     return unembed(cfg, params, x[:, 0]).float(), cache
 
@@ -368,16 +582,9 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     where given, plus 0.01 times the aux loss (0 for the dense family).
     Returns (loss, {"ce", "aux"}), 0-d fp32 tensors.  The moe family's
     training (its aux loss under autograd, the multi-token-prediction loss)
-    raises NotImplementedError (ROADMAP.md §1, item 4)."""
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: the multi-token-prediction loss is not ported "
-                                  f"yet ({_ITEM4}: the MoE family's training)")
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: the MoE family's training is not ported yet "
-                                  f"({_ITEM4}: the MoE family's training)")
-    if cfg.family == "vlm":
-        raise NotImplementedError(f"{cfg.name}: the vlm loss is not ported yet ({_ITEM4}: the "
-                                  "VLM family)")
+    raises NotImplementedError, as does every family's but the dense one
+    (`check_trained`; ROADMAP.md §1, item 4)."""
+    check_trained(cfg)
     tokens = batch["tokens"]
     hidden, aux, _ = forward(cfg, params, batch)
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)

@@ -856,6 +856,22 @@ FLASH_CASES = [
     (1, 1000, 16, 8, 128, 129, False),
     # mixtral-8x7b's prefill (chip_smoke.py phase 9a): a window of 4096 at S = 8192
     (2, 8192, 32, 8, 128, 4096, True),
+    # hd 256 (its own body: 64-key tiles, no producer warp): ragged S, causal,
+    # windowed (below, at and past the 64-key tile) and not, MQA and G = 2, 4
+    (1, 300, 4, 1, 256, None, True),
+    (2, 129, 4, 2, 256, None, False),
+    (1, 1000, 16, 1, 256, 100, True),
+    (1, 257, 8, 1, 256, 64, True),
+    (2, 200, 4, 2, 256, 50, False),
+    (1, 1, 4, 1, 256, None, True),
+    (1, 65, 8, 2, 256, 17, True),
+    # recurrentgemma-9b's local attention, whisper-medium's encoder and its
+    # decoder prompt, and pixtral-12b's prefill at their shapes (chip_smoke.py
+    # phases 10b, 10c and 10d)
+    (2, 8192, 16, 1, 256, 2048, True),
+    (8, 1500, 16, 16, 64, None, False),
+    (8, 64, 16, 16, 64, None, True),
+    (4, 2048, 32, 8, 128, None, True),
 ]
 
 
@@ -1178,3 +1194,66 @@ def test_cuda_moe_serving_matches_cpu(arch):
         assert torch.equal(a, b)
     for a, b in zip(og, oc, strict=True):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-130m", "recurrentgemma-9b", "whisper-medium",
+                                  "pixtral-12b"])
+def test_cuda_family_serving_matches_cpu(arch):
+    """The ssm, hybrid, encdec and vlm families reduced, in fp32, the same
+    weights and inputs on both devices: a prefill of 64 (after 16 patches
+    for the vlm; 32 frames for the encdec) into a cache of 96 (the hybrid's
+    ring of 64 slots wraps) and 8 greedy decode steps give equal tokens and
+    logits within 1e-4, and equal caches within 1e-4 after them; on the
+    card the prefill launches the kernel once an attention layer (none for
+    the ssm; the encoder's non-causal layers and the decoder's for the
+    encdec), no plain flash call."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(reduced(get_config(arch)), dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(
+            0.1 * rng.standard_normal((2, cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    if P:
+        batch["patches"] = torch.from_numpy(
+            0.1 * rng.standard_normal((2, P, cfg.d_model), dtype=np.float32))
+    prefill, step = serve.make_prefill_step(cfg), serve.make_decode_step(cfg)
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        p = params.to(device)
+        kops.reset_launch_counts()
+        kref.reset_call_counts()
+        cache = init_cache(cfg, 2, 96, device=device)
+        logits, cache = prefill(p, {k: v.to(device) for k, v in batch.items()}, cache)
+        out, toks = [logits.cpu()], []
+        for i in range(8):
+            tok = logits.argmax(-1, keepdim=True)
+            toks.append(tok.cpu())
+            logits, cache = step(p, cache, tok, P + 64 + i)
+            out.append(logits.cpu())
+        runs.append((out, toks, dict(kops.launch_counts), dict(kref.call_counts), cache))
+    (og, tg, lg, cg, cache_g), (oc, tc, _l, _c, cache_c) = runs
+    attention = {"ssm": 0, "hybrid": cfg.num_layers // 3, "encdec": cfg.encoder_layers
+                 + cfg.num_layers, "vlm": cfg.num_layers}[cfg.family]
+    assert lg["flash_attention"] == attention and not any(cg.values())
+    for a, b in zip(tg, tc, strict=True):
+        assert torch.equal(a, b)
+    for a, b in zip(og, oc, strict=True):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+    def leaves(tree):
+        for v in tree.values():
+            yield from (leaves(v) if isinstance(v, dict) else [v])
+
+    for a, b in zip(leaves(cache_g), leaves(cache_c), strict=True):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)

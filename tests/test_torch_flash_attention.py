@@ -8,7 +8,8 @@ fp32 (the same function, the sums in another order) and 2e-2 in bf16 (the
 output rounded to bf16, whose spacing is 2^-7 relative).  The Pallas kernel
 asserts S % 128 == 0, so S = 1, 129 and 200 go against `_plain_attention`
 only.  Every case is causal but two against the Pallas kernel, with and
-without a window (the kernel's `causal=False` branch).  Inputs come from
+without a window (the kernel's `causal=False` branch); hd 256 at S 128,
+causal and windowed.  Inputs come from
 numpy with a fixed seed; each JAX result is computed once.  The kernel itself is held against the same plain version on the card
 (`tests/test_torch_cuda.py`, `chip_smoke.py` phase 2a).
 """
@@ -36,6 +37,10 @@ PALLAS_CASES = [
     (1, 256, 4, 4, 32, "bfloat16", None, True),
     (1, 256, 4, 2, 32, "float32", None, False),
     (1, 256, 4, 2, 64, "float32", 100, False),
+    # hd 256 (recurrentgemma's local attention, MQA), causal and windowed
+    (1, 128, 2, 1, 256, "float32", None, True),
+    (1, 128, 2, 1, 256, "float32", 50, True),
+    (1, 128, 2, 1, 256, "bfloat16", 50, True),
 ]
 RAGGED_CASES = [
     (1, 1, 4, 2, 32, "float32", None),
@@ -106,6 +111,24 @@ def test_attention_core_matches_blocked_causal_attention(window):
     got = ly.attention_core(*_torch(arrs, "float32"), causal=True, window=window)
     assert kref.call_counts["flash_attention"] == 1
     _close(got, np.asarray(want), "float32")
+
+
+@pytest.mark.parametrize("window", [None, 20])
+def test_attention_core_sends_non_causal_self_attention_to_the_kernel(window):
+    """Non-causal attention with Sq == Sk from position 0 (an encoder's
+    self-attention) takes the kernel's path, one `flash_attention` call,
+    against the JAX package's `_plain_attention`; cross attention (Sq !=
+    Sk) stays plain."""
+    B, S, H, KV, hd = 2, 40, 4, 2, 64
+    arrs = _inputs(B, S, H, KV, hd)
+    want = _jax_plain(B, S, H, KV, hd, "float32", window, False)
+    kref.reset_call_counts()
+    got = ly.attention_core(*_torch(arrs, "float32"), causal=False, window=window)
+    assert kref.call_counts["flash_attention"] == 1
+    _close(got, want, "float32")
+    q, k, v = _torch(arrs, "float32")
+    ly.attention_core(q[:, :7], k, v, causal=False)
+    assert kref.call_counts["flash_attention"] == 1
 
 
 def test_wrapper_takes_the_plain_version_on_the_cpu():
