@@ -17,8 +17,9 @@ the paper's element queries of every leaf, serves the dense LM qwen3-1.7b
 at full width and depth, checks the card against the CPU, and runs the
 twins of the JAX package's examples, Fig. 11's New to level 8 and the
 finite-volume solver at about 26 M leaves, trains qwen3-1.7b at full
-width and depth, and serves the MoE family (mixtral-8x7b and
-deepseek-v3-671b) at full width.
+width and depth, serves the MoE family (mixtral-8x7b and
+deepseek-v3-671b) at full width and the ssm, hybrid, encdec and vlm
+families at full width and depth, and trains mixtral-8x7b at full width.
 Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
@@ -278,6 +279,35 @@ Phases, in the order they run; any failure exits nonzero:
      16 greedy steps, card against CPU (equal tokens, logits within 1e-4)
      and prefill + decode against forward over the whole sequence on the
      card (within 1e-3), nothing dropped;
+  10. serving the ssm, hybrid, encdec and vlm families at full width and
+     depth in bf16, weights drawn on the card from a seed: 10a mamba2-130m
+     (8 x 8192, 128 greedy steps), 10b recurrentgemma-9b (2 x 8192 into
+     rings of 2048), 10c whisper-medium (8 x 1500 frames, 64-token
+     prompts), 10d pixtral-12b (4 x (1024 patches + 1024 tokens)), each
+     counted, then a prefill and a step profiled; 10e the four reduced in
+     fp32, card against CPU; 10f row 12 at 10b's and 10c's shapes beside
+     SDPA, and at hd 256 in fp16 and fp32;
+  11. training the MoE family (`models/moe.py` and MLA under autograd, the
+     aux and multi-token-prediction losses, Adafactor over the stacked
+     layers): 11a, mixtral-8x7b at full width, 2 of its 32 layers (bf16,
+     AdamW with fp32 moments, remat "block", peak lr 3e-5), `DataPipeline`
+     batches of 8 x 4096 in 8 micro-batches, one warm-up step and 3 timed:
+     each step's wall, loss, ce, aux and grad_norm, tokens per second, the
+     model FLOP share of 989 TFLOP/s (active parameters, the window's
+     pairs), peak memory, the share of routed pairs dropped at capacity,
+     the remat recompute routing every token as the forward did, then one
+     step profiled (the plain attention backward's share of it); 11b,
+     reduced mixtral (S 96, past its window of 64) and deepseek-v3 (MLA,
+     the MTP head, a shared expert, Adafactor with bf16 states, bf16
+     accumulation over 4 micro-batches; and deepseek-v3 again with fp32
+     state and accumulation) in fp32, 3 steps of make_train_step on the
+     card and on the CPU from the same weights (losses within rtol 1e-5;
+     parameters within 1e-4 relative L2, deepseek-v3 in bf16 within 4 x
+     2^-8), and reduced mixtral's gradients with remat "none"
+     against "block" on the card; 11c, row 12 under autograd at mixtral's
+     heads, S 8192 and a window of 4096, and at 11a's micro-batch (B 1, S
+     4096, the window of 4096), bf16: the Function's output and gradients
+     against the plain forward's autograd, as 8c;
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
@@ -299,7 +329,12 @@ Phases, in the order they run; any failure exits nonzero:
      once a layer (16) and no plain version called; in 9b never, no plain
      version called, and plain attention once a layer a prefill and a
      decode step (130); in 9c once a layer for mixtral's prefill and its
-     forward on the card, and its plain version as often on the CPU.
+     forward on the card, and its plain version as often on the CPU; in
+     11a 2 x 2 x 8 = 32 times a step (the forward and the recompute, 2
+     layers, 8 micro-batches), its plain version never and the plain
+     backward 16 times a step; in 11b as often on the card as its plain
+     version on the CPU for mixtral, never for deepseek-v3; in 11c once a
+     shape (twice).
 
 With `--marker-sweep` the script runs phase 1, the launch cost and the P
 sweeps of 2 and 2h, 3 and 3p, and prints their rows as one JSON line: run
@@ -346,7 +381,10 @@ launches in phase 6a (and 6b, 6c, 7, and 8a's 5 steps with
 `launches_phase8_a_step`, and 9a, 9b, 9c), its phase-2a numbers at
 qwen3's shape, its numbers at 9a's prefill shape under `shape_9a` (the
 library call there SDPA with a boolean band mask), phase 6's serving facts
-under `serve` and phase 9's under `moe_serve`.  Without a card, or without the repository beside
+under `serve` and phase 9's under `moe_serve`; `launches_phase11a` (and
+`_a_step`, `_phase11b` on the card, `_phase11c`) and 11c's errors under
+`autograd_11c`; the `runtime` line has phase 11a's and 11b's facts under
+`moe_train`.  Without a card, or without the repository beside
 it, the script exits nonzero and prints no result.  It imports nothing of
 JAX.
 """
@@ -2914,8 +2952,10 @@ FLASH_EARLIER_DEVICE_MS = 1.5954
 # 256 (its own body, 64-key tiles): ragged S, causal and not, a window of
 # one tile; last, the causal shapes of phase 10 that 10f does not time:
 # whisper-medium's decoder prompt (one 64-row tile, G = 1, hd 64) and
-# pixtral-12b's prefill of 10d
+# pixtral-12b's prefill of 10d; and mixtral-8x7b's micro-batch of phase 11a
+# (B 1, a window of 4096 at S = 4096: the window passed, masking nothing)
 FLASH_9A = (2, 8192, 32, 8, 128, 4096, True)
+FLASH_11A = (1, 4096, 32, 8, 128, 4096, True)
 FLASH_CASES = [
     (8, 2048, 16, 8, 128, None, True),
     (1, 1, 16, 8, 128, None, True), (2, 127, 16, 8, 128, None, True),
@@ -2940,6 +2980,7 @@ FLASH_CASES = [
     (1, 300, 4, 1, 256, None, True), (2, 129, 4, 2, 256, None, False),
     (1, 257, 8, 1, 256, 64, True),
     (8, 64, 16, 16, 64, None, True), (4, 2048, 32, 8, 128, None, True),
+    FLASH_11A,
 ]
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 2048, 2304, 128
 REQUEST_LENGTHS = (1, 127, 129, 300, 777, 1000, 1536, 2047)
@@ -3618,21 +3659,25 @@ BWD_SHAPE = (TRAIN_BATCH // 2, TRAIN_SEQ)
 
 def train_flops(cfg, tokens: int, B: int, S: int) -> tuple[float, float]:
     """(model FLOPs of one training step, of them attention's): 6 N a token
-    for the matmuls with every parameter N (forward 2 N, backward 4 N; the
-    remat recompute not counted), plus causal attention's 12 H hd a
-    (query, key) pair a layer (QK^T and PV, 4 H hd forward, twice that
-    backward)."""
-    n = cfg.param_count()
-    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * B * S * (S + 1) / 2
+    for the matmuls with the N parameters a token runs through
+    (`active_param_count`: a moe config's top-k routed experts and its
+    shared ones, not every expert; forward 2 N, backward 4 N; the remat
+    recompute not counted), plus attention's 12 H hd an unmasked (query,
+    key) pair a layer (causal, and inside the window where the config has
+    one; QK^T and PV, 4 H hd forward, twice that backward)."""
+    n = cfg.active_param_count()
+    attn = 12 * cfg.num_layers * cfg.num_heads * cfg.resolved_head_dim * B * flash_pairs(
+        S, cfg.window)
     return 6 * n * tokens + attn, attn
 
 
 def train_breakdown(step, params, opt, batch, i: int) -> dict:
-    """Where a phase-8a step's time goes, outside the counted steps: one
-    step under torch.profiler, its wall (the profiler's cost included), the
-    kernels' device time summed, and the device time inside three labelled
-    ranges: the plain attention backward, the optimizer (clip, AdamW and
-    the in-place update) and the chunked cross-entropy's forward (its
+    """Where a phase-8a or 11a step's time goes, outside the counted steps:
+    one step under torch.profiler, its wall (the profiler's cost included),
+    the kernels' device time summed, and the device time inside three
+    labelled ranges: the plain attention backward, the optimizer (clip,
+    AdamW and the in-place update) and the chunked cross-entropy's forward
+    (its
     backward runs in autograd's engine, outside the range); the five aten
     ops with the most device time, kernel launches and aten ops.  Returns
     the facts and the updated (params, opt)."""
@@ -3674,7 +3719,7 @@ def train_breakdown(step, params, opt, batch, i: int) -> dict:
                  if e.device_type == DeviceType.CUDA and e.key not in labels) / 1e3
     ranges = {e.key: e.device_time_total / 1e3 for e in ka if e.key in labels}
     if set(ranges) != set(labels):
-        raise AssertionError(f"8a profile: no range {sorted(set(labels) - set(ranges))}: a "
+        raise AssertionError(f"train profile: no range {sorted(set(labels) - set(ranges))}: a "
                              "wrapped function is no longer called through its module's name")
     top = sorted((e for e in ka if e.key.startswith("aten::")),
                  key=lambda e: -e.self_device_time_total)[:5]
@@ -3893,6 +3938,45 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-30))
 
 
+def flash_grad_check(label: str, kops, kref, case: tuple, dt: torch.dtype,
+                     gen: torch.Generator) -> tuple[tuple, list]:
+    """`FlashAttentionFn` (the kernel's forward, the plain backward) against
+    autograd through the plain forward, causal, on the same card tensors
+    drawn from `gen` at `case` (B, S, H, KV, hd, window) in `dt`: the
+    output within FLASH_TOL and FLASH_ROW_TOL (`flash_check`), and dq, dk
+    and dv within BWD_TOL (fp32: relative L2; bf16: each row's relative
+    L2).  Returns (the output's (max |err|, row error), the gradients'
+    errors)."""
+    B, S, H, KV, hd, window = case
+    dev = gen.device
+    base = [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dt) for n in (H, KV, KV)]
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
+    got = [x.clone().requires_grad_(True) for x in base]
+    out = kops.FlashAttentionFn.apply(*got, True, window)
+    want = [x.clone().requires_grad_(True) for x in base]
+    ref_out = kref.flash_attention(*want, causal=True, window=window)
+    shape = (f"B={B} S={S} H={H} KV={KV} hd={hd}"
+             f"{'' if window is None else f' window={window}'} {str(dt)[6:]}")
+    fwd = flash_check(f"{shape} ({label})", out, ref_out)
+    out.backward(do)
+    ref_out.backward(do)
+    del out, ref_out
+    errs = []
+    for g, w in zip(got, want):
+        if dt == torch.float32:
+            errs.append(_rel_l2(g.grad, w.grad))
+        else:
+            diff = (g.grad.float() - w.grad.float()).norm(dim=-1)
+            errs.append(float((diff / w.grad.float().norm(dim=-1).clamp_min(1e-6)).max()))
+    tol = BWD_TOL[dt]
+    print(f"  FlashAttentionFn gradients against the plain forward's autograd, {shape}: dq, dk, "
+          f"dv {[f'{e:.3g}' for e in errs]} ({'relative L2' if dt == torch.float32 else 'worst '
+          'row relative L2'}; tolerance {tol})", flush=True)
+    if max(errs) > tol:
+        raise AssertionError(f"{label}: the Function's gradients differ from autograd: {errs}")
+    return fwd, errs
+
+
 def train_card_vs_cpu(kops, kref, smi: str) -> dict:
     """Phase 8c.  The `train_lm` twin's tiny preset on the card and on the
     CPU from the same weights, fp32 without TF32: TWIN_STEPS steps' losses
@@ -3945,33 +4029,10 @@ def train_card_vs_cpu(kops, kref, smi: str) -> dict:
     H, KV, hd = 16, 8, 128
     worst, fwd = {}, {}
     B, S = BWD_SHAPE
-    for dt, tol in BWD_TOL.items():
-        base = [torch.randn(B, S, n, hd, generator=gen, device=dev).to(dt) for n in (H, KV, KV)]
-        do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(dt)
-        got = [x.clone().requires_grad_(True) for x in base]
-        out = kops.FlashAttentionFn.apply(*got, True, None)
-        want = [x.clone().requires_grad_(True) for x in base]
-        ref_out = kref.flash_attention(*want, causal=True, window=None)
-        fwd[str(dt)[6:]] = flash_check(f"B={B} S={S} H={H} KV={KV} hd={hd} {str(dt)[6:]} "
-                                       "(8a's micro shape)", out, ref_out)
-        out.backward(do)
-        ref_out.backward(do)
-        del out, ref_out
-        errs = []
-        for g, w in zip(got, want):
-            if dt == torch.float32:
-                errs.append(_rel_l2(g.grad, w.grad))
-            else:
-                diff = (g.grad.float() - w.grad.float()).norm(dim=-1)
-                errs.append(float((diff / w.grad.float().norm(dim=-1).clamp_min(1e-6)).max()))
+    for dt in BWD_TOL:
+        fwd[str(dt)[6:]], errs = flash_grad_check("8a's micro shape", kops, kref,
+                                                  (B, S, H, KV, hd, None), dt, gen)
         worst[str(dt)[6:]] = max(errs)
-        print(f"  FlashAttentionFn gradients against the plain forward's autograd, B={B} S={S} "
-              f"H={H} KV={KV} hd={hd} {str(dt)[6:]}: dq, dk, dv {[f'{e:.3g}' for e in errs]} "
-              f"({'relative L2' if dt == torch.float32 else 'worst row relative L2'}; "
-              f"tolerance {tol})", flush=True)
-        if max(errs) > tol:
-            raise AssertionError(f"8c: the Function's gradients differ from autograd: {errs}")
-        del base, do, got, want
     torch.cuda.empty_cache()
 
     q, k, v, do = (torch.randn(B, S, n, hd, generator=gen, device=dev).to(torch.bfloat16)
@@ -4061,15 +4122,18 @@ class AttentionTally:
     """Inside `with`: counts `models.layers._plain_attention` and
     `_ring_decode_attend` calls and each `models.moe.route` call's routed
     and dropped pairs (the drops as device tensors, summed after the run:
-    no host sync in the run), and keeps the first `moe_layer` call's
+    no host sync in the run), keeps each route call's (ids, pos) with
+    `keep_routes` (`routes`), and keeps the first `moe_layer` call's
     parameters and hidden input (`first_moe`).  It wraps the module
     functions and puts them back on exit; the callers' counts
-    (`moe_serve`) fail if a path goes around a wrapper."""
+    (`moe_serve`, `moe_train_full`) fail if a path goes around a
+    wrapper."""
 
-    def __init__(self):
+    def __init__(self, keep_routes: bool = False):
         from repro_torch.models import layers, lm, moe
         self.layers, self.lm, self.moe = layers, lm, moe
         self.plain_calls, self.ring_calls, self.routed, self.dropped = 0, 0, [], []
+        self.routes = [] if keep_routes else None
         self.first_moe = None
 
     def __enter__(self):
@@ -4094,6 +4158,8 @@ class AttentionTally:
             out = route(cfg, router, xt)
             self.routed.append(out[4].numel())
             self.dropped.append((~out[4]).sum())
+            if self.routes is not None:
+                self.routes.append(out[2:4])
             return out
 
         self.layers._plain_attention = counted_plain
@@ -4738,6 +4804,349 @@ def family_path(kops, kref) -> dict:
     return out
 
 
+# ---------------------------------------- 11: training the MoE family
+# Phase 11 trains the moe family on the card.  11a: mixtral-8x7b at full
+# width, its depth cut from 32 to 2 layers: 3.165 B parameters, whose bf16
+# weights (6.3 GB), AdamW's fp32 moments (25.3 GB), the fp32 accumulator and
+# the clipped copy, or the clipped copy and the fp32 updates (12.7 GB each),
+# and a leaf's fp32 temporaries (about 1.9 GB each) come to about 65 GB; 3
+# layers would need about 90.  train_4k's sequence of 4096 with the global
+# batch cut from 256 to 8 (8 micro-batches by default_num_micro), bf16,
+# remat "block", a peak lr of 3e-5 (3e-4 after 2 warm-up steps spikes
+# phase 8a's loss, `--train-8a`).  deepseek-v3-671b does not train at full width on one card:
+# one layer and its MTP block are 24.97 B parameters, 50 GB of bf16 weights
+# before any gradient.  11b: both reduced, fp32, card against CPU.  11c:
+# row 12 under autograd at a window that bites.
+MOE_TRAIN_ARCH = "mixtral-8x7b"
+MOE_TRAIN_LAYERS = 2
+MOE_TRAIN_STEPS = 3                 # timed, after one warm-up step
+MOE_TRAIN_LR, MOE_TRAIN_WARMUP = 3e-5, 2
+# 11b: (label, arch, config changes, (B, S, num_micro), parameter
+# tolerance): mixtral's S past its window of 64, deepseek-v3's num_micro
+# its own num_micro_override; deepseek-v3 at fp32 state and accumulation,
+# and at its own bf16 state and accumulation.  Each step's loss within
+# MOE_TWIN_LOSS_RTOL; every parameter after the steps in relative L2
+# within the case's tolerance: fp32 sums in another order (1e-4, phase
+# 8c's), or with bf16 accumulation over num_micro micro-batches and bf16
+# moments one bf16 rounding a micro-batch (num_micro x 2^-8): a
+# micro-batch gradient summed in another order may round to the
+# neighbouring bf16 value, a sum of micro-batch gradients that nearly
+# cancel keeps the rounding of its larger terms, and a parameter that
+# starts at zero, a norm scale, is made of its updates alone.
+MOE_TWIN = (("mixtral-8x7b", "mixtral-8x7b", {}, (4, 96, 2), 1e-4),
+            ("deepseek-v3-671b fp32 state", "deepseek-v3-671b",
+             {"opt_state_dtype": "float32", "grad_acc_dtype": "float32"}, (4, 32, 4), 1e-4),
+            ("deepseek-v3-671b", "deepseek-v3-671b", {}, (4, 32, 4), 4 * 2 ** -8))
+MOE_TWIN_STEPS = 3
+MOE_TWIN_KW = dict(lr=1e-2, warmup=2, total_steps=6, clip_norm=0.5)
+MOE_TWIN_LOSS_RTOL = 1e-5
+# 11b's yardstick, printed beside each case's card-against-CPU difference:
+# the CPU against itself from weights times (1 + this x a standard normal)
+MOE_TWIN_NOISE = 1e-6
+# remat "none" against "block" on the card, each gradient leaf
+MOE_REMAT_RTOL, MOE_REMAT_ATOL = 1e-6, 1e-7
+# 11c: (B, S, H, KV, hd, window): mixtral's heads and window at S = 8192
+FLASH_11C = (1, 8192, 32, 8, 128, 4096)
+
+
+def recompute_moved(routes: list, layers: int) -> list:
+    """The (micro-batch, layer) pairs whose remat recompute routed tokens
+    otherwise than the forward: `routes` holds each route call's (ids,
+    pos), a micro-batch's `layers` forward calls followed by its recompute
+    calls in reverse layer order."""
+    moved = []
+    for j in range(0, len(routes), 2 * layers):
+        fwd, rec = routes[j:j + layers], routes[j + layers:j + 2 * layers][::-1]
+        for layer, (a, b) in enumerate(zip(fwd, rec, strict=True)):
+            if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+                moved.append((j // (2 * layers), layer))
+    return moved
+
+
+def moe_train_full(kops, kref, smi: str) -> dict:
+    """Phase 11a: make_train_step over DataPipeline batches of mixtral-8x7b
+    at full width, cut to MOE_TRAIN_LAYERS layers (bf16, AdamW with fp32
+    moments, remat "block"; peak lr MOE_TRAIN_LR), one warm-up step and
+    MOE_TRAIN_STEPS timed, counted under an `AttentionTally`: each step's
+    wall (host clock ending in a synchronize), loss, ce, aux and
+    grad_norm; tokens per second, the model FLOP share of 989 TFLOP/s
+    (`train_flops`: the active parameters, the window's pairs), peak
+    memory, and the share of routed pairs dropped at capacity.  Fails
+    unless row 12 launched 2 x layers x num_micro times a step (the forward
+    and the remat recompute), its plain version never, the plain backward
+    once a layer a micro-batch, `_plain_attention` never, and the remat
+    recompute routed every token as the forward did (`recompute_moved`).
+    Then one step profiled (`train_breakdown`)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.train import default_num_micro, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.optim import init_opt_state
+
+    dev = torch.device("cuda")
+    full = get_config(MOE_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    num_micro = default_num_micro(cfg, shape)
+    L, m = cfg.num_layers, cfg.moe
+    cut = [f"{full.num_layers} -> {L} layers",
+           f"global batch {SHAPES['train_4k'].global_batch} -> {TRAIN_BATCH}"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    opt = init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype)
+    sync()
+    draw = time.perf_counter() - t
+    n = sum(p.numel() for p in params.parameters())
+    data = DataPipeline(cfg, shape, seed=SEED, device=dev)
+    step = make_train_step(cfg, num_micro=num_micro, lr=MOE_TRAIN_LR, warmup=MOE_TRAIN_WARMUP,
+                           total_steps=MOE_TRAIN_STEPS + 2)
+    capacity = moe_capacity(cfg, TRAIN_BATCH * TRAIN_SEQ // num_micro)
+    micro = (TRAIN_BATCH // num_micro, TRAIN_SEQ, cfg.num_heads, cfg.num_kv_heads,
+             cfg.resolved_head_dim, cfg.window, True)
+    if micro != FLASH_11A:
+        raise AssertionError(f"11a: row 12's shape {micro} is not FLASH_11A {FLASH_11A}, the "
+                             "shape phases 2a and 11c hold it at")
+    print(f"  11a: {MOE_TRAIN_ARCH} at full width (d {cfg.d_model}, {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, {m.num_experts} experts top "
+          f"{m.top_k}, d_ff {m.d_ff_expert}, vocab {cfg.vocab_size}, window {cfg.window}), "
+          f"{cfg.dtype}, {cfg.optimizer} with {cfg.opt_state_dtype} moments, grad accumulation "
+          f"in {cfg.grad_acc_dtype}, remat {cfg.remat}; peak lr {MOE_TRAIN_LR:g} after "
+          f"{MOE_TRAIN_WARMUP} warm-up steps; seq {TRAIN_SEQ} (train_4k), num_micro "
+          f"{num_micro} (default_num_micro), capacity {capacity} a micro-batch; cut: "
+          f"{', '.join(cut)}; {n:,} parameters ({cfg.active_param_count():,} active a token), "
+          f"drawn with the optimizer state in {draw:.2f} s", flush=True)
+    t = time.perf_counter()
+    params, opt, m0 = step(params, opt, data.batch(0), 0)
+    sync()
+    warm = time.perf_counter() - t
+    print(f"  warm-up step 0: {warm:.3f} s, loss {float(m0['loss']):.4f}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    tally = AttentionTally(keep_routes=True)
+
+    def run():
+        nonlocal params, opt
+        rows = []
+        with tally:
+            for i in range(1, MOE_TRAIN_STEPS + 1):
+                batch = data.batch(i)
+                sync()
+                t0 = time.perf_counter()
+                params, opt, mi = step(params, opt, batch, i)
+                sync()
+                rows.append({"step": i, "wall_s": time.perf_counter() - t0,
+                             **{k: float(mi[k]) for k in ("loss", "ce", "aux", "grad_norm",
+                                                          "lr")}})
+        return rows
+
+    rows, launches, plain, _cls = counted(kops, kref, run)
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        print(f"  step {r['step']}: {r['wall_s']:.4f} s, loss {r['loss']:.5f}, ce "
+              f"{r['ce']:.5f}, aux {r['aux']:.5f}, grad_norm {r['grad_norm']:.5f}, lr "
+              f"{r['lr']:.3g}", flush=True)
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce", "aux", "grad_norm")):
+            raise AssertionError(f"11a: step {r['step']}: a metric is not finite: {r}")
+    per_step = 2 * L * num_micro
+    moved = recompute_moved(tally.routes, L)
+    dropped, routed = tally.drops()
+    if len(tally.routed) != per_step * MOE_TRAIN_STEPS or moved or tally.plain_calls:
+        raise AssertionError(f"11a: {len(tally.routed)} route calls (want "
+                             f"{per_step * MOE_TRAIN_STEPS}); the recompute routed otherwise "
+                             f"at (micro-batch, layer) {moved}; {tally.plain_calls} "
+                             "_plain_attention calls")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops, attn = train_flops(cfg, tokens, TRAIN_BATCH, TRAIN_SEQ)
+    wall = float(np.median([r["wall_s"] for r in rows]))
+    a_step = launches["flash_attention"] / MOE_TRAIN_STEPS
+    print(f"  median step {wall:.4f} s: {tokens / wall:,.0f} tokens/s; model FLOPs "
+          f"{flops:.4g} a step (6 N T with the active N = {cfg.active_param_count():,} and T = "
+          f"{tokens}, plus attention's 12 L H hd B pairs in the window = {attn:.4g}): "
+          f"{flops / wall / 1e12:.1f} TFLOP/s, {flops / wall / TC_FLOPS_PER_S:.1%} of "
+          f"{TC_FLOPS_PER_S / 1e12:.0f} TFLOP/s; peak device memory {peak:,} B "
+          f"({peak / 2 ** 30:.2f} GiB); routed pairs dropped at capacity {capacity}: {dropped} "
+          f"of {routed} ({dropped / routed:.4%}; the forward's and the recompute's calls, "
+          f"which routed alike); flash_attention launches {a_step:g} a step (want "
+          f"{per_step}); plain calls {plain} (card {smi})", flush=True)
+    if launches["flash_attention"] != per_step * MOE_TRAIN_STEPS or plain["flash_attention"]:
+        raise AssertionError(f"11a: flash_attention launched {launches['flash_attention']} "
+                             f"times, want {per_step * MOE_TRAIN_STEPS}; plain forwards "
+                             f"{plain['flash_attention']}")
+    if plain["flash_attention_backward"] != L * num_micro * MOE_TRAIN_STEPS:
+        raise AssertionError(f"11a: the plain backward ran {plain['flash_attention_backward']} "
+                             f"times, want {L * num_micro * MOE_TRAIN_STEPS}")
+    breakdown, params, opt = train_breakdown(step, params, opt, data.batch(MOE_TRAIN_STEPS + 1),
+                                             MOE_TRAIN_STEPS + 1)
+    bwd_ms = breakdown["ranges_device_ms"]["plain attention backward"]
+    if breakdown["device_ms"]:
+        print(f"  the plain attention backward: {bwd_ms:.1f} of the profiled step's "
+              f"{breakdown['device_ms']:.1f} ms of kernels "
+              f"({bwd_ms / breakdown['device_ms']:.1%})", flush=True)
+    del params, opt, step, data, tally
+    torch.cuda.empty_cache()
+    return {"arch": MOE_TRAIN_ARCH, "cut": cut, "parameters": n,
+            "active_parameters": cfg.active_param_count(), "dtype": cfg.dtype,
+            "lr": MOE_TRAIN_LR, "warmup_loss": float(m0["loss"]), "warmup_s": warm,
+            "draw_s": draw, "steps": rows, "median_wall_s": wall, "tokens_per_s": tokens / wall,
+            "model_flops": flops, "attention_flops": attn,
+            "flop_share": flops / wall / TC_FLOPS_PER_S, "peak_bytes": peak,
+            "num_micro": num_micro, "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+            "capacity": capacity, "dropped": dropped, "routed": routed,
+            "dropped_share": dropped / routed, "launches": launches["flash_attention"],
+            "launches_a_step": a_step, "plain_backward_calls": plain["flash_attention_backward"],
+            "breakdown": breakdown}
+
+
+def moe_train_card_vs_cpu(kops, kref) -> dict:
+    """Phase 11b: reduced mixtral-8x7b (window 64; S = 96 runs past it: row
+    12 on the card, its plain version on the CPU) and reduced
+    deepseek-v3-671b (MLA, the MTP head, a shared expert, Adafactor over 4
+    micro-batches; with fp32 state and accumulation, and with its own bf16
+    ones) in fp32, no TF32, from the same weights and batches on both
+    devices (`MOE_TWIN`): MOE_TWIN_STEPS steps of make_train_step on each,
+    every step's loss within MOE_TWIN_LOSS_RTOL and every parameter after
+    them within the case's tolerance.  Then reduced mixtral's loss_fn gradients on the
+    card with remat "none" against "block", each leaf within
+    MOE_REMAT_RTOL and MOE_REMAT_ATOL, the block run's recompute routing
+    as its forward and as the none run.  Each run counted on its own: row
+    12 launched 2 x layers x num_micro a step on the card (the forward and
+    the recompute), its plain version as often on the CPU, the plain
+    backward once a layer a micro-batch on each; deepseek-v3 none of
+    them."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params, loss_fn
+    from repro_torch.optim import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for label, arch, changes, (B, S, num_micro), tol in MOE_TWIN:
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32", **changes)
+        weights = convert.lm_params_to_reference(init_params(cfg, seed=SEED, device="cpu"))
+        rng = np.random.default_rng(SEED)
+        batches = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+                   for _ in range(MOE_TWIN_STEPS)]
+
+        def run(dev, noise=0.0, cfg=cfg, weights=weights, batches=batches, num_micro=num_micro):
+            model = convert.lm_params_from_reference(cfg, weights, device=dev)
+            gen = torch.Generator().manual_seed(SEED)
+            with torch.no_grad():
+                for p in model.parameters() if noise else ():
+                    p.mul_(1 + noise * torch.randn(p.shape, generator=gen).to(p.device))
+            opt = init_opt_state(model, cfg.optimizer, cfg.opt_state_dtype)
+            step = make_train_step(cfg, num_micro=num_micro, **MOE_TWIN_KW)
+            losses = []
+            for i, toks in enumerate(batches):
+                model, opt, mi = step(model, opt, {"tokens": toks.to(dev)}, i)
+                losses.append(float(mi["loss"]))
+            return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+        (card, card_p), lc, pc, _ = counted(kops, kref, lambda: run("cuda"))
+        (host, host_p), lh, ph, _ = counted(kops, kref, lambda: run("cpu"))
+        _losses, noisy_p = run("cpu", MOE_TWIN_NOISE)
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, host, strict=True))
+        param_err = max(_rel_l2(card_p[n], host_p[n]) for n in host_p)
+        yardstick = max(_rel_l2(noisy_p[n], host_p[n]) for n in host_p)
+        n_attn = 2 * cfg.num_layers * num_micro * MOE_TWIN_STEPS if cfg.mla is None else 0
+        n_bwd = n_attn // 2
+        counts = {"card_launches": lc["flash_attention"], "card_plain": pc["flash_attention"],
+                  "card_plain_backward": pc["flash_attention_backward"],
+                  "cpu_launches": lh["flash_attention"], "cpu_plain": ph["flash_attention"],
+                  "cpu_plain_backward": ph["flash_attention_backward"]}
+        worst = max(host_p, key=lambda n: _rel_l2(card_p[n], host_p[n]))
+        print(f"  11b {label} reduced, fp32, {MOE_TWIN_STEPS} steps of make_train_step (B {B}, "
+              f"S {S}, num_micro {num_micro}, {cfg.optimizer} with {cfg.opt_state_dtype} state, "
+              f"accumulation in {cfg.grad_acc_dtype}), card against CPU: losses "
+              f"{[round(x, 6) for x in card]}, max relative difference {loss_err:.3g} "
+              f"(tolerance {MOE_TWIN_LOSS_RTOL}); parameters after them, max relative L2 "
+              f"difference {param_err:.3g} ({worst}; tolerance {tol:.3g}; the CPU against "
+              f"itself from weights with {MOE_TWIN_NOISE:g} relative noise {yardstick:.3g}); "
+              f"row 12 and the plain versions {counts}", flush=True)
+        if loss_err > MOE_TWIN_LOSS_RTOL or param_err > tol:
+            raise AssertionError(f"11b {label}: card against CPU: losses {card} vs {host}, "
+                                 f"parameters {param_err} ({worst})")
+        if counts != {"card_launches": n_attn, "card_plain": 0, "card_plain_backward": n_bwd,
+                      "cpu_launches": 0, "cpu_plain": n_attn, "cpu_plain_backward": n_bwd}:
+            raise AssertionError(f"11b {label}: row 12 and the plain versions {counts}, want "
+                                 f"{n_attn} forwards and {n_bwd} backwards")
+        out[label] = {"losses_card": card, "losses_cpu": host, "max_rel_loss_err": loss_err,
+                      "max_rel_param_err": param_err, "worst_leaf": worst, "tolerance": tol,
+                      "cpu_noise_param_err": yardstick,
+                      **counts}
+
+    arch = "mixtral-8x7b"
+    cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+    weights = convert.lm_params_to_reference(init_params(cfg, seed=SEED, device="cpu"))
+    B, S, _n = MOE_TWIN[0][3]
+    toks = torch.from_numpy(np.random.default_rng(SEED + 1).integers(0, cfg.vocab_size, (B, S)))
+    runs = {}
+    for remat in ("block", "none"):
+        c = dataclasses.replace(cfg, remat=remat)
+        model = convert.lm_params_from_reference(c, weights, device="cuda").requires_grad_()
+        with AttentionTally(keep_routes=True) as tally:
+            loss = loss_fn(c, model, {"tokens": toks.cuda()})[0]
+            loss.backward()
+        runs[remat] = (loss.item(), {n: p.grad.detach() for n, p in model.named_parameters()},
+                       tally.routes)
+    L = cfg.num_layers
+    block, none = runs["block"], runs["none"]
+    moved = recompute_moved(block[2], L)
+    same = len(block[2]) == 2 * L and len(none[2]) == L and all(
+        torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        for a, b in zip(block[2][:L], none[2], strict=True))
+    diff = max(float((block[1][n] - none[1][n]).abs().max()) for n in none[1])
+    bad = [n for n in none[1] if not torch.allclose(block[1][n], none[1][n], rtol=MOE_REMAT_RTOL,
+                                                    atol=MOE_REMAT_ATOL)]
+    print(f"  11b {arch} reduced on the card, remat \"block\" against \"none\": losses "
+          f"{block[0]:.7f} / {none[0]:.7f}; every gradient leaf's max |difference| {diff:.3g} "
+          f"(rtol {MOE_REMAT_RTOL}, atol {MOE_REMAT_ATOL}); the recompute routed every token "
+          f"as the forward: {not moved and same}", flush=True)
+    if bad or moved or not same or abs(block[0] - none[0]) > MOE_REMAT_RTOL * abs(none[0]):
+        raise AssertionError(f"11b: remat block against none: leaves {bad}, recompute moved "
+                             f"{moved}, same routes {same}, losses {block[0]} / {none[0]}")
+    out["remat"] = {"max_abs_grad_diff": diff, "losses": [block[0], none[0]]}
+    return out
+
+
+def moe_flash_grad(kops, kref) -> dict:
+    """Phase 11c: row 12 under autograd, bf16, `flash_grad_check` as 8c at
+    BWD_SHAPE: where mixtral's window bites (FLASH_11C: S = 8192 at a
+    window of 4096), then at 11a's own micro-batch (FLASH_11A: B 1, S =
+    4096 at the window of 4096).  Returns each shape's errors."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(SEED + 11)
+    out = {}
+    for label, case in (("11c, mixtral's window at S = 8192", FLASH_11C),
+                        ("11c, 11a's micro-batch", FLASH_11A[:6])):
+        fwd, errs = flash_grad_check(label, kops, kref, case, torch.bfloat16, gen)
+        torch.cuda.empty_cache()
+        out["x".join(str(x) for x in case)] = {
+            "shape": list(case), "dtype": "bfloat16", "max_abs_err": fwd[0],
+            "max_row_rel_err": fwd[1], "grad_err": errs}
+    return out
+
+
+def moe_train_path(kops, kref, smi: str) -> dict:
+    """Phase 11: 11a, 11b and 11c in turn; 11c counted (row 12, its plain
+    forward and the plain backward once each a shape, twice).  Returns
+    their facts."""
+    print(f"  11a. make_train_step at full width, {MOE_TRAIN_LAYERS} layers (card {smi})",
+          flush=True)
+    full = moe_train_full(kops, kref, smi)
+    print(f"  11b. reduced, card against CPU (card {smi})", flush=True)
+    twin = moe_train_card_vs_cpu(kops, kref)
+    print(f"  11c. row 12 under autograd at a window that bites and at 11a's micro-batch "
+          f"(card {smi})", flush=True)
+    grad, launches, plain, _cls = counted(kops, kref, lambda: moe_flash_grad(kops, kref))
+    if (launches["flash_attention"], plain["flash_attention"],
+            plain["flash_attention_backward"]) != (2, 2, 2):
+        raise AssertionError(f"11c: launches {launches}, plain calls {plain}")
+    return {"11a": full, "11b": twin, "11c": {**grad, "launches": launches["flash_attention"]}}
+
+
 def marker_sweep_only(smi: str) -> int:
     """`--marker-sweep`: the launch cost, phases 2 and 2h's P sweeps and
     phase 3p alone (after the build and phase 3), and their rows as one
@@ -4900,6 +5309,9 @@ def main() -> int:
           f"(card {smi})", flush=True)
     family_runs = family_path(kops, kref)
 
+    print(f"== 11. training the moe family on the card (card {smi})", flush=True)
+    moe_trained = moe_train_path(kops, kref, smi)
+
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
@@ -5043,6 +5455,13 @@ def main() -> int:
           f"{TRAIN_STEPS} steps ({trained['8a']['launches_a_step']:g} a step: forward and the "
           f"remat recompute, 28 layers x {trained['8a']['num_micro']} micro-batches); plain "
           f"forwards 0, plain backwards {trained['8a']['plain_backward_calls']}", flush=True)
+    m11 = moe_trained["11a"]
+    print(f"  phase 11a: flash_attention launched {m11['launches']} times in "
+          f"{MOE_TRAIN_STEPS} steps ({m11['launches_a_step']:g} a step: forward and the remat "
+          f"recompute, {MOE_TRAIN_LAYERS} layers x {m11['num_micro']} micro-batches); plain "
+          f"forwards 0, plain backwards {m11['plain_backward_calls']}; 11b on the card "
+          f"{moe_trained['11b'][MOE_TRAIN_ARCH]['card_launches']}; 11c "
+          f"{moe_trained['11c']['launches']}", flush=True)
     kernels.append({
         "name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": served["6a"][1]["flash_attention"],
@@ -5055,9 +5474,12 @@ def main() -> int:
         "launches_phase9b": moe_runs["9b"][1]["flash_attention"],
         "launches_phase9c": moe_runs["9c"][1]["flash_attention"],
         **{f"launches_phase{k}": family_runs[k][1]["flash_attention"]
-           for k in (*FAMILY_SERVE, "10e", "10f")}, **flash,
+           for k in (*FAMILY_SERVE, "10e", "10f")},
+        "launches_phase11a": m11["launches"], "launches_phase11a_a_step": m11["launches_a_step"],
+        "launches_phase11b": moe_trained["11b"][MOE_TRAIN_ARCH]["card_launches"],
+        "launches_phase11c": moe_trained["11c"]["launches"], **flash,
         "shape_9a": moe_runs["flash_9a"], "shape_10b": family_runs["10f"][0]["10b"],
-        "shape_10c": family_runs["10f"][0]["10c"],
+        "shape_10c": family_runs["10f"][0]["10c"], "autograd_11c": moe_trained["11c"],
         "hd256_small": {k: v for k, v in family_runs["10f"][0].items() if k.startswith("hd256")},
         "serve": {k: v[0] for k, v in served.items()},
         "moe_serve": {k: moe_runs[k][0] for k in ("9a", "9b", "9c")},
@@ -5065,7 +5487,8 @@ def main() -> int:
     print(json.dumps({"runtime": {"3m": {k: v for k, v in multi.items() if k != "launches"},
                                   "3r_faults": chaos,
                                   "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},
-                      "examples": examples["facts"], "train": trained}))
+                      "examples": examples["facts"], "train": trained,
+                      "moe_train": {k: moe_trained[k] for k in ("11a", "11b")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,8 +23,8 @@ An LM's state is its parameters and its optimizer state:
 `models.lm.LM`, so both packages compute with the same weights, and
 `lm_params_to_reference` gives the port's parameters back in that tree
 (layers stacked), so a checkpoint of them is the JAX package's;
-`opt_state_from_reference` / `opt_state_to_reference` carry AdamW's state
-likewise.
+`opt_state_from_reference` / `opt_state_to_reference` carry AdamW's and
+Adafactor's state likewise.
 """
 
 from __future__ import annotations
@@ -39,8 +39,9 @@ from .core.forest import Forest, resolve_device
 from .core.keys import from_u64, to_u64
 from .core.types import ECLASS_HEX, ECLASS_SIMPLEX, to_numpy
 from .models.config import ModelConfig
-from .models.lm import LM
+from .models.lm import LM, STACKED
 from .optim import OptState
+from .optim.optimizers import stack_key
 
 __all__ = ["FIELDS", "GHOST_FIELDS", "CMESH_FIELDS", "forest_from_reference",
            "forest_to_reference", "ghost_from_reference", "ghost_to_reference",
@@ -157,12 +158,6 @@ def ghost_to_reference(ghost: dict) -> dict:
     return {name: to_numpy(ghost[name]).astype(np.int32) for name in GHOST_FIELDS}
 
 
-# The JAX tree's roots whose leaves are stacked on a leading layer axis (the
-# port's `nn.ModuleList`s of the same names): the decoder's layers, the
-# hybrid family's super-blocks and tail, and the encoder-decoder's stacks.
-STACKED = ("layers", "super", "tail", "enc", "dec")
-
-
 def _ref_leaf(tree: dict, name: str):
     """The entry of the JAX tree `tree` for the port's parameter `name`:
     "<root>.<i>.<path>", for a stacked root (`STACKED`), is layer i of the
@@ -237,16 +232,21 @@ def _slots(module, prefix: str = ""):
         yield from _slots(sub, f"{prefix}{name}.")
 
 
+def _detached(x):
+    return tuple(t.detach() for t in x) if isinstance(x, tuple) else x.detach()
+
+
 def _reference_tree(model: LM, flat: dict) -> dict:
     """The JAX package's tree of the LM, with the entry of each port
-    parameter name taken from `flat` (name -> tensor) and the entries of
-    each stacked root (`STACKED`) stacked on a leading axis: tok_embed,
-    out_head unless tied, final_norm, and layers {attn_norm, attn {...},
-    mlp_norm, mlp {...} or moe {...}} (ssm: {norm, ssm {...}}); super
-    {rec0, rec1, attn2} and tail (hybrid); enc, enc_norm and dec (encdec);
-    mtp_proj, mtp_block, mtp_norm with the multi-token prediction head;
-    None where the config has no such parameter (the non-parametric
-    norms)."""
+    parameter name taken from `flat` (name -> tensor, or a tuple of them)
+    and the entries of each stacked root (`STACKED`) stacked on a leading
+    axis, or taken whole from `flat`'s "<root>.*.<path>" where it has one
+    (Adafactor's state of a stacked leaf): tok_embed, out_head unless
+    tied, final_norm, and layers {attn_norm, attn {...}, mlp_norm, mlp
+    {...} or moe {...}} (ssm: {norm, ssm {...}}); super {rec0, rec1,
+    attn2} and tail (hybrid); enc, enc_norm and dec (encdec); mtp_proj,
+    mtp_block, mtp_norm with the multi-token prediction head; None where
+    the config has no such parameter (the non-parametric norms)."""
     tree: dict = {}
     for name, p in _slots(model):
         parts = name.split(".")
@@ -255,10 +255,16 @@ def _reference_tree(model: LM, flat: dict) -> dict:
                 continue
             root, path = parts[0], ".".join(parts[2:])
             parts = [root, *parts[2:]]
-            leaf = None if p is None else torch.stack(
-                [flat[f"{root}.{i}.{path}"].detach() for i in range(len(getattr(model, root)))])
+            key = stack_key(name, STACKED)
+            if p is None:
+                leaf = None
+            elif key in flat:
+                leaf = _detached(flat[key])
+            else:
+                leaf = torch.stack([flat[f"{root}.{i}.{path}"].detach()
+                                    for i in range(len(getattr(model, root)))])
         else:
-            leaf = None if p is None else flat[name].detach()
+            leaf = None if p is None else _detached(flat[name])
         node = tree
         for part in parts[:-1]:
             node = node.setdefault(part, {})
@@ -276,34 +282,50 @@ def lm_params_to_reference(model: LM) -> dict:
     return _reference_tree(model, dict(model.named_parameters()))
 
 
-def _check_adamw(opt) -> None:
-    if not isinstance(opt.nu, dict) or any(isinstance(v, tuple) for v in _leaves(opt.nu)):
-        raise NotImplementedError(
-            "Adafactor state: its factored moments are taken over the JAX package's stacked "
-            "layer axis, which the port's per-layer leaves do not have; no ported config "
-            "trains with Adafactor (ROADMAP.md §1, slice 7c: deepseek-v3-671b)")
-
-
 def opt_state_to_reference(model: LM, opt: OptState) -> OptState:
-    """The port's AdamW state (moments keyed by parameter name) as the JAX
-    package's: the moments in the parameter tree's layout
-    (`lm_params_to_reference`), the step a 0-d int32 tensor."""
-    _check_adamw(opt)
+    """The port's optimizer state as the JAX package's: the moments in the
+    parameter tree's layout (`lm_params_to_reference`; AdamW's, kept a
+    parameter each, stacked; Adafactor's 0-d `mu` and (vr, vc) pairs of a
+    stacked leaf, kept whole under "<root>.*.<path>", as they are), the step
+    a 0-d int32 tensor."""
     return OptState(opt.step, _reference_tree(model, opt.mu), _reference_tree(model, opt.nu))
 
 
 def opt_state_from_reference(model: LM, opt) -> OptState:
-    """The JAX package's AdamW state (`repro.optim.OptState` or any (step,
-    mu, nu) of numpy arrays or tensors) as the port's, for `model`: the
-    moments keyed by parameter name on the parameters' device, in their
-    saved dtype; the step a 0-d int32 host tensor."""
+    """The JAX package's AdamW or Adafactor state (`repro.optim.OptState` or
+    any (step, mu, nu) of numpy arrays or tensors) as the port's, for
+    `model`, on the parameters' device, in its saved dtypes: AdamW's
+    moments keyed by parameter name (layer i of each stacked leaf);
+    Adafactor's (a (vr, vc) pair a leaf) by parameter name outside the
+    stacked roots and by "<root>.*.<path>" for a stacked leaf, whole, as
+    `init_opt_state(model, "adafactor")` keeps them.  The step is a 0-d
+    int32 host tensor."""
     step, mu, nu = opt
-    _check_adamw(OptState(step, mu, nu))
     names = [name for name, _ in model.named_parameters()]
     dev = model.tok_embed.device
+
+    def tensor(x):
+        if isinstance(x, tuple):
+            return tuple(_tensor(t, dev).contiguous() for t in x)
+        return _tensor(x, dev).contiguous()
+
+    if not isinstance(nu["tok_embed"], tuple):          # AdamW
+        return OptState(torch.tensor(int(step), dtype=torch.int32),
+                        {n: tensor(_ref_leaf(mu, n)) for n in names},
+                        {n: tensor(_ref_leaf(nu, n)) for n in names})
+    paths = {}
+    for n in names:
+        key, parts = stack_key(n, STACKED), n.split(".")
+        paths[key or n] = [parts[0], *parts[2:]] if key else parts
+
+    def whole(tree, path):
+        for part in path:
+            tree = tree[part]
+        return tensor(tree)
+
     return OptState(torch.tensor(int(step), dtype=torch.int32),
-                    {n: _tensor(_ref_leaf(mu, n), dev).contiguous() for n in names},
-                    {n: _tensor(_ref_leaf(nu, n), dev).contiguous() for n in names})
+                    {k: whole(mu, path) for k, path in paths.items()},
+                    {k: whole(nu, path) for k, path in paths.items()})
 
 
 def _leaves(tree):

@@ -4,10 +4,13 @@ optimizer (counterpart of the JAX package's `repro.launch.train`).
 `make_train_step` returns the step the trainer and the `train_lm` twin run.
 It turns the model's gradients on, runs `num_micro` forward/backward passes
 over equal slices of the batch, accumulates their gradients in
-`cfg.grad_acc_dtype` and divides by `num_micro` (one micro: the gradients
-in the parameters' dtype, as the JAX package takes them), clips by the
-global norm, and applies AdamW at the cosine schedule's rate, in place on
-the model's parameters.  The mesh arguments of the JAX package
+`cfg.grad_acc_dtype` from zeros (`a + b.to(a.dtype)` in micro-batch order,
+as the JAX package's scan) and divides by `num_micro` (one micro: the
+gradients in the parameters' dtype, as the JAX package takes them), clips
+by the global norm, and applies `cfg.optimizer` (AdamW, or Adafactor over
+the JAX package's stacked layers, whose state `init_opt_state` makes
+from the LM) at the cosine schedule's rate, in place on the model's
+parameters.  The mesh arguments of the JAX package
 (`micro_shardings`, `grad_shardings`, `default_num_micro`'s mesh) wait for
 the launch tooling's DeviceMesh.
 """
@@ -18,8 +21,8 @@ import torch
 
 from ..models.config import ModelConfig, ShapeConfig
 from ..models.lm import check_trained, init_params, loss_fn
-from ..optim import (adamw_update, apply_updates, clip_by_global_norm, cosine_schedule,
-                     init_opt_state)
+from ..optim import (adafactor_update, adamw_update, apply_updates, clip_by_global_norm,
+                     cosine_schedule, init_opt_state)
 
 __all__ = ["default_num_micro", "make_train_step", "abstract_train_state"]
 
@@ -51,15 +54,12 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
                     warmup: int = 100, total_steps: int = 10_000, clip_norm: float = 1.0):
     """train_step(params: LM, opt_state, batch, step: int) -> (params,
     opt_state, metrics): params updated in place, metrics {"ce", "aux",
-    "loss", "grad_norm", "lr"} as 0-d fp32 tensors (loss, ce and aux the
-    means over the microbatches).  Raises NotImplementedError for a family
-    whose training is not ported (`models.lm.check_trained`)."""
+    "loss", "grad_norm", "lr"} and "mtp" with the multi-token-prediction
+    head, as 0-d fp32 tensors (loss, ce, aux and mtp the means over the
+    microbatches).  The optimizer is `cfg.optimizer`'s, as in the JAX
+    package: AdamW, or else Adafactor.  Raises NotImplementedError for a
+    family whose training is not ported (`models.lm.check_trained`)."""
     check_trained(cfg)
-    if cfg.optimizer != "adamw":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.optimizer} in the train step: Adafactor's factored moments are "
-            "taken over the JAX package's stacked layer axis, which the port's per-layer "
-            "leaves do not have; no ported config trains with it (ROADMAP.md §1, slice 7c)")
     acc_dt = torch.bfloat16 if cfg.grad_acc_dtype == "bfloat16" else torch.float32
 
     def train_step(params, opt_state, batch, step):
@@ -95,7 +95,8 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
         metrics = {k: torch.stack([m[k] for m in ms]).mean() for k in ms[0]}
         grads, gnorm = clip_by_global_norm(grads, clip_norm)
         lr_t = cosine_schedule(step, peak_lr=lr, warmup_steps=warmup, total_steps=total_steps)
-        updates, opt_state = adamw_update(grads, opt_state, params, lr_t)
+        update = adamw_update if cfg.optimizer == "adamw" else adafactor_update
+        updates, opt_state = update(grads, opt_state, params, lr_t)
         del grads
         apply_updates(params, updates)
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm, lr=lr_t)
@@ -105,6 +106,7 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
 
 def abstract_train_state(cfg: ModelConfig):
     """(params, opt_state) with every tensor on the `meta` device: their
-    shapes and dtypes, no memory."""
+    shapes and dtypes, no memory; an Adafactor state in the JAX package's
+    stacked shapes."""
     params = init_params(cfg, device=torch.device("meta"))
     return params, init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype)

@@ -26,18 +26,19 @@ gradients on explicitly (`params.requires_grad_()`, as
 layout (`init_cache`) and is written in place.
 
 Training: `loss_fn` (next-token cross-entropy through `chunked_ce`, which
-never holds the (B, S, vocab) logits at once) and `cfg.remat`, read where
+never holds the (B, S, vocab) logits at once, plus 0.01 times the MoE
+layers' aux loss, and with `cfg.mtp_depth` 0.3 times the
+multi-token-prediction head's cross-entropy) and `cfg.remat`, read where
 a forward records a graph: "none" keeps every activation, "block" and
 "full" recompute each `Block` in the backward
 (`torch.utils.checkpoint`, non-reentrant), as the JAX package's
-`jax.checkpoint` per scanned layer does.
+`jax.checkpoint` per scanned layer does.  The dense and moe families
+train.
 
 Not ported yet, each raising NotImplementedError that names its ROADMAP
 item (`ROADMAP.md` §1):
-- item 4 (slice 7c): the training of every family but the dense one:
-  `loss_fn` and `launch.train.make_train_step` on a moe (the aux loss
-  under autograd, the multi-token-prediction loss, Adafactor), ssm,
-  hybrid, encdec or vlm config;
+- item 4b (slice 7c): the training of the ssm, hybrid, encdec and vlm
+  families (`loss_fn` and `launch.train.make_train_step`);
 - item 6 (the launch tooling): `remat="dots"`, the training-side
   activation sharding (`set_activation_spec`), and the all-to-all MoE
   dispatch (`moe_a2a`), which needs a mesh.
@@ -60,10 +61,13 @@ from .ssm import mamba2_layer
 
 __all__ = ["LM", "Block", "init_params", "init_cache", "embed", "unembed", "forward",
            "decode_step", "chunked_ce", "loss_fn", "check_ported", "check_trained",
-           "decoder_kind", "set_activation_spec"]
+           "decoder_kind", "set_activation_spec", "STACKED"]
 
-_ITEM4 = "ROADMAP.md §1, item 4 (slice 7c)"
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# The JAX tree's roots whose leaves are stacked on a leading layer axis (the
+# `LM`'s `nn.ModuleList`s of the same names): the decoder's layers, the
+# hybrid family's super-blocks and tail, and the encoder-decoder's stacks.
+STACKED = ("layers", "super", "tail", "enc", "dec")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -71,28 +75,22 @@ def check_ported(cfg: ModelConfig) -> None:
     family of it serves: GQA (qk-norm, windows and their ring cache) or
     MLA, SwiGLU or sort-based MoE, Mamba-2, RG-LRU with local attention,
     encoder-decoder, patch prefixes.  What of a config still raises is
-    named where it does: training outside the dense family (`loss_fn`,
-    `launch.train.make_train_step`; item 4), `remat="dots"`,
-    `set_activation_spec` and `moe_a2a` (item 6)."""
+    named where it does: training of the ssm, hybrid, encdec and vlm
+    families (`loss_fn`, `launch.train.make_train_step`; item 4b),
+    `remat="dots"`, `set_activation_spec` and `moe_a2a` (item 6)."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not one of {_FAMILIES}")
 
 
 def check_trained(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md §1 item 4, for a family
+    """Raise NotImplementedError, naming ROADMAP.md §1 item 4b, for a family
     whose training is not ported (no family trains without a parity test
-    of its gradients against `jax.grad`)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(f"{cfg.name}: the MoE family's training (its aux loss, the "
-                                  "multi-token-prediction loss, Adafactor in the step) is not "
-                                  f"ported yet ({_ITEM4}: the MoE family's training)")
-    if cfg.mtp_depth:
-        raise NotImplementedError(f"{cfg.name}: the multi-token-prediction loss is not ported "
-                                  f"yet ({_ITEM4}: the MoE family's training)")
-    if cfg.family != "dense":
+    of its gradients against `jax.grad`): every family but the dense and
+    moe ones."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's training is not "
-                                  f"ported yet ({_ITEM4}: the training of the ssm, hybrid, "
-                                  "encdec and vlm families)")
+                                  "ported yet (ROADMAP.md §1, item 4b (slice 7c): the training "
+                                  "of the ssm, hybrid, encdec and vlm families)")
 
 
 def set_activation_spec(spec) -> None:
@@ -319,9 +317,13 @@ class LM(nn.Module):
     rec0, rec1, attn2) and `tail` (the rec blocks past the last whole
     super-block); for encdec `enc` (non-causal), `enc_norm` and `dec`.
     With `cfg.mtp_depth` also the multi-token-prediction head's `mtp_proj`
-    (2d, d), `mtp_block` and `mtp_norm` (held for the JAX package's tree;
-    serving does not run them).  Built from `seed` on `device` (the card
-    unless given)."""
+    (2d, d), `mtp_block` and `mtp_norm` (`loss_fn` runs them; serving
+    does not).  Built from `seed` on `device` (the card
+    unless given).  `stacked_roots` names the stacked roots for
+    `optim.init_opt_state`, whose Adafactor keeps the state of each such
+    root's leaf whole, as the JAX package does."""
+
+    stacked_roots = STACKED
 
     def __init__(self, cfg: ModelConfig, seed: int = 0, device=None):
         super().__init__()
@@ -579,11 +581,16 @@ def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor, targets: torc
 def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     """Next-token cross-entropy of batch["tokens"] (B, S), each position
     predicting the next (the last position masked), times batch["mask"]
-    where given, plus 0.01 times the aux loss (0 for the dense family).
-    Returns (loss, {"ce", "aux"}), 0-d fp32 tensors.  The moe family's
-    training (its aux loss under autograd, the multi-token-prediction loss)
-    raises NotImplementedError, as does every family's but the dense one
-    (`check_trained`; ROADMAP.md §1, item 4)."""
+    where given, plus 0.01 times the MoE layers' summed aux loss (0 for
+    the dense family).  With `cfg.mtp_depth`, also 0.3 times the
+    multi-token-prediction cross-entropy, as the JAX package computes it:
+    the final hidden states beside the embeddings of the next tokens,
+    through `mtp_proj`, `mtp_block` (no cache, no remat; its aux loss is
+    dropped) and `mtp_norm`, each position predicting the token two ahead
+    (the last two positions masked).  Returns (loss, {"ce", "aux"} and
+    "mtp" with the head), 0-d fp32 tensors.  Raises NotImplementedError
+    for the ssm, hybrid, encdec and vlm families (`check_trained`;
+    ROADMAP.md §1, item 4b)."""
     check_trained(cfg)
     tokens = batch["tokens"]
     hidden, aux, _ = forward(cfg, params, batch)
@@ -593,4 +600,15 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     if "mask" in batch:
         mask = mask * batch["mask"]
     ce = chunked_ce(cfg, params, hidden, targets, mask)
-    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    loss, metrics = ce + 0.01 * aux, {"ce": ce, "aux": aux}
+    if cfg.mtp_depth:
+        B, S = tokens.shape
+        h = ly.dense(torch.cat([hidden, embed(cfg, params, targets)], dim=-1), params.mtp_proj)
+        h, _ = params.mtp_block(h, _positions(B, S, 0, tokens.device), None, 0)
+        h = ly.norm(cfg, params.mtp_norm, h)
+        t2 = torch.cat([tokens[:, 2:], tokens[:, :2]], dim=1)
+        m2 = mask.clone()
+        m2[:, -2:] = 0.0
+        mtp = chunked_ce(cfg, params, h, t2, m2)
+        loss, metrics["mtp"] = loss + 0.3 * mtp, mtp
+    return loss, metrics

@@ -12,6 +12,17 @@ state's tensors (the returned `OptState` holds them, with step + 1), and
 `apply_updates` writes into the parameters, under `torch.no_grad()`.  The
 step counter is a 0-d int32 host tensor, so that the bias corrections and
 the schedule are host scalars a card kernel takes without a copy.
+
+Stacked layers.  The JAX package stacks the leaves of each of its layer
+stacks on a leading layer axis, where the port keeps one parameter a
+layer ("<root>.<i>.<path>").  AdamW is elementwise, so its moments are
+kept a parameter each.  Adafactor is not: its row and column statistics
+and its RMS clip are taken over the whole stacked leaf (a per-layer norm
+weight (D,) is a factored (L, D) leaf there).  So for a module that names
+its stacked roots in `stacked_roots` (the LM: `models.lm.STACKED`),
+`init_opt_state` keeps Adafactor's state of the parameters under each
+such root as the stacked leaf's, under the key "<root>.*.<path>", and
+`adafactor_update` updates such a group as one stacked tensor.
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import torch
 from torch import nn
 
 __all__ = ["OptState", "init_opt_state", "adamw_update", "adafactor_update", "apply_updates",
-           "global_norm", "clip_by_global_norm"]
+           "global_norm", "clip_by_global_norm", "stack_key"]
 
 
 class OptState(NamedTuple):
@@ -60,23 +71,65 @@ def _state_dtype(name: str) -> torch.dtype:
     return torch.bfloat16 if name == "bfloat16" else torch.float32
 
 
+def stack_key(name: str, stacked) -> str | None:
+    """The state key "<root>.*.<path>" of the parameter "<root>.<i>.<path>"
+    whose root is in `stacked`, or None for any other name."""
+    parts = name.split(".")
+    if parts[0] in stacked and len(parts) > 2 and parts[1].isdigit():
+        return ".".join([parts[0], "*", *parts[2:]])
+    return None
+
+
+def _stacked_groups(params: dict, keys) -> dict:
+    """{state key: the names of its parameters in layer order} of each
+    group of the flat dict `params` whose key "<root>.*.<path>" is in
+    `keys`."""
+    groups: dict = {}
+    for name in params:
+        key = stack_key(name, (name.split(".")[0],))
+        if key in keys:
+            groups.setdefault(key, []).append(name)
+    return {k: sorted(v, key=lambda n: int(n.split(".")[1])) for k, v in groups.items()}
+
+
+def _factored(shape, dt: torch.dtype, device) -> tuple:
+    """Adafactor's (vr, vc) zeros for a leaf of `shape`: row and column
+    statistics over its last two axes from two dimensions up, else a full
+    vr and a 0-d vc."""
+    shape = tuple(shape)
+    if len(shape) >= 2:
+        return (torch.zeros(shape[:-1], dtype=dt, device=device),
+                torch.zeros(shape[:-2] + shape[-1:], dtype=dt, device=device))
+    return (torch.zeros(shape, dtype=dt, device=device), torch.zeros((), dtype=dt, device=device))
+
+
 def init_opt_state(params, optimizer: str = "adamw", dtype: str = "float32") -> OptState:
-    """Zero moments in `dtype` on the parameters' devices."""
+    """Zero moments in `dtype` on the parameters' devices.  With Adafactor,
+    the parameters "<root>.<i>.<path>" of a module's `stacked_roots` (an
+    LM's) share the state of their stacked leaf, (L, ...) for L layers,
+    under "<root>.*.<path>"; a tree of tensors keeps a state a leaf each,
+    and AdamW a state a parameter each."""
+    stacked = getattr(params, "stacked_roots", ()) if isinstance(params, nn.Module) else ()
     params = _tree(params)
     dt = _state_dtype(dtype)
     if optimizer == "adamw":
         mu = _map(lambda p: torch.zeros_like(p, dtype=dt), params)
         nu = _map(lambda p: torch.zeros_like(p, dtype=dt), params)
     elif optimizer == "adafactor":
-        mu = _map(lambda p: torch.zeros((), dtype=dt, device=p.device), params)
+        def zero(p):
+            return torch.zeros((), dtype=dt, device=p.device)
 
         def factored(p):
-            if p.dim() >= 2:
-                return (torch.zeros(p.shape[:-1], dtype=dt, device=p.device),
-                        torch.zeros(p.shape[:-2] + p.shape[-1:], dtype=dt, device=p.device))
-            return (torch.zeros(p.shape, dtype=dt, device=p.device),
-                    torch.zeros((), dtype=dt, device=p.device))
-        nu = _map(factored, params)
+            return _factored(p.shape, dt, p.device)
+
+        mu, nu = _map(zero, params), _map(factored, params)
+        keys = {stack_key(n, stacked) for n in params} - {None}
+        for key, names in _stacked_groups(params, keys).items():
+            p = params[names[0]]
+            for n in names:
+                del mu[n], nu[n]
+            mu[key] = zero(p)
+            nu[key] = _factored((len(names), *p.shape), dt, p.device)
     else:
         raise ValueError(optimizer)
     return OptState(torch.zeros((), dtype=torch.int32), mu, nu)
@@ -110,7 +163,11 @@ def adafactor_update(grads, state: OptState, params, lr, *, decay=0.8, eps=1e-30
     """(updates in fp32, the state with step + 1); the factored second
     moments are written in place.  A leaf of two or more dimensions keeps a
     row and a column statistic over its last two axes; a 1-D leaf a full
-    one."""
+    one.  The parameters of a stacked group of the state ("<root>.*.<path>",
+    from `init_opt_state`) are updated as their stacked leaf: their
+    gradients stacked on a leading layer axis, the statistics and the RMS
+    clip taken over the whole of it, as the JAX package updates its
+    stacked tree."""
     params = _tree(params)
     step = state.step + 1
     t = step.to(torch.float32)
@@ -120,7 +177,7 @@ def adafactor_update(grads, state: OptState, params, lr, *, decay=0.8, eps=1e-30
         g32 = g.float()
         g2 = g32 * g32 + eps
         vr, vc = v
-        if p.dim() >= 2:
+        if g.dim() >= 2:
             vr2 = beta * vr.float() + (1 - beta) * g2.mean(dim=-1)
             vc2 = beta * vc.float() + (1 - beta) * g2.mean(dim=-2)
             r = vr2 / torch.clamp(vr2.mean(dim=-1, keepdim=True), min=eps)
@@ -136,7 +193,15 @@ def adafactor_update(grads, state: OptState, params, lr, *, decay=0.8, eps=1e-30
             u = u + weight_decay * p.float()
         return -lr * u
 
-    return _map(upd, grads, params, state.nu), OptState(step, state.mu, state.nu)
+    groups = _stacked_groups(params, state.nu)
+    grouped = {n for names in groups.values() for n in names}
+    rest = [n for n in params if n not in grouped]
+    updates = _map(upd, *({n: tree[n] for n in rest} for tree in (grads, params, state.nu)))
+    for key, names in groups.items():
+        p = torch.stack([params[n] for n in names]) if weight_decay else None
+        u = upd(torch.stack([grads[n] for n in names]), p, state.nu[key])
+        updates.update(zip(names, u.unbind(0)))
+    return {n: updates[n] for n in params}, OptState(step, state.mu, state.nu)
 
 
 @torch.no_grad()

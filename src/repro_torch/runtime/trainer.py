@@ -14,8 +14,9 @@
 
 The trainer checkpoints `(params, opt)` in the JAX package's tree and
 layout (layers stacked, keys sorted; `convert.lm_params_to_reference`,
-`convert.opt_state_to_reference`), so a checkpoint written by either
-package's trainer restores in the other's.
+`convert.opt_state_to_reference`; AdamW's moments, or Adafactor's
+factored ones of each stacked leaf, in the state dtype), so a checkpoint
+written by either package's trainer restores in the other's.
 """
 
 from __future__ import annotations

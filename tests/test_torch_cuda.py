@@ -872,6 +872,9 @@ FLASH_CASES = [
     (8, 1500, 16, 16, 64, None, False),
     (8, 64, 16, 16, 64, None, True),
     (4, 2048, 32, 8, 128, None, True),
+    # mixtral-8x7b's training micro-batch (chip_smoke.py phase 11a): B 1, a
+    # window of 4096 at S = 4096
+    (1, 4096, 32, 8, 128, 4096, True),
 ]
 
 
@@ -1057,6 +1060,117 @@ def test_cuda_train_step_matches_cpu():
         assert abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]), k
     for name in pc:
         assert _rel_l2(pg[name], pc[name]) <= 1e-4, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [8192, 4096])
+def test_cuda_flash_function_gradients_at_a_window_that_bites(S):
+    """`chip_smoke.py` phase 11c: mixtral's heads under its window of 4096,
+    bf16, at S = 8192 (the window bites) and at phase 11a's micro-batch (S
+    = 4096): the Function's output (one kernel launch) within 2e-2 + 2e-2
+    |want| of the plain forward's and each row within 1e-2; dq, dk and dv
+    each row within 2e-2 of the plain forward's autograd."""
+    dev = _card()
+    B, H, KV, hd, window = 1, 32, 8, 128, 4096
+    gen = torch.Generator(device=dev).manual_seed(11)
+    base = [torch.randn(B, S, n, hd, generator=gen, device=dev).bfloat16() for n in (H, KV, KV)]
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).bfloat16()
+    got = [t.clone().requires_grad_(True) for t in base]
+    kops.reset_launch_counts()
+    out = kops.FlashAttentionFn.apply(*got, True, window)
+    assert kops.launch_counts["flash_attention"] == 1
+    want = [t.clone().requires_grad_(True) for t in base]
+    ref_out = kref.flash_attention(*want, causal=True, window=window)
+    diff = (out.detach().float() - ref_out.detach().float()).abs()
+    assert float((diff - 2e-2 * (1 + ref_out.detach().float().abs())).max()) <= 0
+    assert float((diff.norm(dim=-1) / ref_out.detach().float().norm(dim=-1)).max()) <= 1e-2
+    out.backward(do)
+    ref_out.backward(do)
+    del out, ref_out, diff
+    for g, w in zip(got, want):
+        d = (g.grad.float() - w.grad.float()).norm(dim=-1)
+        assert float((d / w.grad.float().norm(dim=-1).clamp_min(1e-6)).max()) <= 2e-2
+
+
+def _moe_twin(arch: str, changes: dict, dev: torch.device):
+    """`chip_smoke.py` phase 11b's run on `dev`: reduced `arch` in fp32 with
+    `changes` from the weights drawn on the CPU from seed 0, three steps of
+    make_train_step at its config's optimizer and dtypes ((B, S,
+    num_micro): mixtral (4, 96, 2), past its window of 64; deepseek-v3 (4,
+    32, 4)); returns (losses, parameters on the CPU, row 12's launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(reduced(get_config(arch)), dtype="float32", **changes)
+    B, S, num_micro = {"mixtral-8x7b": (4, 96, 2), "deepseek-v3-671b": (4, 32, 4)}[arch]
+    model = init_params(cfg, seed=0, device="cpu").to(dev)
+    opt = init_opt_state(model, cfg.optimizer, cfg.opt_state_dtype)
+    step = make_train_step(cfg, num_micro=num_micro, lr=1e-2, warmup=2, total_steps=6,
+                           clip_norm=0.5)
+    rng = np.random.default_rng(0)
+    kops.reset_launch_counts()
+    losses = []
+    for i in range(3):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))).to(dev)
+        model, opt, m = step(model, opt, {"tokens": toks}, i)
+        losses.append(float(m["loss"]))
+    return (losses, {n: p.detach().cpu() for n, p in model.named_parameters()},
+            kops.launch_counts["flash_attention"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,changes,tol", [
+    ("mixtral-8x7b", {}, 1e-4),
+    ("deepseek-v3-671b", {"opt_state_dtype": "float32", "grad_acc_dtype": "float32"}, 1e-4),
+    ("deepseek-v3-671b", {}, 4 * 2 ** -8)])
+def test_cuda_moe_train_steps_match_cpu(arch, changes, tol):
+    """`chip_smoke.py` phase 11b: three steps on the card and on the CPU from
+    the same weights and batches: each loss within rtol 1e-5, every
+    parameter within `tol` relative L2 (fp32 sums in another order; with
+    deepseek-v3's own bf16 accumulation over 4 micro-batches and bf16
+    Adafactor state, a bf16 rounding a micro-batch: `chip_smoke.MOE_TWIN`);
+    mixtral launches row 12 2 x 2 layers x 2 micro-batches a step."""
+    dev = _card()
+    (lg, pg, ng), (lc, pc, nc) = (_moe_twin(arch, changes, dev),
+                                  _moe_twin(arch, changes, torch.device("cpu")))
+    assert ng == (24 if arch == "mixtral-8x7b" else 0) and nc == 0
+    for a, b in zip(lg, lc, strict=True):
+        assert abs(a - b) <= 1e-5 * abs(b), (lg, lc)
+    for name in pc:
+        assert _rel_l2(pg[name], pc[name]) <= tol, name
+
+
+@pytest.mark.cuda
+def test_cuda_moe_remat_none_and_block_give_the_same_gradients():
+    """`chip_smoke.py` phase 11b on the card: reduced mixtral's loss and
+    every gradient leaf equal with remat "none" and "block" within rtol
+    1e-6 and atol 1e-7, so the recompute routes every token as the
+    forward did."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_params, loss_fn
+
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(reduced(get_config("mixtral-8x7b")), dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 96))).to(dev)
+    runs = []
+    for remat in ("block", "none"):
+        c = replace(cfg, remat=remat)
+        model = init_params(c, seed=0, device="cpu").to(dev).requires_grad_()
+        loss = loss_fn(c, model, {"tokens": toks})[0]
+        loss.backward()
+        runs.append((loss.item(), {n: p.grad for n, p in model.named_parameters()}))
+    (lb, gb), (ln, gn) = runs
+    assert abs(lb - ln) <= 1e-6 * abs(ln)
+    for name in gn:
+        torch.testing.assert_close(gb[name], gn[name], rtol=1e-6, atol=1e-7, msg=name)
 
 
 def _moe_cfg(arch, **moe):

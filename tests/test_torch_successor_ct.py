@@ -19,7 +19,7 @@ level.
 The fine-bits contract: the port drops the bits finer than an element's
 level, as jnp `SimplexOps.successor` does (it shifts them out of the key).
 The Pallas kernel's encode walk reads them, a fault of the frozen reference
-(ROADMAP §3.4); on the masked anchors it agrees.
+(ROADMAP §3.2); on the masked anchors it agrees.
 """
 
 import functools
@@ -159,7 +159,7 @@ def test_plain_version_drops_fine_bits_as_jnp_does(d):
 
 @pytest.mark.parametrize("d", [2, 3])
 def test_pallas_kernel_reads_fine_bits(d):
-    """The reference's fault that the port does not copy (ROADMAP §3.4):
+    """The reference's fault that the port does not copy (ROADMAP §3.2):
     the Pallas kernel equals jnp on every valid element, inside and outside
     the root, but not on every anchor with bits finer than its level.  The
     share it gets right is printed."""

@@ -180,8 +180,14 @@ def test_remat_dots_and_unported_losses_raise():
         loss_fn(cfg, model, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
     with torch.no_grad():       # no graph: remat is not read
         loss_fn(cfg, model, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
-    with pytest.raises(NotImplementedError, match="7c"):
-        loss_fn(replace(cfg, mtp_depth=1), model, {"tokens": torch.zeros((1, 8))})
+    mtp = replace(cfg, mtp_depth=1, remat="block")             # trains now, as the moe family
+    loss, m = loss_fn(mtp, tlm.init_params(mtp, seed=0, device="cpu").requires_grad_(),
+                      {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
+    assert set(m) == {"ce", "aux", "mtp"} and torch.isfinite(loss)
+    for arch in ("mamba2-130m", "recurrentgemma-9b", "whisper-medium", "pixtral-12b"):
+        other = tconfigs.reduced(tconfigs.get_config(arch))
+        with pytest.raises(NotImplementedError, match=f"{other.family} family.*item 4b"):
+            loss_fn(other, model, {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
 
 
 @pytest.mark.parametrize("S_", [24, 20, 7])

@@ -152,5 +152,9 @@ def test_abstract_train_state_holds_no_memory_and_refuses_adafactor():
     assert sum(p.numel() for p in params.parameters()) == cfg.param_count() + \
         (2 * cfg.num_layers + 1) * cfg.d_model + 2 * cfg.num_layers * cfg.resolved_head_dim
     assert opt.mu["tok_embed"].device.type == "meta" and opt.mu["tok_embed"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        make_train_step(replace(cfg, optimizer="adafactor"))
+    # Adafactor trains now (tests/test_torch_adafactor.py); the families
+    # whose training is not ported still raise, naming ROADMAP item 4b
+    make_train_step(replace(cfg, optimizer="adafactor"))
+    for arch in ("mamba2-130m", "recurrentgemma-9b", "whisper-medium", "pixtral-12b"):
+        with pytest.raises(NotImplementedError, match="item 4b"):
+            make_train_step(replace(tconfigs.get_config(arch), optimizer="adafactor"))
