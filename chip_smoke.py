@@ -19,7 +19,9 @@ twins of the JAX package's examples, Fig. 11's New to level 8 and the
 finite-volume solver at about 26 M leaves, trains qwen3-1.7b at full
 width and depth, serves the MoE family (mixtral-8x7b and
 deepseek-v3-671b) at full width and the ssm, hybrid, encdec and vlm
-families at full width and depth, and trains mixtral-8x7b at full width.
+families at full width and depth, trains mixtral-8x7b at full width, and
+trains mamba2-130m, recurrentgemma-9b, whisper-medium and pixtral-12b at
+full width.
 Phases, in the order they run; any failure exits nonzero:
 
   1. card and build: the card's name and power limit, torch and CUDA
@@ -308,6 +310,31 @@ Phases, in the order they run; any failure exits nonzero:
      heads, S 8192 and a window of 4096, and at 11a's micro-batch (B 1, S
      4096, the window of 4096), bf16: the Function's output and gradients
      against the plain forward's autograd, as 8c;
+  12. training the ssm, hybrid, encdec and vlm families (the SSD's chunked
+     scan and the RG-LRU's log-depth scan under autograd, the encoder's
+     non-causal attention and the cross attention, the vlm loss over the
+     tokens after the patches) on `DataPipeline`'s stream, train_4k's S
+     4096 with the global batch cut to 8 (the frames and patches drawn from
+     the tokens' key), bf16, AdamW with fp32 moments, remat "block", peak
+     lr 3e-5, one warm-up step and 3 timed, then one profiled: 12a
+     mamba2-130m, all 24 layers, one micro-batch of 8 x 4096 (no
+     attention); 12b recurrentgemma-9b, one super-block (3 of 38 layers), 8
+     micro-batches of 1, row 12 at hd 256 and a window of 2048; 12c
+     whisper-medium, all 24 + 24 layers, one micro-batch of 8 x 4096 tokens
+     and 8 x 1500 frames, row 12 non-causal over the frames and causal over
+     the tokens, the cross attention plain; 12d pixtral-12b, 4 of 40 layers,
+     8 micro-batches of 1 x (1024 patches + 3072 tokens): each step's wall,
+     loss, ce and grad_norm (finite), tokens per second, the model FLOP
+     share of 989 TFLOP/s (6 N T and attention's pairs; for 12a the SSD's
+     chunked products that 6 N T leaves out, printed apart), peak memory,
+     and the plain attention backward's share of the profiled step; 12e the
+     four reduced in fp32, 2 steps on the card and on the CPU from the same
+     weights and stream (losses within rtol 1e-5, parameters within 1e-4
+     relative L2); 12f row 12 under autograd at 12b's, 12c's decoder's and
+     12d's micro-batch shapes in bf16 (the Function's output and gradients
+     against the plain forward's autograd), and timed there: the forward
+     against its plain version, SDPA and the bound, and forward + backward
+     against SDPA's;
   5. launch counts: every kernel of the pipeline launched in phase 3
      (tree_transform aside: that path has no tree faces) and in phase 3c,
      owner_rank (Ghost's owner lookup) among them; owner_rank, successor
@@ -334,7 +361,12 @@ Phases, in the order they run; any failure exits nonzero:
      layers, 8 micro-batches), its plain version never and the plain
      backward 16 times a step; in 11b as often on the card as its plain
      version on the CPU for mixtral, never for deepseek-v3; in 11c once a
-     shape (twice).
+     shape (twice); in 12a-12d twice an attention layer a micro-batch, by
+     shape (12a never; 12b 16 a step at hd 256; 12c 48 non-causal over the
+     frames and 48 causal a step; 12d 64 a step), its plain version never,
+     the plain backward half as often, `_plain_attention` only for 12c's
+     cross attention (48 a step); in 12e as often on the card as its plain
+     version on the CPU; in 12f once a shape (three times).
 
 With `--marker-sweep` the script runs phase 1, the launch cost and the P
 sweeps of 2 and 2h, 3 and 3p, and prints their rows as one JSON line: run
@@ -383,8 +415,11 @@ qwen3's shape, its numbers at 9a's prefill shape under `shape_9a` (the
 library call there SDPA with a boolean band mask), phase 6's serving facts
 under `serve` and phase 9's under `moe_serve`; `launches_phase11a` (and
 `_a_step`, `_phase11b` on the card, `_phase11c`) and 11c's errors under
-`autograd_11c`; the `runtime` line has phase 11a's and 11b's facts under
-`moe_train`.  Without a card, or without the repository beside
+`autograd_11c`; `launches_phase12a` to `_phase12d` (and `_a_step`),
+`_phase12e` and `_phase12f`, 12f's errors under `autograd_12f` and its
+times at 12b's, 12c's and 12d's shapes under `shape_12b`, `shape_12c` and
+`shape_12d`; the `runtime` line has phase 11a's and 11b's facts under
+`moe_train` and phase 12a-12e's under `family_train`.  Without a card, or without the repository beside
 it, the script exits nonzero and prints no result.  It imports nothing of
 JAX.
 """
@@ -2952,10 +2987,17 @@ FLASH_EARLIER_DEVICE_MS = 1.5954
 # 256 (its own body, 64-key tiles): ragged S, causal and not, a window of
 # one tile; last, the causal shapes of phase 10 that 10f does not time:
 # whisper-medium's decoder prompt (one 64-row tile, G = 1, hd 64) and
-# pixtral-12b's prefill of 10d; and mixtral-8x7b's micro-batch of phase 11a
-# (B 1, a window of 4096 at S = 4096: the window passed, masking nothing)
+# pixtral-12b's prefill of 10d; mixtral-8x7b's micro-batch of phase 11a
+# (B 1, a window of 4096 at S = 4096: the window passed, masking nothing);
+# and the micro-batches of phase 12 (12b, 12c's decoder, 12d)
 FLASH_9A = (2, 8192, 32, 8, 128, 4096, True)
 FLASH_11A = (1, 4096, 32, 8, 128, 4096, True)
+# phase 12's training micro-batches: recurrentgemma-9b's local attention
+# (12b), whisper-medium's decoder (12c; its encoder runs at FLASH_10C) and
+# pixtral-12b's 1024 patches + 3072 tokens (12d)
+FLASH_12B = (1, 4096, 16, 1, 256, 2048, True)
+FLASH_12C = (8, 4096, 16, 16, 64, None, True)
+FLASH_12D = (1, 4096, 32, 8, 128, None, True)
 FLASH_CASES = [
     (8, 2048, 16, 8, 128, None, True),
     (1, 1, 16, 8, 128, None, True), (2, 127, 16, 8, 128, None, True),
@@ -2980,7 +3022,7 @@ FLASH_CASES = [
     (1, 300, 4, 1, 256, None, True), (2, 129, 4, 2, 256, None, False),
     (1, 257, 8, 1, 256, 64, True),
     (8, 64, 16, 16, 64, None, True), (4, 2048, 32, 8, 128, None, True),
-    FLASH_11A,
+    FLASH_11A, FLASH_12B, FLASH_12C, FLASH_12D,
 ]
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 8, 2048, 2304, 128
 REQUEST_LENGTHS = (1, 127, 129, 300, 777, 1000, 1536, 2047)
@@ -3671,13 +3713,30 @@ def train_flops(cfg, tokens: int, B: int, S: int) -> tuple[float, float]:
     return 6 * n * tokens + attn, attn
 
 
-def train_breakdown(step, params, opt, batch, i: int) -> dict:
-    """Where a phase-8a or 11a step's time goes, outside the counted steps:
-    one step under torch.profiler, its wall (the profiler's cost included),
-    the kernels' device time summed, and the device time inside three
-    labelled ranges: the plain attention backward, the optimizer (clip,
-    AdamW and the in-place update) and the chunked cross-entropy's forward
-    (its
+def timed_steps(step, params, opt, data, steps: int, keys: tuple) -> tuple[list, object, object]:
+    """Steps 1 ... `steps` of the train step `step` over `data`'s batches,
+    each batch drawn before its wall starts: each step's wall (host clock
+    ending in a synchronize) and its metrics named by `keys`.  Returns
+    (the rows, params, opt)."""
+    rows = []
+    for i in range(1, steps + 1):
+        batch = data.batch(i)
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch, i)
+        sync()
+        rows.append({"step": i, "wall_s": time.perf_counter() - t0,
+                     **{k: float(m[k]) for k in keys}})
+    return rows, params, opt
+
+
+def train_breakdown(step, params, opt, batch, i: int, attention: bool = True) -> dict:
+    """Where a phase-8a, 11a or 12 step's time goes, outside the counted
+    steps: one step under torch.profiler, its wall (the profiler's cost
+    included), the kernels' device time summed, and the device time inside
+    three labelled ranges: the plain attention backward (unless
+    `attention` is False: a model without it), the optimizer (clip, AdamW
+    and the in-place update) and the chunked cross-entropy's forward (its
     backward runs in autograd's engine, outside the range); the five aten
     ops with the most device time, kernel launches and aten ops.  Returns
     the facts and the updated (params, opt)."""
@@ -3692,6 +3751,8 @@ def train_breakdown(step, params, opt, batch, i: int) -> dict:
               "optimizer": [(ltrain, n) for n in ("clip_by_global_norm", "adamw_update",
                                                   "apply_updates")],
               "cross-entropy forward": [(tlm, "chunked_ce")]}
+    if not attention:
+        del labels["plain attention backward"]
     saved = []
     for label, places in labels.items():
         for mod, name in places:
@@ -3780,20 +3841,9 @@ def train_full(kops, kref, smi: str, lr: float = TRAIN_LR, dtype: str | None = N
     print(f"  warm-up step 0: {warm:.3f} s, loss {float(m0['loss']):.4f}", flush=True)
     torch.cuda.reset_peak_memory_stats()
 
-    def run():
-        nonlocal params, opt
-        rows = []
-        for i in range(1, TRAIN_STEPS + 1):
-            batch = data.batch(i)
-            sync()
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, batch, i)
-            sync()
-            rows.append({"step": i, "wall_s": time.perf_counter() - t0,
-                         **{k: float(m[k]) for k in ("loss", "grad_norm", "lr")}})
-        return rows
-
-    rows, launches, plain, _cls = counted(kops, kref, run)
+    (rows, params, opt), launches, plain, _cls = counted(
+        kops, kref, lambda: timed_steps(step, params, opt, data, TRAIN_STEPS,
+                                        ("loss", "grad_norm", "lr")))
     peak = torch.cuda.max_memory_allocated()
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops, attn = train_flops(cfg, tokens, TRAIN_BATCH, TRAIN_SEQ)
@@ -4123,23 +4173,32 @@ class AttentionTally:
     `_ring_decode_attend` calls and each `models.moe.route` call's routed
     and dropped pairs (the drops as device tensors, summed after the run:
     no host sync in the run), keeps each route call's (ids, pos) with
-    `keep_routes` (`routes`), and keeps the first `moe_layer` call's
-    parameters and hidden input (`first_moe`).  It wraps the module
-    functions and puts them back on exit; the callers' counts
-    (`moe_serve`, `moe_train_full`) fail if a path goes around a
-    wrapper."""
+    `keep_routes` (`routes`), keeps the first `moe_layer` call's
+    parameters and hidden input (`first_moe`), and counts the calls of
+    `kernels.ops.flash_attention` (row 12's wrapper, which
+    `FlashAttentionFn` calls) by shape, (B, S, H, KV, hd, window, causal)
+    (`flash_shapes`).  It wraps the module functions and puts them back on
+    exit; the callers' counts (`moe_serve`, `moe_train_full`,
+    `family_train_full`) fail if a path goes around a wrapper."""
 
     def __init__(self, keep_routes: bool = False):
+        from repro_torch.kernels import ops
         from repro_torch.models import layers, lm, moe
-        self.layers, self.lm, self.moe = layers, lm, moe
+        self.layers, self.lm, self.moe, self.ops = layers, lm, moe, ops
         self.plain_calls, self.ring_calls, self.routed, self.dropped = 0, 0, [], []
         self.routes = [] if keep_routes else None
         self.first_moe = None
+        self.flash_shapes: dict[tuple, int] = {}
 
     def __enter__(self):
         plain, ring = self.layers._plain_attention, self.layers._ring_decode_attend
-        route, layer = self.moe.route, self.lm.moe_layer
-        self._saved = (plain, ring, route, layer)
+        route, layer, flash = self.moe.route, self.lm.moe_layer, self.ops.flash_attention
+        self._saved = (plain, ring, route, layer, flash)
+
+        def shaped_flash(q, k, v, *, causal=True, window=None):
+            key = (*q.shape[:3], k.shape[2], q.shape[3], window, causal)
+            self.flash_shapes[key] = self.flash_shapes.get(key, 0) + 1
+            return flash(q, k, v, causal=causal, window=window)
 
         def counted_plain(*args, **kwargs):
             self.plain_calls += 1
@@ -4165,11 +4224,12 @@ class AttentionTally:
         self.layers._plain_attention = counted_plain
         self.layers._ring_decode_attend = counted_ring
         self.moe.route, self.lm.moe_layer = counted_route, kept_layer
+        self.ops.flash_attention = shaped_flash
         return self
 
     def __exit__(self, *exc):
         (self.layers._plain_attention, self.layers._ring_decode_attend, self.moe.route,
-         self.lm.moe_layer) = self._saved
+         self.lm.moe_layer, self.ops.flash_attention) = self._saved
         return False
 
     def drops(self, first: int = 0, last: int | None = None) -> tuple[int, int]:
@@ -4179,12 +4239,12 @@ class AttentionTally:
 
 
 def flash_at_shape(label: str, case: tuple, kops, kref, seed: int = SEED + 9) -> dict:
-    """Row 12 alone at a main path's prefill shape `case` (B, S, H, KV, hd,
-    window, causal): the kernel against its plain version, its device time
-    behind a spinning kernel and events over a loop, the plain version's
-    time, and the yardstick SDPA (k and v repeated to the query heads; with
-    a window a boolean band mask, else its own causal flag), each output
-    against the plain one, beside the bound."""
+    """Row 12 alone at a main path's shape `case` (B, S, H, KV, hd, window,
+    causal), named by `label`: the kernel against its plain version, its
+    device time behind a spinning kernel and events over a loop, the plain
+    version's time, and the yardstick SDPA (k and v repeated to the query
+    heads; with a window a boolean band mask, else its own causal flag),
+    each output against the plain one, beside the bound."""
     import torch.nn.functional as tF
 
     B, S, H, KV, hd, window, causal = case
@@ -4197,7 +4257,7 @@ def flash_at_shape(label: str, case: tuple, kops, kref, seed: int = SEED + 9) ->
     want = plain()
     shape = (f"B={B} S={S} H={H} KV={KV} hd={hd} window={window}"
              f"{'' if causal else ' causal=False'} {str(dtype)[6:]}")
-    err, row = flash_check(f"{label} shape {shape}", kernel(), want)
+    err, row = flash_check(f"{label}, {shape}", kernel(), want)
     qt = q.transpose(1, 2)
     kt, vt = (t.repeat_interleave(H // KV, dim=2).transpose(1, 2) for t in (k, v))
     if window is None:
@@ -4219,7 +4279,7 @@ def flash_at_shape(label: str, case: tuple, kops, kref, seed: int = SEED + 9) ->
     library_ms, library_dev_ms = cuda_ms(library, 10), device_ms(library, 10)
     bound_ms, bound_by, flops, moved = flash_bound(B, S, H, KV, hd, window, dtype.itemsize,
                                                    causal)
-    print(f"  flash_attention at {label}'s prefill shape ({shape}; "
+    print(f"  flash_attention at {label} ({shape}; "
           f"{flash_pairs(S, window, causal)} pairs a head): kernel {ms:.4f} ms (device "
           f"{dev_ms:.4f} ms), plain {plain_ms:.4f} ms, {kind} {library_ms:.4f} ms (device "
           f"{library_dev_ms:.4f} ms; max |SDPA - plain| {lib_err:.3g}), bound {bound_ms:.4f} "
@@ -4483,7 +4543,7 @@ def moe_path(kops, kref) -> dict:
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
-    out = {"flash_9a": flash_at_shape("9a", FLASH_9A, kops, kref)}
+    out = {"flash_9a": flash_at_shape("9a's prefill shape", FLASH_9A, kops, kref)}
     for key in ("9a", "9b"):
         cfg, params, model = moe_model(key, dev)
         B = MOE_SERVE[key][2]
@@ -4750,8 +4810,8 @@ def family_flash(kops, kref) -> dict:
     FLASH_TOL, at 10b's shape (hd 256, window 2048) in bf16 and 10c's
     (non-causal, S 1500) in bf16, each timed beside its bound and SDPA
     (`flash_at_shape`); and at hd 256 in fp16 and fp32 at a ragged S."""
-    out = {"10b": flash_at_shape("10b", FLASH_10B, kops, kref, seed=SEED + 10),
-           "10c": flash_at_shape("10c", FLASH_10C, kops, kref, seed=SEED + 11)}
+    out = {"10b": flash_at_shape("10b's prefill shape", FLASH_10B, kops, kref, seed=SEED + 10),
+           "10c": flash_at_shape("10c's prefill shape", FLASH_10C, kops, kref, seed=SEED + 11)}
     B, S, H, KV, hd, window, causal = FLASH_10F_SMALL
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     for dt in (torch.float16, torch.float32):
@@ -4928,21 +4988,11 @@ def moe_train_full(kops, kref, smi: str) -> dict:
     tally = AttentionTally(keep_routes=True)
 
     def run():
-        nonlocal params, opt
-        rows = []
         with tally:
-            for i in range(1, MOE_TRAIN_STEPS + 1):
-                batch = data.batch(i)
-                sync()
-                t0 = time.perf_counter()
-                params, opt, mi = step(params, opt, batch, i)
-                sync()
-                rows.append({"step": i, "wall_s": time.perf_counter() - t0,
-                             **{k: float(mi[k]) for k in ("loss", "ce", "aux", "grad_norm",
-                                                          "lr")}})
-        return rows
+            return timed_steps(step, params, opt, data, MOE_TRAIN_STEPS,
+                               ("loss", "ce", "aux", "grad_norm", "lr"))
 
-    rows, launches, plain, _cls = counted(kops, kref, run)
+    (rows, params, opt), launches, plain, _cls = counted(kops, kref, run)
     peak = torch.cuda.max_memory_allocated()
     for r in rows:
         print(f"  step {r['step']}: {r['wall_s']:.4f} s, loss {r['loss']:.5f}, ce "
@@ -5112,15 +5162,16 @@ def moe_train_card_vs_cpu(kops, kref) -> dict:
     return out
 
 
-def moe_flash_grad(kops, kref) -> dict:
-    """Phase 11c: row 12 under autograd, bf16, `flash_grad_check` as 8c at
-    BWD_SHAPE: where mixtral's window bites (FLASH_11C: S = 8192 at a
-    window of 4096), then at 11a's own micro-batch (FLASH_11A: B 1, S =
-    4096 at the window of 4096).  Returns each shape's errors."""
-    gen = torch.Generator(device=torch.device("cuda")).manual_seed(SEED + 11)
+def flash_grad_cases(kops, kref, cases: tuple, seed: int) -> dict:
+    """Row 12 under autograd in bf16, `flash_grad_check` (as 8c at
+    BWD_SHAPE) at each (label, (B, S, H, KV, hd, window)) of `cases`, drawn
+    from `seed`: phase 11c where mixtral's window bites (FLASH_11C: S =
+    8192 at a window of 4096) and at 11a's own micro-batch (FLASH_11A),
+    phase 12f at 12b's, 12c's decoder's and 12d's micro-batches.  Returns
+    each shape's errors."""
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(seed)
     out = {}
-    for label, case in (("11c, mixtral's window at S = 8192", FLASH_11C),
-                        ("11c, 11a's micro-batch", FLASH_11A[:6])):
+    for label, case in cases:
         fwd, errs = flash_grad_check(label, kops, kref, case, torch.bfloat16, gen)
         torch.cuda.empty_cache()
         out["x".join(str(x) for x in case)] = {
@@ -5140,11 +5191,375 @@ def moe_train_path(kops, kref, smi: str) -> dict:
     twin = moe_train_card_vs_cpu(kops, kref)
     print(f"  11c. row 12 under autograd at a window that bites and at 11a's micro-batch "
           f"(card {smi})", flush=True)
-    grad, launches, plain, _cls = counted(kops, kref, lambda: moe_flash_grad(kops, kref))
+    cases = (("11c, mixtral's window at S = 8192", FLASH_11C),
+             ("11c, 11a's micro-batch", FLASH_11A[:6]))
+    grad, launches, plain, _cls = counted(
+        kops, kref, lambda: flash_grad_cases(kops, kref, cases, SEED + 11))
     if (launches["flash_attention"], plain["flash_attention"],
             plain["flash_attention_backward"]) != (2, 2, 2):
         raise AssertionError(f"11c: launches {launches}, plain calls {plain}")
     return {"11a": full, "11b": twin, "11c": {**grad, "launches": launches["flash_attention"]}}
+
+
+# ---------------------------- 12: training the ssm, hybrid, encdec and vlm families
+# Phase 12 trains the four families on the card, on `DataPipeline`'s own
+# stream: train_4k's S of 4096 with the global batch cut from 256 to 8 (the
+# encdec's 8 x 1500 frames and the vlm's 8 x 1024 patches drawn from the
+# tokens' key, the vlm's tokens cut to 3072), bf16, AdamW with fp32
+# moments, remat "block", a peak lr of 3e-5 after 2 warm-up steps (phase
+# 11a's).  Depths cut by 11a's 20.4 B a parameter (64.59 GB at 3.165 B):
+# recurrentgemma-9b to one super-block (3 of 38 layers: 2.75 B parameters
+# with its untied 256,000 x 4096 embedding and head, about 56 GB),
+# pixtral-12b to 4 of 40 layers (2.43 B, about 50 GB); mamba2-130m and
+# whisper-medium whole.  12e: the four reduced, card against CPU; 12f: row
+# 12 under autograd at the micro-batch shapes of 12b-12d.
+FAMILY_TRAIN = {
+    # key: (arch, layers kept (None: all), row 12's shapes a micro-batch)
+    "12a": ("mamba2-130m", None, ()),
+    "12b": ("recurrentgemma-9b", 3, (FLASH_12B,)),
+    "12c": ("whisper-medium", None, (FLASH_10C, FLASH_12C)),
+    "12d": ("pixtral-12b", 4, (FLASH_12D,)),
+}
+FAMILY_TRAIN_STEPS = 3              # timed, after one warm-up step
+FAMILY_TRAIN_LR, FAMILY_TRAIN_WARMUP = 3e-5, 2
+# 12e: (B, S, num_micro) and steps of each reduced config: S past the
+# hybrid's window of 64, a multiple of the ssm's chunk of 32, not the
+# encdec's 32 frames (its cross attention plain), the vlm's 16 patches
+# and 80 tokens; MOE_TWIN_KW's schedule; losses within MOE_TWIN_LOSS_RTOL
+# and parameters within FAMILY_TWIN_TOL relative L2 (fp32 sums in another
+# order, 11b's tolerance)
+FAMILY_TWIN_SHAPE, FAMILY_TWIN_STEPS, FAMILY_TWIN_TOL = (4, 96, 2), 2, 1e-4
+
+
+def flash_train_shapes(cfg, B: int, S: int) -> dict:
+    """Row 12's launches a training micro-batch of B x S positions, by
+    shape (B, S, H, KV, hd, window, causal), under remat "block": two an
+    attention layer (the forward and the recompute): the hybrid's
+    attention layers at its window, the encoder's self-attention
+    (non-causal, over the frames) and the decoder's, every layer of the
+    others; none for the ssm family."""
+    if cfg.remat != "block":
+        raise AssertionError(f"{cfg.name}: remat {cfg.remat!r}, not 'block'")
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    if cfg.family == "ssm":
+        return {}
+    if cfg.family == "hybrid":
+        return {(B, S, H, KV, hd, cfg.rglru.window, True): 2 * attention_layers(cfg)}
+    if cfg.family == "encdec":
+        return {(B, cfg.encoder_seq, H, KV, hd, None, False): 2 * cfg.encoder_layers,
+                (B, S, H, KV, hd, None, True): 2 * cfg.num_layers}
+    return {(B, S, H, KV, hd, cfg.window, True): 2 * cfg.num_layers}
+
+
+def family_train_flops(cfg, params, B: int, S: int) -> dict:
+    """Model FLOPs of one phase-12 step over B sequences of S positions (the
+    vlm's S counts its patches): "matmuls", 6 N T, N the parameters a
+    position runs through (the encoder's over the B x encoder_seq frames,
+    the rest over the B x S positions; forward 2 N, backward 4 N, the
+    remat recompute not counted); "attention", 12 H hd an unmasked
+    (query, key) pair a layer (the hybrid's attention layers in its
+    window; the encoder's non-causal pairs, the decoder's causal ones and
+    its cross attention's S x encoder_seq; every layer's causal pairs
+    otherwise); and for the ssm family "ssd", the chunked scan's products
+    that 6 N T leaves out, 6 L T (l N + l H P + 2 N H P) with l the chunk
+    (C.B within a chunk, its masked product with x, the chunk states and
+    their read-out), which the FLOP share leaves out too."""
+    H, hd, T = cfg.num_heads, cfg.resolved_head_dim, B * S
+    n_enc = sum(p.numel() for name, p in params.named_parameters()
+                if name.split(".")[0] in ("enc", "enc_norm"))
+    n = sum(p.numel() for p in params.parameters())
+    out = {"matmuls": 6 * (n - n_enc) * T + 6 * n_enc * B * cfg.encoder_seq, "attention": 0,
+           "ssd": 0}
+    pair = 12 * H * hd * B
+    if cfg.family == "hybrid":
+        out["attention"] = pair * attention_layers(cfg) * flash_pairs(S, cfg.rglru.window)
+    elif cfg.family == "encdec":
+        Se = cfg.encoder_seq
+        out["attention"] = pair * (cfg.encoder_layers * flash_pairs(Se, None, causal=False)
+                                   + cfg.num_layers * (flash_pairs(S, None) + S * Se))
+    elif cfg.family == "ssm":
+        s = cfg.ssm
+        HP = s.expand * cfg.d_model
+        out["ssd"] = 6 * cfg.num_layers * T * (s.chunk * s.d_state + s.chunk * HP
+                                               + 2 * s.d_state * HP)
+    else:
+        out["attention"] = pair * cfg.num_layers * flash_pairs(S, cfg.window)
+    return out
+
+
+def family_train_full(key: str, kops, kref, smi: str) -> dict:
+    """Phase 12a-12d: make_train_step over DataPipeline batches of the
+    family's config at full width (its depth cut as FAMILY_TRAIN says),
+    one warm-up step and FAMILY_TRAIN_STEPS timed, counted under an
+    `AttentionTally`: each step's wall (host clock ending in a
+    synchronize), loss, ce and grad_norm, all finite; tokens per second
+    (the vlm's tokens, not its patches; the encdec's frames a second
+    beside them), the model FLOP share of 989 TFLOP/s
+    (`family_train_flops`), peak memory.  Fails unless row 12 launched at
+    each shape of FAMILY_TRAIN (which `flash_train_shapes` must give) as
+    often as predicted (two an attention layer a micro-batch), its plain
+    version never, the plain backward once an attention layer a
+    micro-batch, and `_plain_attention` only for the encdec's cross
+    attention (twice a layer a micro-batch).  Then one step profiled
+    (`train_breakdown`: the plain attention backward's share)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.train import default_num_micro, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import SHAPES, ShapeConfig
+    from repro_torch.optim import init_opt_state
+
+    arch, layers, flash_shapes = FAMILY_TRAIN[key]
+    dev = torch.device("cuda")
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    num_micro = default_num_micro(cfg, shape)
+    cut = ([] if layers is None else [f"{full.num_layers} -> {layers} layers"]) + \
+        [f"global batch {SHAPES['train_4k'].global_batch} -> {TRAIN_BATCH}"]
+    per_micro = flash_train_shapes(cfg, TRAIN_BATCH // num_micro, TRAIN_SEQ)
+    if set(per_micro) != set(flash_shapes):
+        raise AssertionError(f"{key}: row 12's shapes {sorted(per_micro, key=str)} are not "
+                             f"FAMILY_TRAIN's {flash_shapes}, the shapes 2a and 12f hold it at")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device=dev)
+    opt = init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype)
+    sync()
+    draw = time.perf_counter() - t
+    n = sum(p.numel() for p in params.parameters())
+    data = DataPipeline(cfg, shape, seed=SEED, device=dev)
+    step = make_train_step(cfg, num_micro=num_micro, lr=FAMILY_TRAIN_LR,
+                           warmup=FAMILY_TRAIN_WARMUP, total_steps=FAMILY_TRAIN_STEPS + 2)
+    print(f"  {key}: {arch} at full width ({cfg.family}: d {cfg.d_model}, {cfg.num_layers} "
+          f"layers{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads, hd {cfg.resolved_head_dim}, vocab "
+          f"{cfg.vocab_size}), {cfg.dtype}, {cfg.optimizer} with {cfg.opt_state_dtype} moments, "
+          f"remat {cfg.remat}; peak lr {FAMILY_TRAIN_LR:g} after {FAMILY_TRAIN_WARMUP} warm-up "
+          f"steps; seq {TRAIN_SEQ} (train_4k), num_micro {num_micro} (default_num_micro); cut: "
+          f"{', '.join(cut)}; {n:,} parameters, drawn with the optimizer state in {draw:.2f} s",
+          flush=True)
+    batch0 = data.batch(0)
+    t = time.perf_counter()
+    params, opt, m0 = step(params, opt, batch0, 0)
+    sync()
+    warm = time.perf_counter() - t
+    print(f"  warm-up step 0: {warm:.3f} s, loss {float(m0['loss']):.4f}; the batch: "
+          + ", ".join(f"{k} {tuple(v.shape)} {str(v.dtype)[6:]}" for k, v in batch0.items()),
+          flush=True)
+    del batch0
+    torch.cuda.reset_peak_memory_stats()
+    tally = AttentionTally()
+
+    def run():
+        with tally:
+            return timed_steps(step, params, opt, data, FAMILY_TRAIN_STEPS,
+                               ("loss", "ce", "grad_norm", "lr"))
+
+    (rows, params, opt), launches, plain, _cls = counted(kops, kref, run)
+    peak = torch.cuda.max_memory_allocated()
+    for r in rows:
+        print(f"  step {r['step']}: {r['wall_s']:.4f} s, loss {r['loss']:.5f}, ce {r['ce']:.5f}, "
+              f"grad_norm {r['grad_norm']:.5f}, lr {r['lr']:.3g}", flush=True)
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce", "grad_norm")):
+            raise AssertionError(f"{key}: step {r['step']}: a metric is not finite: {r}")
+    P = min(cfg.num_patches, TRAIN_SEQ // 2) if cfg.family == "vlm" else 0
+    tokens = TRAIN_BATCH * (TRAIN_SEQ - P)
+    flops = family_train_flops(cfg, params, TRAIN_BATCH, TRAIN_SEQ)
+    model_flops = flops["matmuls"] + flops["attention"]
+    wall = float(np.median([r["wall_s"] for r in rows]))
+    steps = FAMILY_TRAIN_STEPS
+    want_shapes = {s: c * num_micro * steps for s, c in per_micro.items()}
+    want_launches = sum(want_shapes.values())
+    want_bwd = want_launches // 2
+    want_plain = 2 * cfg.num_layers * num_micro * steps if cfg.family == "encdec" else 0
+    rates = f"{tokens / wall:,.0f} tokens/s"
+    if P:
+        rates += f" ({TRAIN_BATCH * TRAIN_SEQ / wall:,.0f} positions/s with the {P} patches)"
+    if cfg.family == "encdec":
+        rates += f", {TRAIN_BATCH * cfg.encoder_seq / wall:,.0f} frames/s"
+    left_out = (f"; the SSD's chunked products, which 6 N T leaves out: {flops['ssd']:.4g} a "
+                f"step ({flops['ssd'] / model_flops:.1%} more)" if flops["ssd"] else "")
+    print(f"  {key} median step {wall:.4f} s: {rates}; model FLOPs {model_flops:.4g} a step "
+          f"(6 N T = {flops['matmuls']:.4g}, N = {n:,}; attention's 12 H hd a pair a layer = "
+          f"{flops['attention']:.4g}{left_out}): {model_flops / wall / 1e12:.1f} TFLOP/s, "
+          f"{model_flops / wall / TC_FLOPS_PER_S:.1%} of {TC_FLOPS_PER_S / 1e12:.0f} TFLOP/s; "
+          f"peak device memory {peak:,} B ({peak / 2 ** 30:.2f} GiB); flash_attention launches "
+          f"{launches['flash_attention']} in {steps} steps (want {want_launches}), by shape "
+          f"{tally.flash_shapes}; plain calls {plain} (want {want_bwd} backwards); "
+          f"_plain_attention {tally.plain_calls} (want {want_plain}) (card {smi})", flush=True)
+    if (launches["flash_attention"] != want_launches or tally.flash_shapes != want_shapes
+            or plain["flash_attention"] or plain["flash_attention_backward"] != want_bwd
+            or tally.plain_calls != want_plain):
+        raise AssertionError(f"{key}: flash_attention launched {launches['flash_attention']} "
+                             f"times by shape {tally.flash_shapes} (want {want_shapes}); plain "
+                             f"calls {plain} (want no forward, {want_bwd} backwards); "
+                             f"_plain_attention {tally.plain_calls} (want {want_plain})")
+    breakdown, params, opt = train_breakdown(step, params, opt, data.batch(steps + 1), steps + 1,
+                                             attention=bool(per_micro))
+    bwd_ms = breakdown["ranges_device_ms"].get("plain attention backward")
+    if bwd_ms is not None and breakdown["device_ms"]:
+        print(f"  {key}: the plain attention backward: {bwd_ms:.1f} of the profiled step's "
+              f"{breakdown['device_ms']:.1f} ms of kernels "
+              f"({bwd_ms / breakdown['device_ms']:.1%})", flush=True)
+    shapes = {"x".join(map(str, k)): v for k, v in tally.flash_shapes.items()}
+    plain_calls = tally.plain_calls
+    del params, opt, step, data, tally
+    torch.cuda.empty_cache()
+    return {"arch": arch, "cut": cut, "parameters": n, "dtype": cfg.dtype, "lr": FAMILY_TRAIN_LR,
+            "warmup_loss": float(m0["loss"]), "warmup_s": warm, "draw_s": draw, "steps": rows,
+            "median_wall_s": wall, "tokens_per_s": tokens / wall, "model_flops": model_flops,
+            "flops": flops, "flop_share": model_flops / wall / TC_FLOPS_PER_S,
+            "peak_bytes": peak, "num_micro": num_micro, "seq": TRAIN_SEQ,
+            "global_batch": TRAIN_BATCH, "patches": P, "launches": launches["flash_attention"],
+            "launches_a_step": launches["flash_attention"] / steps,
+            "flash_shapes": shapes, "plain_backward_calls": plain["flash_attention_backward"],
+            "plain_attention_calls": plain_calls, "breakdown": breakdown}
+
+
+def family_train_card_vs_cpu() -> dict:
+    """Phase 12e: the four families reduced, in fp32 (no TF32), from the same
+    weights and `synthetic_batch`es (FAMILY_TWIN_SHAPE: the frames and
+    patches of the stream, drawn on the CPU) on both devices:
+    FAMILY_TWIN_STEPS steps of make_train_step on each, every step's loss
+    within MOE_TWIN_LOSS_RTOL and every parameter after them within
+    FAMILY_TWIN_TOL in relative L2.  Returns each config's differences
+    (the caller counts row 12 and the plain versions)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import init_opt_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, S, num_micro = FAMILY_TWIN_SHAPE
+    out = {}
+    for arch, _layers, _shapes in FAMILY_TRAIN.values():
+        cfg = dataclasses.replace(reduced(get_config(arch)), dtype="float32")
+        weights = convert.lm_params_to_reference(init_params(cfg, seed=SEED, device="cpu"))
+        batches = [synthetic_batch(cfg, ShapeConfig("t", S, B, "train"), seed=SEED, step=i,
+                                   device="cpu") for i in range(FAMILY_TWIN_STEPS)]
+
+        def run(dev, cfg=cfg, weights=weights, batches=batches):
+            model = convert.lm_params_from_reference(cfg, weights, device=dev)
+            opt = init_opt_state(model, cfg.optimizer, cfg.opt_state_dtype)
+            step = make_train_step(cfg, num_micro=num_micro, **MOE_TWIN_KW)
+            losses = []
+            for i, b in enumerate(batches):
+                model, opt, mi = step(model, opt, {k: v.to(dev) for k, v in b.items()}, i)
+                losses.append(float(mi["loss"]))
+            return losses, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+        card, card_p = run("cuda")
+        host, host_p = run("cpu")
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(card, host, strict=True))
+        worst = max(host_p, key=lambda n: _rel_l2(card_p[n], host_p[n]))
+        param_err = _rel_l2(card_p[worst], host_p[worst])
+        print(f"  12e {arch} reduced, fp32, {FAMILY_TWIN_STEPS} steps of make_train_step (B {B}, "
+              f"S {S}, num_micro {num_micro}; {', '.join(sorted(batches[0]))}), card against "
+              f"CPU: losses {[round(x, 6) for x in card]}, max relative difference "
+              f"{loss_err:.3g} (tolerance {MOE_TWIN_LOSS_RTOL}); parameters after them, max "
+              f"relative L2 difference {param_err:.3g} ({worst}; tolerance {FAMILY_TWIN_TOL})",
+              flush=True)
+        if loss_err > MOE_TWIN_LOSS_RTOL or param_err > FAMILY_TWIN_TOL:
+            raise AssertionError(f"12e {arch}: card against CPU: losses {card} vs {host}, "
+                                 f"parameters {param_err} ({worst})")
+        out[arch] = {"losses_card": card, "losses_cpu": host, "max_rel_loss_err": loss_err,
+                     "max_rel_param_err": param_err, "worst_leaf": worst}
+    return out
+
+
+def flash_train_times(label: str, case: tuple, kops, seed: int) -> dict:
+    """Row 12 under autograd at `case` (B, S, H, KV, hd, window, causal) in
+    bf16: `FlashAttentionFn`'s forward and backward (the kernel, then the
+    plain backward) and SDPA's forward and backward (GQA by `enable_gqa`;
+    a boolean band mask with a window, else its own causal flag), each by
+    CUDA events over a loop (`cuda_ms`), the gradients accumulating."""
+    import torch.nn.functional as tF
+
+    B, S, H, KV, hd, window, causal = case
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(B, S, n, hd, generator=gen, device=dev).to(torch.bfloat16)
+               .requires_grad_() for n in (H, KV, KV))
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev).to(torch.bfloat16)
+    qt, kt, vt = (t.detach().transpose(1, 2).requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    mask = None
+    if window is not None:
+        qpos = torch.arange(S, device=dev)
+        mask = qpos[None, :] > qpos[:, None] - window
+        if causal:
+            mask &= qpos[None, :] <= qpos[:, None]
+
+    def ours():
+        kops.FlashAttentionFn.apply(q, k, v, causal, window).backward(do)
+
+    def library():
+        out = tF.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              is_causal=causal and mask is None, enable_gqa=True)
+        out.backward(dot)
+
+    ms, library_ms = cuda_ms(ours, 3), cuda_ms(library, 5)
+    print(f"  {label}: forward and backward, FlashAttentionFn (the kernel, the plain backward) "
+          f"{ms:.4f} ms, SDPA{' with a boolean band mask' if mask is not None else ''} "
+          f"{library_ms:.4f} ms ({ms / library_ms:.1f} times)", flush=True)
+    del q, k, v, qt, kt, vt, do, dot, mask
+    torch.cuda.empty_cache()
+    return {"fwd_bwd_ms": ms, "library_fwd_bwd_ms": library_ms}
+
+
+def family_train_path(kops, kref, smi: str) -> dict:
+    """Phase 12: 12a-12d, each counted on its own (`family_train_full`);
+    12e counted (row 12 launched on the card as often as its plain version
+    runs on the CPU, 2 x attention layers x num_micro x steps, and the plain
+    backward half that on each); 12f's gradient checks counted (row 12,
+    its plain forward and the plain backward once a shape), then row 12
+    timed at each shape (`flash_at_shape`: forward against its plain
+    version, SDPA and the bound; `flash_train_times`: forward and
+    backward).  Returns their facts."""
+    from repro_torch.configs import get_config, reduced
+
+    out = {}
+    for key, (arch, _layers, _shapes) in FAMILY_TRAIN.items():
+        print(f"  {key}. make_train_step, {arch} at full width (card {smi})", flush=True)
+        out[key] = family_train_full(key, kops, kref, smi)
+    print(f"  12e. reduced, card against CPU (card {smi})", flush=True)
+    twin, launches, plain, _cls = counted(kops, kref, family_train_card_vs_cpu)
+    B, S, num_micro = FAMILY_TWIN_SHAPE
+    n12e = FAMILY_TWIN_STEPS * num_micro * sum(
+        sum(flash_train_shapes(reduced(get_config(arch)), B // num_micro, S).values())
+        for arch, _layers, _shapes in FAMILY_TRAIN.values())
+    counts = (launches["flash_attention"], plain["flash_attention"],
+              plain["flash_attention_backward"])
+    print(f"  12e: flash_attention launched {counts[0]} times on the card, its plain version "
+          f"{counts[1]} times on the CPU, the plain backward {counts[2]} times (want {n12e}, "
+          f"{n12e}, {n12e})", flush=True)
+    if counts != (n12e, n12e, n12e):
+        raise AssertionError(f"12e: row 12 and the plain versions {counts}, want {n12e} "
+                             f"launches, {n12e} plain forwards and {n12e} plain backwards")
+    out["12e"] = {**twin, "launches": counts[0], "cpu_plain": counts[1],
+                  "plain_backward": counts[2]}
+    print(f"  12f. row 12 under autograd at 12b's, 12c's decoder's and 12d's micro-batches "
+          f"(card {smi})", flush=True)
+    cases = (("12f, 12b's micro-batch", FLASH_12B[:6]), ("12f, 12c's decoder", FLASH_12C[:6]),
+             ("12f, 12d's micro-batch", FLASH_12D[:6]))
+    grad, launches, plain, _cls = counted(
+        kops, kref, lambda: flash_grad_cases(kops, kref, cases, SEED + 12))
+    if (launches["flash_attention"], plain["flash_attention"],
+            plain["flash_attention_backward"]) != (3, 3, 3):
+        raise AssertionError(f"12f: launches {launches}, plain calls {plain}")
+    times = {}
+    for i, (key, case) in enumerate((("12b", FLASH_12B), ("12c", FLASH_12C),
+                                      ("12d", FLASH_12D))):
+        label = f"{key}'s training micro-batch shape"
+        times[key] = {**flash_at_shape(label, case, kops, kref, seed=SEED + 13 + i),
+                      **flash_train_times(label, case, kops, seed=SEED + 13 + i)}
+    out["12f"] = {**grad, "launches": launches["flash_attention"], "times": times}
+    return out
 
 
 def marker_sweep_only(smi: str) -> int:
@@ -5312,6 +5727,10 @@ def main() -> int:
     print(f"== 11. training the moe family on the card (card {smi})", flush=True)
     moe_trained = moe_train_path(kops, kref, smi)
 
+    print(f"== 12. training the ssm, hybrid, encdec and vlm families on the card (card {smi})",
+          flush=True)
+    family_trained = family_train_path(kops, kref, smi)
+
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
     print(f"  kernel launches in phase 3c: {launches_c}; plain calls: {plain_calls_c}",
@@ -5462,6 +5881,15 @@ def main() -> int:
           f"forwards 0, plain backwards {m11['plain_backward_calls']}; 11b on the card "
           f"{moe_trained['11b'][MOE_TRAIN_ARCH]['card_launches']}; 11c "
           f"{moe_trained['11c']['launches']}", flush=True)
+    for key in FAMILY_TRAIN:
+        f12 = family_trained[key]
+        print(f"  phase {key}: flash_attention launched {f12['launches']} times in "
+              f"{FAMILY_TRAIN_STEPS} steps ({f12['launches_a_step']:g} a step: forward and the "
+              f"remat recompute, by shape {f12['flash_shapes']}); plain forwards 0, plain "
+              f"backwards {f12['plain_backward_calls']}, _plain_attention "
+              f"{f12['plain_attention_calls']}", flush=True)
+    print(f"  phase 12e: flash_attention launched {family_trained['12e']['launches']} times on "
+          f"the card; 12f {family_trained['12f']['launches']}", flush=True)
     kernels.append({
         "name": "flash_attention_kernel", "route": "cuda", "source": FLASH_SOURCE,
         "replaces": FLASH_REPLACES, "launches": served["6a"][1]["flash_attention"],
@@ -5477,9 +5905,16 @@ def main() -> int:
            for k in (*FAMILY_SERVE, "10e", "10f")},
         "launches_phase11a": m11["launches"], "launches_phase11a_a_step": m11["launches_a_step"],
         "launches_phase11b": moe_trained["11b"][MOE_TRAIN_ARCH]["card_launches"],
-        "launches_phase11c": moe_trained["11c"]["launches"], **flash,
+        "launches_phase11c": moe_trained["11c"]["launches"],
+        **{f"launches_phase{k}": family_trained[k]["launches"] for k in FAMILY_TRAIN},
+        **{f"launches_phase{k}_a_step": family_trained[k]["launches_a_step"]
+           for k in FAMILY_TRAIN},
+        "launches_phase12e": family_trained["12e"]["launches"],
+        "launches_phase12f": family_trained["12f"]["launches"], **flash,
         "shape_9a": moe_runs["flash_9a"], "shape_10b": family_runs["10f"][0]["10b"],
         "shape_10c": family_runs["10f"][0]["10c"], "autograd_11c": moe_trained["11c"],
+        **{f"shape_{k}": v for k, v in family_trained["12f"]["times"].items()},
+        "autograd_12f": {k: v for k, v in family_trained["12f"].items() if k != "times"},
         "hd256_small": {k: v for k, v in family_runs["10f"][0].items() if k.startswith("hd256")},
         "serve": {k: v[0] for k, v in served.items()},
         "moe_serve": {k: moe_runs[k][0] for k in ("9a", "9b", "9c")},
@@ -5488,7 +5923,8 @@ def main() -> int:
                                   "3r_faults": chaos,
                                   "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},
                       "examples": examples["facts"], "train": trained,
-                      "moe_train": {k: moe_trained[k] for k in ("11a", "11b")}}))
+                      "moe_train": {k: moe_trained[k] for k in ("11a", "11b")},
+                      "family_train": {k: family_trained[k] for k in (*FAMILY_TRAIN, "12e")}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,7 +6,7 @@ a benchmark `ShapeConfig`, and `cell_supported` whether an (arch, shape)
 cell runs: long_500k only for sub-quadratic archs (SSM / hybrid /
 sliding-window).  The JAX package's `input_specs` and `all_cells`, which
 build `jax.ShapeDtypeStruct` stand-ins for its dry-run tooling, wait for
-that tooling's port (ROADMAP.md §1, slice 7).
+that tooling's port (ROADMAP.md §1, item 6: the launch tooling).
 """
 
 from __future__ import annotations

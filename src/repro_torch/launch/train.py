@@ -20,7 +20,7 @@ from __future__ import annotations
 import torch
 
 from ..models.config import ModelConfig, ShapeConfig
-from ..models.lm import check_trained, init_params, loss_fn
+from ..models.lm import init_params, loss_fn
 from ..optim import (adafactor_update, adamw_update, apply_updates, clip_by_global_norm,
                      cosine_schedule, init_opt_state)
 
@@ -57,9 +57,9 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
     "loss", "grad_norm", "lr"} and "mtp" with the multi-token-prediction
     head, as 0-d fp32 tensors (loss, ce, aux and mtp the means over the
     microbatches).  The optimizer is `cfg.optimizer`'s, as in the JAX
-    package: AdamW, or else Adafactor.  Raises NotImplementedError for a
-    family whose training is not ported (`models.lm.check_trained`)."""
-    check_trained(cfg)
+    package: AdamW, or else Adafactor.  Every family trains; a batch's
+    leaves (tokens, and the encdec family's frames or the vlm family's
+    patches) are each cut into the microbatches along their first axis."""
     acc_dt = torch.bfloat16 if cfg.grad_acc_dtype == "bfloat16" else torch.float32
 
     def train_step(params, opt_state, batch, step):

@@ -32,16 +32,15 @@ multi-token-prediction head's cross-entropy) and `cfg.remat`, read where
 a forward records a graph: "none" keeps every activation, "block" and
 "full" recompute each `Block` in the backward
 (`torch.utils.checkpoint`, non-reentrant), as the JAX package's
-`jax.checkpoint` per scanned layer does.  The dense and moe families
-train.
+`jax.checkpoint` per scanned layer does.  Every family trains: the vlm
+family's loss drops the patch positions before the cross-entropy, and the
+encdec family's gradients reach the encoder through each decoder block's
+cross attention.
 
-Not ported yet, each raising NotImplementedError that names its ROADMAP
-item (`ROADMAP.md` §1):
-- item 4b (slice 7c): the training of the ssm, hybrid, encdec and vlm
-  families (`loss_fn` and `launch.train.make_train_step`);
-- item 6 (the launch tooling): `remat="dots"`, the training-side
-  activation sharding (`set_activation_spec`), and the all-to-all MoE
-  dispatch (`moe_a2a`), which needs a mesh.
+Not ported yet, each raising NotImplementedError that names ROADMAP.md §1
+item 6 (the launch tooling): `remat="dots"`, the training-side activation
+sharding (`set_activation_spec`), and the all-to-all MoE dispatch
+(`moe_a2a`), which needs a mesh.
 """
 
 from __future__ import annotations
@@ -60,8 +59,8 @@ from .rglru import rglru_layer
 from .ssm import mamba2_layer
 
 __all__ = ["LM", "Block", "init_params", "init_cache", "embed", "unembed", "forward",
-           "decode_step", "chunked_ce", "loss_fn", "check_ported", "check_trained",
-           "decoder_kind", "set_activation_spec", "STACKED"]
+           "decode_step", "chunked_ce", "loss_fn", "check_ported", "decoder_kind",
+           "set_activation_spec", "STACKED"]
 
 _FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
 # The JAX tree's roots whose leaves are stacked on a leading layer axis (the
@@ -72,25 +71,13 @@ STACKED = ("layers", "super", "tail", "enc", "dec")
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise ValueError for a family the JAX package does not have.  Every
-    family of it serves: GQA (qk-norm, windows and their ring cache) or
-    MLA, SwiGLU or sort-based MoE, Mamba-2, RG-LRU with local attention,
-    encoder-decoder, patch prefixes.  What of a config still raises is
-    named where it does: training of the ssm, hybrid, encdec and vlm
-    families (`loss_fn`, `launch.train.make_train_step`; item 4b),
-    `remat="dots"`, `set_activation_spec` and `moe_a2a` (item 6)."""
+    family of it serves and trains: GQA (qk-norm, windows and their ring
+    cache) or MLA, SwiGLU or sort-based MoE, Mamba-2, RG-LRU with local
+    attention, encoder-decoder, patch prefixes.  What of a config still
+    raises is named where it does: `remat="dots"`, `set_activation_spec`
+    and `moe_a2a` (ROADMAP.md §1, item 6)."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not one of {_FAMILIES}")
-
-
-def check_trained(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError, naming ROADMAP.md §1 item 4b, for a family
-    whose training is not ported (no family trains without a parity test
-    of its gradients against `jax.grad`): every family but the dense and
-    moe ones."""
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family's training is not "
-                                  "ported yet (ROADMAP.md §1, item 4b (slice 7c): the training "
-                                  "of the ssm, hybrid, encdec and vlm families)")
 
 
 def set_activation_spec(spec) -> None:
@@ -581,19 +568,21 @@ def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor, targets: torc
 def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     """Next-token cross-entropy of batch["tokens"] (B, S), each position
     predicting the next (the last position masked), times batch["mask"]
-    where given, plus 0.01 times the MoE layers' summed aux loss (0 for
-    the dense family).  With `cfg.mtp_depth`, also 0.3 times the
-    multi-token-prediction cross-entropy, as the JAX package computes it:
+    where given, plus 0.01 times the MoE layers' summed aux loss (0
+    without MoE).  The vlm family's hidden states at its patch positions
+    (batch["patches"], prepended by `forward`) are dropped first, as the
+    JAX package drops them: only tokens are predicted.  With
+    `cfg.mtp_depth`, also 0.3 times the multi-token-prediction
+    cross-entropy, as the JAX package computes it:
     the final hidden states beside the embeddings of the next tokens,
     through `mtp_proj`, `mtp_block` (no cache, no remat; its aux loss is
     dropped) and `mtp_norm`, each position predicting the token two ahead
     (the last two positions masked).  Returns (loss, {"ce", "aux"} and
-    "mtp" with the head), 0-d fp32 tensors.  Raises NotImplementedError
-    for the ssm, hybrid, encdec and vlm families (`check_trained`;
-    ROADMAP.md §1, item 4b)."""
-    check_trained(cfg)
+    "mtp" with the head), 0-d fp32 tensors."""
     tokens = batch["tokens"]
     hidden, aux, _ = forward(cfg, params, batch)
+    if cfg.family == "vlm" and "patches" in batch:
+        hidden = hidden[:, batch["patches"].shape[1]:]
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0

@@ -57,10 +57,14 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     dA = dtc * A[None, None, None, :]                     # (B, nc, l, H) log-decay <= 0
     cums = torch.cumsum(dA, dim=2)                        # inclusive, within a chunk
 
-    # intra-chunk: y_i = sum_{j <= i} (C_i . B_j) exp(cums_i - cums_j) dt_j x_j
+    # intra-chunk: y_i = sum_{j <= i} (C_i . B_j) exp(cums_i - cums_j) dt_j x_j.
+    # Above the diagonal diff > 0 grows with the chunk (past 88 fp32's exp
+    # overflows); it is masked to -inf before the exponential, so those
+    # entries are exactly 0 and their gradient 0, not 0 x inf = NaN (the
+    # reference masks after it: ROADMAP.md §3, item 3)
     diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]           # (B, nc, l, l, H)
-    mask = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).tril()
-    L = torch.where(mask[None, None, :, :, None], torch.exp(diff), 0.0)
+    above = torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device).triu(1)
+    L = torch.exp(diff.masked_fill(above[None, None, :, :, None], float("-inf")))
     del diff
     CB = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     M = CB[..., None] * L * dtc[:, :, None, :, :]          # (B, nc, i, j, H)

@@ -26,7 +26,6 @@ from dataclasses import dataclass, replace
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import repro.configs as jconfigs
@@ -38,6 +37,7 @@ from repro_torch import convert
 from repro_torch.launch.train import make_train_step
 from repro_torch.models import decode_step, forward, init_cache, init_params, loss_fn
 from repro_torch.models.lm import unembed
+from repro_torch.optim import init_opt_state
 
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 B = 2
@@ -192,13 +192,20 @@ def check_round_trip(arch: str, num_layers: int | None = None):
         assert str(got.dtype).split(".")[-1] == str(np.asarray(want).dtype)
 
 
-def check_training_raises(arch: str):
-    """`loss_fn` and `make_train_step` refuse the family, naming ROADMAP's
-    training item; serving the same config runs."""
+def check_training_runs(arch: str):
+    """The reduced config in its own bf16 on the CPU: `loss_fn` gives a
+    finite loss and ce, and one step of `make_train_step` (2 micro-batches,
+    the frames or patches cut with the tokens) finite metrics and finite,
+    changed parameters (the parity with the JAX package is held in
+    `tests/test_torch_train_<family>.py`)."""
     cfg = tconfigs.reduced(tconfigs.get_config(arch))
     params = init_params(cfg, seed=0, device="cpu")
-    batch = _torch_batch(inputs(cfg, 8), 8)
-    with pytest.raises(NotImplementedError, match=f"{cfg.family} family's training.*ROADMAP"):
-        loss_fn(cfg, params, batch)
-    with pytest.raises(NotImplementedError, match=f"{cfg.family} family's training.*ROADMAP"):
-        make_train_step(cfg)
+    batch = _torch_batch(inputs(cfg, 32), 32)
+    loss, m = loss_fn(cfg, params, batch)
+    assert torch.isfinite(loss) and torch.isfinite(m["ce"]) and float(m["aux"]) == 0.0
+    before = {n: p.detach().clone() for n, p in params.named_parameters()}
+    params, _opt, m = make_train_step(cfg, num_micro=2, lr=1e-3, warmup=1)(
+        params, init_opt_state(params), batch, 1)     # step 0 of the warm-up has lr 0
+    assert all(torch.isfinite(v) for v in m.values()), m
+    assert all(torch.isfinite(p).all() for p in params.parameters())
+    assert any(not torch.equal(p, before[n]) for n, p in params.named_parameters())

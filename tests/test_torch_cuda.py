@@ -875,6 +875,12 @@ FLASH_CASES = [
     # mixtral-8x7b's training micro-batch (chip_smoke.py phase 11a): B 1, a
     # window of 4096 at S = 4096
     (1, 4096, 32, 8, 128, 4096, True),
+    # the training micro-batches of phase 12: recurrentgemma-9b's local
+    # attention (12b), whisper-medium's decoder (12c; its encoder is 10c's
+    # shape above) and pixtral-12b's 1024 patches + 3072 tokens (12d)
+    (1, 4096, 16, 1, 256, 2048, True),
+    (8, 4096, 16, 16, 64, None, True),
+    (1, 4096, 32, 8, 128, None, True),
 ]
 
 

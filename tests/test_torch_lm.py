@@ -49,8 +49,9 @@ from repro_torch.models.lm import set_activation_spec, unembed
 
 DENSE = ["qwen3-1.7b", "olmo-1b", "phi3-mini-3.8b"]
 MOE = ["mixtral-8x7b", "deepseek-v3-671b"]
-# served since the ssm, hybrid, encdec and vlm slice; their training is not ported
-SERVED_ONLY = ["whisper-medium", "recurrentgemma-9b", "mamba2-130m", "pixtral-12b"]
+# the ssm, hybrid, encdec and vlm families (served since PR 30's slice,
+# trained since PR 32's)
+OTHER_FAMILIES = ["whisper-medium", "recurrentgemma-9b", "mamba2-130m", "pixtral-12b"]
 TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 B, S, N_DEC, CACHE = 2, 24, 3, 32
 # (sequence, cache) of the moe family: past reduced mixtral's window of 64
@@ -333,21 +334,30 @@ def test_convert_round_trips_the_reference_tree(arch):
 
 
 # ----------------------------------------------------------- not yet ported
-@pytest.mark.parametrize("arch", SERVED_ONLY)
-def test_unported_families_raise(arch):
+@pytest.mark.parametrize("arch", OTHER_FAMILIES)
+def test_other_families_train_on_the_data_stream(arch):
     """The ssm, hybrid, encdec and vlm families serve (their parameters and
-    cache build; parity in `tests/test_torch_{ssm,rglru,encdec,vlm}.py`),
-    and their training raises, naming its ROADMAP item."""
+    cache build; parity in `tests/test_torch_{ssm,rglru,encdec,vlm}.py`)
+    and train on the data stream's batches (tokens, and the frames or the
+    patches `synthetic_batch` draws): `loss_fn` and one step of
+    `make_train_step` give finite results (parity in
+    `tests/test_torch_train_{ssm,hybrid,encdec,vlm}.py`)."""
+    from repro_torch.data import synthetic_batch
     from repro_torch.launch.train import make_train_step
     from repro_torch.models import loss_fn
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import init_opt_state
 
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
+    cfg = replace(tconfigs.reduced(tconfigs.get_config(arch)), dtype="float32")
     params = init_params(cfg, device="cpu")
     assert init_cache(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(cfg, params, {"tokens": torch.zeros(1, 8, dtype=torch.int64)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(cfg)
+    batch = synthetic_batch(cfg, ShapeConfig("t", 64, 2, "train"), seed=0, step=0, device="cpu")
+    assert ("frames" in batch) == (cfg.family == "encdec")
+    assert ("patches" in batch) == (cfg.family == "vlm")
+    loss, m = loss_fn(cfg, params, batch)
+    assert torch.isfinite(loss) and float(m["aux"]) == 0.0
+    _params, _opt, m = make_train_step(cfg)(params, init_opt_state(params), batch, 0)
+    assert all(torch.isfinite(v) for v in m.values()), m
 
 
 def test_unported_configs_and_paths_raise():
@@ -355,9 +365,8 @@ def test_unported_configs_and_paths_raise():
     of 16 makes a ring and decodes over it; one given MLA builds and runs
     a forward), and the moe family trains (`loss_fn`, the
     multi-token-prediction head included, and `make_train_step`); what
-    still raises names its ROADMAP item: the training of the ssm, hybrid,
-    encdec and vlm families (item 4b), the all-to-all MoE dispatch, and the
-    activation sharding."""
+    still raises names its ROADMAP item (item 6): the all-to-all MoE
+    dispatch, and the activation sharding."""
     from repro_torch.launch.train import make_train_step
     from repro_torch.models import loss_fn, moe_a2a
 
@@ -381,10 +390,6 @@ def test_unported_configs_and_paths_raise():
         loss, m = loss_fn(c, init_params(c, device="cpu"), batch)
         assert torch.isfinite(loss) and ("mtp" in m) == bool(c.mtp_depth)
         make_train_step(c)
-    for arch in SERVED_ONLY:                                # ssm, hybrid, encdec, vlm
-        c = tconfigs.reduced(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match=f"{c.family} family's training.*item 4b"):
-            make_train_step(c)
     moe_a2a.set_moe_impl(None)
     with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
         moe_a2a.set_moe_impl(mesh=object())

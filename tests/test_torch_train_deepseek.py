@@ -4,7 +4,7 @@ states and bf16 gradient accumulation) in the port against the JAX
 package, on the CPU.
 
 Reduced deepseek-v3 (2 layers, MLA, 4 routed experts top 2 and a shared
-one, the MTP head) in fp32 through `tests/_torch_moe_train.py`'s checks:
+one, the MTP head) in fp32 through `tests/_torch_train_check.py`'s checks:
 loss, ce, aux, mtp and every gradient leaf (the MTP head's included)
 against `jax.grad` of the JAX package's `loss_fn` within 1e-5 (MLA's
 expanded form attends with `_plain_attention`: no call of row 12); remat
@@ -17,7 +17,7 @@ and dtypes.
 import pytest
 import torch
 
-import _torch_moe_train as mt
+import _torch_train_check as mt
 
 ARCH = "deepseek-v3-671b"
 
@@ -42,5 +42,5 @@ def test_remat_none_and_block_give_the_same_gradients():
 def test_three_train_steps_match_reference():
     cfg = mt.cfgs(ARCH)[1]
     assert (cfg.optimizer, cfg.opt_state_dtype, cfg.grad_acc_dtype, cfg.num_micro_override) == \
-        ("adafactor", "bfloat16", "bfloat16", mt.STEP_SHAPE[ARCH][2])
+        ("adafactor", "bfloat16", "bfloat16", mt.CASES[ARCH].step[2])
     mt.check_train_steps(ARCH)

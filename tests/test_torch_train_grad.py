@@ -185,9 +185,16 @@ def test_remat_dots_and_unported_losses_raise():
                       {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
     assert set(m) == {"ce", "aux", "mtp"} and torch.isfinite(loss)
     for arch in ("mamba2-130m", "recurrentgemma-9b", "whisper-medium", "pixtral-12b"):
-        other = tconfigs.reduced(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match=f"{other.family} family.*item 4b"):
-            loss_fn(other, model, {"tokens": torch.zeros((1, 8), dtype=torch.int64)})
+        other = replace(tconfigs.reduced(tconfigs.get_config(arch)), remat="block")
+        batch = {"tokens": torch.zeros((1, 8), dtype=torch.int64)}     # trains now, too
+        if other.family == "encdec":
+            batch["frames"] = torch.zeros((1, other.encoder_seq, other.d_model))
+        if other.family == "vlm":
+            batch["patches"] = torch.zeros((1, 4, other.d_model))
+        loss, m = loss_fn(other, tlm.init_params(other, seed=0, device="cpu").requires_grad_(),
+                          batch)
+        assert torch.isfinite(loss) and set(m) == {"ce", "aux"}
+        loss.backward()
 
 
 @pytest.mark.parametrize("S_", [24, 20, 7])

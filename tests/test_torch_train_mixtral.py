@@ -2,7 +2,7 @@
 sliding window) in the port against the JAX package, on the CPU.
 
 Reduced mixtral (2 layers, 4 experts top 2, window 64) in fp32 at S = 96,
-past its window, through `tests/_torch_moe_train.py`'s checks: loss, ce,
+past its window, through `tests/_torch_train_check.py`'s checks: loss, ce,
 aux and every gradient leaf against `jax.grad` of the JAX package's
 `loss_fn` within 1e-5 (attention through `FlashAttentionFn` with the
 window, its plain version here: twice a layer under remat "block", the
@@ -14,7 +14,7 @@ package's.
 import pytest
 import torch
 
-import _torch_moe_train as mt
+import _torch_train_check as mt
 
 ARCH = "mixtral-8x7b"
 

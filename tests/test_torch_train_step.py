@@ -27,6 +27,7 @@ from repro.optim import init_opt_state as j_init_opt
 import repro_torch.configs as tconfigs
 from repro_torch import convert
 from repro_torch.launch.train import abstract_train_state, default_num_micro, make_train_step
+from repro_torch.models import init_params
 from repro_torch.models.config import ShapeConfig
 from repro_torch.optim import init_opt_state
 
@@ -152,9 +153,24 @@ def test_abstract_train_state_holds_no_memory_and_refuses_adafactor():
     assert sum(p.numel() for p in params.parameters()) == cfg.param_count() + \
         (2 * cfg.num_layers + 1) * cfg.d_model + 2 * cfg.num_layers * cfg.resolved_head_dim
     assert opt.mu["tok_embed"].device.type == "meta" and opt.mu["tok_embed"].dtype == torch.float32
-    # Adafactor trains now (tests/test_torch_adafactor.py); the families
-    # whose training is not ported still raise, naming ROADMAP item 4b
+    # Adafactor trains now (tests/test_torch_adafactor.py), and so do the
+    # ssm, hybrid, encdec and vlm families: one Adafactor step of each,
+    # reduced, its state grouped over their stacked roots (layers; super and
+    # tail; enc and dec)
     make_train_step(replace(cfg, optimizer="adafactor"))
     for arch in ("mamba2-130m", "recurrentgemma-9b", "whisper-medium", "pixtral-12b"):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            make_train_step(replace(tconfigs.get_config(arch), optimizer="adafactor"))
+        small = replace(tconfigs.reduced(tconfigs.get_config(arch)), optimizer="adafactor")
+        if small.family == "hybrid":
+            small = replace(small, num_layers=5)                # a super-block and a tail
+        model = init_params(small, seed=0, device="cpu")
+        opt = init_opt_state(model, "adafactor")
+        roots = {k.split(".")[0] for k in opt.nu if ".*." in k}
+        assert roots == {"mamba2-130m": {"layers"}, "recurrentgemma-9b": {"super", "tail"},
+                         "whisper-medium": {"enc", "dec"}, "pixtral-12b": {"layers"}}[arch]
+        batch = {"tokens": torch.zeros((2, 32), dtype=torch.int64)}
+        if small.family == "encdec":
+            batch["frames"] = torch.zeros((2, small.encoder_seq, small.d_model))
+        if small.family == "vlm":
+            batch["patches"] = torch.zeros((2, small.num_patches, small.d_model))
+        _m, _o, metrics = make_train_step(small, num_micro=2)(model, opt, batch, 0)
+        assert all(torch.isfinite(v) for v in metrics.values()), (arch, metrics)
