@@ -4213,8 +4213,8 @@ class AttentionTally:
                 self.first_moe = (p, x)
             return layer(cfg, p, x)
 
-        def counted_route(cfg, router, xt):
-            out = route(cfg, router, xt)
+        def counted_route(cfg, router, xt, *args):
+            out = route(cfg, router, xt, *args)
             self.routed.append(out[4].numel())
             self.dropped.append((~out[4]).sum())
             if self.routes is not None:
@@ -5562,6 +5562,289 @@ def family_train_path(kops, kref, smi: str) -> dict:
     return out
 
 
+# ------------------------------------- 13: the launch tooling on a DeviceMesh
+MESH_STEPS = 3                      # 13a: 8a's warm-up and first two steps, through a (1, 1) mesh
+MESH_LOSS_RTOL = 1e-6               # 13a: 8a's losses, where DTensor reorders a reduction
+MODEL_FLOPS_RTOL = 0.01             # 13b: model_flops against the phases' 6 N T terms
+DRYRUN_CELLS = (("qwen3-1.7b", "train_4k", "single"), ("deepseek-v3-671b", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 900
+HBM_BYTES = 80e9
+
+
+def mesh_train(kops, kref, smi: str, ref8a: dict) -> dict:
+    """Phase 13a: 8a's step (qwen3-1.7b at full width and depth, 8 x 4096 in
+    bf16, AdamW, remat "block", the same seed, data and schedule) through
+    a (1, 1) ("data", "model") DeviceMesh over NCCL with a world of one:
+    parameters by `distribute_params`, the state and the batch by
+    `distribute_tree`, the step with `micro_shardings` and
+    `grad_shardings`.  Its MESH_STEPS losses against 8a's first ones: bit
+    for bit, or within MESH_LOSS_RTOL (the vocab-parallel cross-entropy's
+    log-softmax and the clip's norm sum in another order); it prints
+    which.  The first step is the warm-up; the wall is the median of the
+    others, as 8a's, timed with no other process of the script running.
+    Fails unless row 12 launched as often a step as in 8a (2 x layers x
+    num_micro) and the plain attention never ran."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.train import default_num_micro, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import init_opt_state
+
+    dev = torch.device("cuda")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        cfg = get_config(SERVE_ARCH)
+        shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+        num_micro = default_num_micro(cfg, shape, mesh)
+        if num_micro != ref8a["num_micro"]:
+            raise AssertionError(f"13a: num_micro {num_micro} on the mesh, 8a's "
+                                 f"{ref8a['num_micro']}")
+        t = time.perf_counter()
+        params = init_params(cfg, seed=SEED, device=dev)
+        pspecs = sh.params_pspecs(cfg, mesh, params)
+        sh.distribute_params(cfg, params, mesh, pspecs)
+        opt = sh.distribute_tree(init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype),
+                                 sh.opt_state_pspecs(cfg, mesh, pspecs, params, cfg.optimizer),
+                                 mesh)
+        data = DataPipeline(cfg, shape, seed=SEED, device=dev)
+        first = data.batch(0)
+        micro = {k: sh.to_named(mesh, s) for k, s in sh.batch_pspecs(
+            mesh, {k: v[:TRAIN_BATCH // num_micro] for k, v in first.items()}).items()}
+        step = make_train_step(cfg, num_micro=num_micro, lr=TRAIN_LR, warmup=TRAIN_WARMUP,
+                               total_steps=TRAIN_STEPS + 2, micro_shardings=micro,
+                               grad_shardings={n: sh.to_named(mesh, s) for n, s in pspecs.items()})
+        sync()
+        setup = time.perf_counter() - t
+        split = sorted({str(p.placements) for p in params.parameters()})
+        print(f"  13a: {SERVE_ARCH} on {mesh} over NCCL (world 1): {len(pspecs)} parameters "
+              f"distributed ({', '.join(split)}), the state and the batch too, in {setup:.2f} s; "
+              f"num_micro {num_micro}", flush=True)
+        tally = AttentionTally()
+
+        def run():
+            nonlocal params, opt
+            rows = []
+            with tally:
+                for i in range(MESH_STEPS):
+                    batch = sh.distribute_tree(data.batch(i), sh.batch_pspecs(mesh, first), mesh)
+                    sync()
+                    t0 = time.perf_counter()
+                    params, opt, m = step(params, opt, batch, i)
+                    sync()
+                    loss = m["loss"].full_tensor() if isinstance(m["loss"], DTensor) else m["loss"]
+                    rows.append({"step": i, "wall_s": time.perf_counter() - t0,
+                                 "loss": float(loss)})
+            return rows
+
+        rows, launches, plain, _cls = counted(kops, kref, run)
+    finally:
+        dist.destroy_process_group()
+    want = [ref8a["warmup_loss"], *(r["loss"] for r in ref8a["steps"][:MESH_STEPS - 1])]
+    got = [r["loss"] for r in rows]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    same = "bit for bit" if got == want else f"within {rel:.3g} relative (limit {MESH_LOSS_RTOL:g})"
+    per_step = 2 * cfg.num_layers * num_micro
+    wall = float(np.median([r["wall_s"] for r in rows[1:]]))
+    for r, w in zip(rows, want):
+        print(f"  13a step {r['step']}{' (warm-up)' if r['step'] == 0 else ''}: "
+              f"{r['wall_s']:.4f} s, loss {r['loss']:.7f} (8a: {w:.7f})", flush=True)
+    print(f"  13a: median step {wall:.4f} s after the warm-up, against 8a's "
+          f"{ref8a['median_wall_s']:.4f} s (card {smi})", flush=True)
+    print(f"  13a: losses equal 8a's {same}; flash_attention launched "
+          f"{launches['flash_attention'] / MESH_STEPS:g} a step (8a: "
+          f"{ref8a['launches_a_step']:g}, want {per_step}); plain forwards "
+          f"{plain['flash_attention']}, _plain_attention {tally.plain_calls} (card {smi})",
+          flush=True)
+    if rel > MESH_LOSS_RTOL:
+        raise AssertionError(f"13a: losses {got}, 8a's {want}: {rel:.3g} relative")
+    if (launches["flash_attention"] != per_step * MESH_STEPS
+            or ref8a["launches_a_step"] != per_step or plain["flash_attention"]
+            or tally.plain_calls):
+        raise AssertionError(f"13a: flash_attention launched {launches['flash_attention']} "
+                             f"times in {MESH_STEPS} steps, want {per_step} a step; plain "
+                             f"calls {plain}, _plain_attention {tally.plain_calls}")
+    del params, opt, step, data
+    torch.cuda.empty_cache()
+    return {"losses": got, "losses_8a": want, "equal": got == want, "max_rel": rel,
+            "steps": rows, "median_wall_s": wall, "median_wall_s_8a": ref8a["median_wall_s"],
+            "num_micro": num_micro, "setup_s": setup,
+            "launches": launches["flash_attention"],
+            "launches_a_step": launches["flash_attention"] / MESH_STEPS,
+            "plain_forward_calls": plain["flash_attention"],
+            "plain_attention_calls": tally.plain_calls}
+
+
+def step_roofline(key: str, cfg, wall_s: float | None, phase_flops: float, why: str) -> dict:
+    """Phase 13b, one step: the step of `cfg` at TRAIN_BATCH x TRAIN_SEQ
+    traced once on `meta` tensors (shapes only: no launch), its ops
+    counted by `launch.op_cost` (FLOPs, bytes), the
+    H100 roofline's three terms, `model_flops` (6 N D with the active N)
+    against `phase_flops` (the phase's own 6 N T term: within
+    MODEL_FLOPS_RTOL, or the difference `why`), and the measured wall's
+    share of 989 TFLOP/s for both counts."""
+    from repro_torch.configs import input_specs
+    from repro_torch.launch.op_cost import OpCost, analyze
+    from repro_torch.launch.roofline import model_flops, roofline_terms
+    from repro_torch.launch.train import default_num_micro, make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import init_opt_state
+
+    shape = ShapeConfig("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train")
+    num_micro = default_num_micro(cfg, shape)
+    t = time.perf_counter()
+    params = init_params(cfg, device="meta")
+    opt = init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype)
+    batch = {k: torch.zeros(v.shape, dtype=v.dtype, device="meta")
+             for k, v in input_specs(cfg, shape).items()}
+    with OpCost() as cost:
+        make_train_step(cfg, num_micro=num_micro)(params, opt, batch, 0)
+    trace_s = time.perf_counter() - t
+    hc = analyze(cost)
+    terms = roofline_terms(hc["flops"], hc["bytes"], hc["collective_total_bytes"])
+    mf = model_flops(cfg, shape)
+    diff = mf / phase_flops - 1
+    out = {"trace_s": trace_s, "flops": hc["flops"], "bytes": hc["bytes"], "model_flops": mf,
+           "phase_6nt": phase_flops, "model_flops_vs_phase": diff, "terms": terms,
+           "wall_s": wall_s, "num_micro": num_micro}
+    shares = "walls not measured in this run"
+    if wall_s:
+        out["model_flop_share"] = mf / wall_s / TC_FLOPS_PER_S
+        out["traced_flop_share"] = hc["flops"] / wall_s / TC_FLOPS_PER_S
+        bound = max(terms["compute_s"], terms["memory_s"])
+        out["wall_over_bound"] = wall_s / bound
+        shares = (f"measured wall {wall_s:.4f} s: model FLOPs {out['model_flop_share']:.1%} and "
+                  f"traced FLOPs {out['traced_flop_share']:.1%} of {TC_FLOPS_PER_S / 1e12:.0f} "
+                  f"TFLOP/s; the wall is {out['wall_over_bound']:.2f} x the larger term")
+    note = "" if abs(diff) <= MODEL_FLOPS_RTOL else f" ({why})"
+    print(f"  13b {key}: traced in {trace_s:.1f} s: {hc['flops']:.4g} FLOPs and {hc['bytes']:.4g} "
+          f"bytes a device (one card); compute {terms['compute_s']:.4f} s, memory "
+          f"{terms['memory_s']:.4f} s, collective {terms['collective_s']:.4f} s "
+          f"({terms['bottleneck']}-bound); model_flops {mf:.4g} against the phase's 6 N T "
+          f"{phase_flops:.4g}: {diff:+.2%}{note}; {shares}", flush=True)
+    if abs(diff) > MODEL_FLOPS_RTOL and not why:
+        raise AssertionError(f"13b {key}: model_flops {mf:.6g} differs from the phase's "
+                             f"{phase_flops:.6g} by {diff:+.2%}")
+    return out
+
+
+def mesh_roofline(trained: dict, moe_trained: dict, family_trained: dict) -> dict:
+    """Phase 13b: `step_roofline` of 8a's, 11a's and 12a-12d's steps, at the
+    configs and cuts those phases ran."""
+    from repro_torch.configs import get_config
+
+    out = {"8a": step_roofline("8a", get_config(SERVE_ARCH), trained.get("median_wall_s"),
+                               trained["model_flops"] - trained["attention_flops"], "")}
+    mix = dataclasses.replace(get_config(MOE_TRAIN_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    if moe_trained:
+        out["11a"] = step_roofline("11a", mix, moe_trained["median_wall_s"],
+                                   moe_trained["model_flops"] - moe_trained["attention_flops"],
+                                   "")
+    # the phases count the parameters they drew (norm scales included),
+    # model_flops its config's analytic count: within 0.01 %, but for 12c
+    why = {"12c": "model_flops runs the encoder's parameters over the 4096 decoder positions "
+                  "a sequence; the phase runs them over its 1500 frames"}
+    for key, (arch, layers, _shapes) in FAMILY_TRAIN.items():
+        if key not in family_trained:
+            continue
+        cfg = get_config(arch)
+        cfg = cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+        f = family_trained[key]
+        out[key] = step_roofline(key, cfg, f["median_wall_s"], f["flops"]["matmuls"],
+                                 why.get(key, ""))
+    return out
+
+
+def mesh_dryrun_start() -> list:
+    """Phase 13c, begun: `launch.dryrun` of each of DRYRUN_CELLS in a
+    process of its own, all started together (a fake process group of 256
+    or 512 ranks, a fake "cuda" mesh; host CPU only), while 13b runs."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return [(cell, time.perf_counter(),
+             subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+                               "--shape", cell[1], "--mesh", cell[2]], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            for cell in DRYRUN_CELLS]
+
+
+def mesh_dryrun(started: list, smi: str) -> dict:
+    """Phase 13c: each cell of `mesh_dryrun_start` `ok`, with its peak bytes
+    a device against the H100's 80 GB."""
+    out = {}
+    for (arch, shp, mk), t, proc in started:
+        try:
+            _stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            for _c, _t, p in started:
+                p.kill()
+            raise AssertionError(f"13c: {arch} x {shp} x {mk} ran past {DRYRUN_TIMEOUT_S} s")
+        wall = time.perf_counter() - t
+        path = ROOT / "results" / "dryrun_torch" / f"{arch}__{shp}__{mk}.json"
+        if proc.returncode != 0 or not path.exists():
+            raise AssertionError(f"13c: {arch} x {shp} x {mk} failed ({proc.returncode}): "
+                                 f"{stderr[-3000:]}")
+        cell = json.loads(path.read_text())
+        if cell["status"] != "ok" or cell.get("device") != "cuda":
+            raise AssertionError(f"13c: {arch} x {shp} x {mk}: status {cell['status']}, device "
+                                 f"{cell.get('device')}: {cell.get('why', '')[-2000:]}")
+        peak = cell["memory"]["peak_bytes_per_device"]
+        hc, rt = cell["hlo_cost"], cell["roofline"]
+        print(f"  13c {arch} x {shp} x {mk}: ok in {wall:.1f} s (trace {cell['compile_s']} s); "
+              f"peak {peak / 1e9:.2f} GB a device of the H100's {HBM_BYTES / 1e9:.0f} GB "
+              f"({'fits' if peak <= HBM_BYTES else 'does not fit'}); parameters "
+              f"{cell['analytic_param_bytes_per_device'] / 1e9:.3f} GB a device; "
+              f"{hc['flops_per_device']:.4g} FLOPs, {hc['bytes_per_device']:.4g} bytes a device; "
+              f"collectives {hc['collective_counts']} ({hc['collective_total_bytes'] / 1e9:.2f} "
+              f"GB, {hc['network_bytes'] / 1e9:.2f} GB over the network, "
+              f"{hc['cross_pod_bytes'] / 1e9:.2f} GB across pods); roofline "
+              f"{rt['compute_s']:.4f} / {rt['memory_s']:.4f} / {rt['collective_s']:.4f} s "
+              f"({rt['bottleneck']}-bound); useful/traced FLOPs "
+              f"{cell['useful_flops_ratio']:.3f} (card {smi})", flush=True)
+        out[f"{arch}__{shp}__{mk}"] = {"wall_s": wall, "peak_bytes": peak,
+                                       "fits_80gb": peak <= HBM_BYTES,
+                                       **{k: cell[k] for k in ("hlo_cost", "roofline",
+                                                               "useful_flops_ratio",
+                                                               "analytic_param_bytes_per_device",
+                                                               "compile_s", "num_micro")}}
+    return out
+
+
+def mesh_path(kops, kref, smi: str, trained: dict, moe_trained: dict,
+              family_trained: dict) -> dict:
+    """Phase 13: 13a (timed with nothing beside it), then 13c's processes
+    started, 13b while they run, and 13c's results."""
+    t = time.perf_counter()
+    out = {"13a": mesh_train(kops, kref, smi, trained["8a"] if "8a" in trained else trained)}
+    started = mesh_dryrun_start()
+    try:
+        out["13b"] = mesh_roofline(trained.get("8a", trained), moe_trained, family_trained)
+    except BaseException:
+        for _cell, _t, proc in started:     # stop every process the phase started
+            proc.kill()
+            proc.wait()
+        raise
+    out["13c"] = mesh_dryrun(started, smi)
+    print(f"  phase 13 took {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
+def mesh_only(kops, kref, smi: str) -> int:
+    """`--phase13`: 8a, then phase 13 (13b without 11a's and 12's steps)."""
+    print(f"== 8a. training {SERVE_ARCH} on the card (card {smi})", flush=True)
+    trained = train_full(kops, kref, smi)
+    print(f"== 13. the launch tooling on a DeviceMesh (card {smi})", flush=True)
+    print(json.dumps(mesh_path(kops, kref, smi, trained, {}, {}), default=str))
+    return 0
+
+
 def marker_sweep_only(smi: str) -> int:
     """`--marker-sweep`: the launch cost, phases 2 and 2h's P sweeps and
     phase 3p alone (after the build and phase 3), and their rows as one
@@ -5613,6 +5896,8 @@ def main() -> int:
         return walk_sweep(smi) if len(sys.argv) == 2 else walk_compare(Path(sys.argv[2]), smi)
     if sys.argv[1:2] == ["--train-8a"] and len(sys.argv) > 2:
         return train_variants(kops, kref, smi, sys.argv[2:])
+    if sys.argv[1:] == ["--phase13"]:
+        return mesh_only(kops, kref, smi)
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -5730,6 +6015,10 @@ def main() -> int:
     print(f"== 12. training the ssm, hybrid, encdec and vlm families on the card (card {smi})",
           flush=True)
     family_trained = family_train_path(kops, kref, smi)
+
+    print(f"== 13. the launch tooling on a DeviceMesh (card {smi})", flush=True)
+    meshed = mesh_path(kops, kref, smi, trained, moe_trained["11a"],
+                       {k: family_trained[k] for k in FAMILY_TRAIN})
 
     print("== 5. launch counts", flush=True)
     print(f"  kernel launches in phase 3: {launches}; plain calls: {plain_calls}", flush=True)
@@ -5910,7 +6199,9 @@ def main() -> int:
         **{f"launches_phase{k}_a_step": family_trained[k]["launches_a_step"]
            for k in FAMILY_TRAIN},
         "launches_phase12e": family_trained["12e"]["launches"],
-        "launches_phase12f": family_trained["12f"]["launches"], **flash,
+        "launches_phase12f": family_trained["12f"]["launches"],
+        "launches_phase13a": meshed["13a"]["launches"],
+        "launches_phase13a_a_step": meshed["13a"]["launches_a_step"], **flash,
         "shape_9a": moe_runs["flash_9a"], "shape_10b": family_runs["10f"][0]["10b"],
         "shape_10c": family_runs["10f"][0]["10c"], "autograd_11c": moe_trained["11c"],
         **{f"shape_{k}": v for k, v in family_trained["12f"]["times"].items()},
@@ -5924,7 +6215,8 @@ def main() -> int:
                                   "3r_kill": {k: v for k, v in killed.items() if k != "launches"}},
                       "examples": examples["facts"], "train": trained,
                       "moe_train": {k: moe_trained[k] for k in ("11a", "11b")},
-                      "family_train": {k: family_trained[k] for k in (*FAMILY_TRAIN, "12e")}}))
+                      "family_train": {k: family_trained[k] for k in (*FAMILY_TRAIN, "12e")},
+                      "mesh": meshed}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

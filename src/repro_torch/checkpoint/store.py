@@ -18,14 +18,21 @@ dtype "bfloat16" (numpy has no bfloat16; the port needs no `ml_dtypes`).
 
 `restore_checkpoint` returns host numpy arrays, and for a bfloat16 leaf a
 CPU `torch.bfloat16` tensor.  It also reassembles a manifest's per-shard
-"files" entries.  `save_checkpoint(..., sharded=True)` on the port's
-single-device tensors writes what the JAX package writes for an array with
-one shard: gathered files, with "sharded": true.  `AsyncCheckpointer`
-copies a tree to the host synchronously and writes it on a thread.
+"files" entries.  `AsyncCheckpointer` copies a tree to the host
+synchronously and writes it on a thread.
 
-Per-device shard files (for tensors spread over several devices) and
-restoring onto shardings wait for the launch tooling's DeviceMesh:
-`restore_checkpoint(..., shardings=...)` raises NotImplementedError.
+Sharded mode.  `save_checkpoint(..., sharded=True)` writes a DTensor split
+over several ranks as the JAX package writes an array of several shards:
+one file a shard, `arr_<i>.shard<replica>_<starts>.npy` (the replica id
+counts the ranks holding the same block, the starts are the block's first
+index in each dim), listed under "files" with each block's [start, stop)
+per dim.  Every rank of the default process group calls it: each writes
+its own blocks, and rank 0 writes the manifest and renames the directory
+into place once all have written.  A tensor on one device, or a DTensor
+not split, is written gathered.  `restore_checkpoint(..., shardings=...)`
+places each leaf onto a mesh, which may differ from the one that saved:
+`shardings` has `tree_like`'s structure, with a (DeviceMesh, placements)
+pair at each leaf to place (None: a host array).
 """
 
 from __future__ import annotations
@@ -38,11 +45,12 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step", "AsyncCheckpointer"]
 
-_MESH = "ROADMAP.md §1, item 6 (the launch tooling's DeviceMesh)"
 # dtypes numpy cannot round-trip through .npy, which the JAX package stores
 # as raw integer views; the port reads and writes bfloat16 (torch has it)
 _EXOTIC = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
@@ -89,6 +97,8 @@ def _to_disk(leaf) -> tuple[np.ndarray, str]:
     """(a host copy of the leaf as written to disk, the manifest's dtype
     name): a bfloat16 tensor as its uint16 bits.  Always a copy, so a later
     change to the leaf does not reach an asynchronous write."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().to("cpu", copy=True)
         if leaf.dtype == torch.bfloat16:
@@ -135,12 +145,92 @@ def _write(path, host: list, structure: str, *, step: int, sharded: bool,
     return final
 
 
+def _blocks(t: DTensor) -> tuple[list, int]:
+    """([start, stop) per dim) of this rank's block of `t`, and its replica
+    id: the rank's index, row-major, over the mesh dims that do not split
+    `t` (0 when every dim splits it)."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    bounds = [[0, n] for n in t.shape]
+    replica, stride = 0, 1
+    for i in reversed(range(mesh.ndim)):
+        pl = t.placements[i]
+        if not pl.is_shard():
+            replica += coord[i] * stride
+            stride *= mesh.size(i)
+    for i, pl in enumerate(t.placements):
+        if pl.is_shard():
+            lo, hi = bounds[pl.dim]
+            step = (hi - lo) // mesh.size(i)
+            bounds[pl.dim] = [lo + coord[i] * step, lo + (coord[i] + 1) * step]
+    return bounds, replica
+
+
+def _split(leaf) -> bool:
+    return isinstance(leaf, DTensor) and any(p.is_shard() for p in leaf.placements)
+
+
+def _save_sharded(path, leaves: list, structure: str, *, step: int,
+                  extra_meta: dict | None) -> Path:
+    """Every rank writes its blocks of the split DTensors among `leaves`
+    into <path>/step_<step>.tmp; rank 0 writes the rest and the manifest,
+    then renames the directory into place."""
+    path = Path(path)
+    final, tmp = path / f"step_{step}", path / f"step_{step}.tmp"
+    rank = dist.get_rank()
+    if rank == 0:
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+    dist.barrier()
+    mine = []
+    for i, leaf in enumerate(leaves):
+        if not _split(leaf):
+            continue
+        bounds, replica = _blocks(leaf)
+        fn = f"arr_{i}.shard{replica}_{'_'.join(str(lo) for lo, _ in bounds)}.npy"
+        data, dt = _to_disk(leaf.to_local())
+        np.save(tmp / fn, data)
+        mine.append((i, {"file": fn, "index": bounds}, dt))
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    full = [None if _split(x) else _to_disk(x) for x in leaves]   # collective for DTensors
+    if rank == 0:
+        manifest = {"step": step, "treedef": f"PyTreeDef({structure})",
+                    "num_leaves": len(leaves), "sharded": True, "leaves": [],
+                    "meta": extra_meta or {}}
+        files: dict = {}
+        for per_rank in every:
+            for i, f, dt in per_rank:
+                files.setdefault(i, ({}, dt))[0].setdefault(f["file"], f)
+        for i, leaf in enumerate(leaves):
+            entry = {"index": i, "dtype": None, "shape": list(leaf.shape)}   # JAX's key order
+            if i in files:
+                entry["dtype"] = files[i][1]
+                entry["files"] = list(files[i][0].values())
+            else:
+                arr, entry["dtype"] = full[i]
+                entry["file"] = f"arr_{i}.npy"
+                np.save(tmp / entry["file"], arr)
+            manifest["leaves"].append(entry)
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+    dist.barrier()
+    return final
+
+
 def save_checkpoint(path, tree, *, step: int, sharded: bool = False,
                     extra_meta: dict | None = None) -> Path:
-    """Write `tree` atomically to <path>/step_<step>.  Every tensor of the
-    port lies on one device, so `sharded=True` writes gathered files, as
-    the JAX package does for an array with one shard."""
+    """Write `tree` atomically to <path>/step_<step>.  With `sharded` and a
+    DTensor split over ranks in `tree`, every rank of the default process
+    group must call it: each writes its own blocks (sharded mode, above).
+    Otherwise every leaf is written gathered, as the JAX package does for
+    an array with one shard."""
     leaves, structure = _flatten(tree)
+    if sharded and any(_split(x) for x in leaves):
+        return _save_sharded(path, leaves, structure, step=step, extra_meta=extra_meta)
     return _write(path, [_to_disk(x) for x in leaves], structure, step=step, sharded=sharded,
                   extra_meta=extra_meta)
 
@@ -159,9 +249,10 @@ def restore_checkpoint(path, tree_like, *, step: int | None = None, shardings=No
     """Restore into the structure of `tree_like` (the latest step by
     default): (the tree of host numpy arrays, bfloat16 leaves as CPU
     `torch.bfloat16` tensors, the manifest).  A leaf saved as per-shard
-    "files" is reassembled from them."""
-    if shardings is not None:
-        raise NotImplementedError(f"restoring onto shardings is not ported yet ({_MESH})")
+    "files" is reassembled from them.  With `shardings` (`tree_like`'s
+    structure, a (DeviceMesh, placements) pair or None at each leaf), a
+    leaf with a pair is placed on its mesh as a DTensor, each rank keeping
+    its block: onto any mesh, the one that saved or another."""
     path = Path(path)
     if step is None:
         step = latest_step(path)
@@ -184,7 +275,25 @@ def restore_checkpoint(path, tree_like, *, step: int | None = None, shardings=No
                     arr = np.zeros(entry["shape"], part.dtype)
                 arr[tuple(slice(a, b) for a, b in f["index"])] = part
         out.append(_from_disk(arr, entry["dtype"]))
+    if shardings is not None:
+        out = [x if sh is None else _place(x, *sh)
+               for x, sh in zip(out, _along(tree_like, shardings))]
     return _unflatten(tree_like, iter(out)), manifest
+
+
+def _along(like, shardings) -> list:
+    """The entries of `shardings` at the leaves of `like`, in `_flatten`'s
+    order (a (mesh, placements) pair or None is one entry)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like) for x in _along(like[k], shardings[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for a, b in zip(like, shardings) for x in _along(a, b)]
+    return [] if like is None else [shardings]
+
+
+def _place(arr, mesh, placements) -> DTensor:
+    t = arr if isinstance(arr, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(arr))
+    return distribute_tensor(t.to(mesh.device_type), mesh, placements, src_data_rank=None)
 
 
 class AsyncCheckpointer:

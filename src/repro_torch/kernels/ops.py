@@ -413,14 +413,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     _check(q, "q", q.dtype, (B, S, H, hd))
     _check(k, "k", q.dtype, (B, S, KV, hd))
     _check(v, "v", q.dtype, (B, S, KV, hd))
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window or 0)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                        window: int) -> torch.Tensor:
+    """Row 12 as an operator of its own (window 0: none), so that fake
+    tensors (the dry run's tracing) take its shape (`_flash_attention_fake`)
+    and the cost model its operations (`launch.op_cost`), while a real
+    tensor takes the kernel or, on the CPU, the plain version."""
     if _on_cpu(q, k, v):
-        return ref.flash_attention(q, k, v, causal=causal, window=window)
+        return ref.flash_attention(q, k, v, causal=causal, window=window or None)
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("q, k and v must start on 16-byte boundaries (16-byte loads)")
+    B, S, H, hd = q.shape
     o = torch.empty_like(q)
-    _call("flash_attention", "fa_flash_attention", _FLASH_DTYPES[q.dtype], B, S, H, KV, hd,
-          int(causal), window or 0, q, k, v, o, *q.stride()[:3], *k.stride()[:3])
+    _call("flash_attention", "fa_flash_attention", _FLASH_DTYPES[q.dtype], B, S, H, k.shape[2],
+          hd, int(causal), window, q, k, v, o, *q.stride()[:3], *k.stride()[:3])
     return o
+
+
+@_flash_attention_op.register_fake
+def _flash_attention_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
 
 
 class FlashAttentionFn(torch.autograd.Function):

@@ -10,9 +10,12 @@ gradients in the parameters' dtype, as the JAX package takes them), clips
 by the global norm, and applies `cfg.optimizer` (AdamW, or Adafactor over
 the JAX package's stacked layers, whose state `init_opt_state` makes
 from the LM) at the cosine schedule's rate, in place on the model's
-parameters.  The mesh arguments of the JAX package
-(`micro_shardings`, `grad_shardings`, `default_num_micro`'s mesh) wait for
-the launch tooling's DeviceMesh.
+parameters.  On a DeviceMesh (parameters, state and batch DTensors,
+`launch.sharding`) the same step runs SPMD: `micro_shardings` places each
+micro-batch (rows [i mb, (i + 1) mb) of the global batch, spread over the
+data-parallel ranks, as the JAX package's reshaped micro stack), and
+`grad_shardings` each micro-batch's gradients (at the parameters'
+placements: a weight's shard, reduce-scattered).
 """
 
 from __future__ import annotations
@@ -20,24 +23,28 @@ from __future__ import annotations
 import torch
 
 from ..models.config import ModelConfig, ShapeConfig
+from ..models import spmd
 from ..models.lm import init_params, loss_fn
 from ..optim import (adafactor_update, adamw_update, apply_updates, clip_by_global_norm,
                      cosine_schedule, init_opt_state)
+from .mesh import axis_sizes, batch_spec_axes
 
 __all__ = ["default_num_micro", "make_train_step", "abstract_train_state"]
-
-_MESH = "ROADMAP.md §1, item 6 (the launch tooling's DeviceMesh)"
-
 
 def default_num_micro(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> int:
     """Microbatch count: per-device microbatch tokens about 8k at most for
     big models, fewer micro-steps for small ones (the JAX package's rule).
-    `mesh=None` is one device: the whole global batch on it."""
+    The batch a device is the global batch over the data-parallel axes of
+    `mesh` that divide it (a DeviceMesh or `MeshShape`); `mesh=None` is one
+    device: the whole global batch on it."""
     if cfg.num_micro_override:
         return cfg.num_micro_override
+    dp = 1
     if mesh is not None:
-        raise NotImplementedError(f"a mesh's data-parallel axes are not ported yet ({_MESH})")
-    per_dev = max(1, shape.global_batch)
+        sizes = axis_sizes(mesh)
+        for a in batch_spec_axes(mesh, shape.global_batch):
+            dp *= sizes[a]
+    per_dev = max(1, shape.global_batch // dp)
     if cfg.d_model >= 4096:
         per_dev_micro = 1          # big models: one sequence per device/micro
     elif cfg.d_model >= 2048:
@@ -51,7 +58,8 @@ def default_num_micro(cfg: ModelConfig, shape: ShapeConfig, mesh=None) -> int:
 
 
 def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
-                    warmup: int = 100, total_steps: int = 10_000, clip_norm: float = 1.0):
+                    warmup: int = 100, total_steps: int = 10_000, clip_norm: float = 1.0,
+                    micro_shardings: dict | None = None, grad_shardings: dict | None = None):
     """train_step(params: LM, opt_state, batch, step: int) -> (params,
     opt_state, metrics): params updated in place, metrics {"ce", "aux",
     "loss", "grad_norm", "lr"} and "mtp" with the multi-token-prediction
@@ -59,7 +67,14 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
     microbatches).  The optimizer is `cfg.optimizer`'s, as in the JAX
     package: AdamW, or else Adafactor.  Every family trains; a batch's
     leaves (tokens, and the encdec family's frames or the vlm family's
-    patches) are each cut into the microbatches along their first axis."""
+    patches) are each cut into the microbatches along their first axis.
+
+    micro_shardings: {batch key: DTensor placements} of each micro-batch
+    (its batch dim over the data-parallel axes), for a batch of DTensors
+    cut into several micro-batches; without it a micro-batch keeps what
+    slicing the DTensor gives.  grad_shardings: {parameter name:
+    placements} each micro-batch's gradients are put at before they are
+    accumulated."""
     acc_dt = torch.bfloat16 if cfg.grad_acc_dtype == "bfloat16" else torch.float32
 
     def train_step(params, opt_state, batch, step):
@@ -75,14 +90,21 @@ def make_train_step(cfg: ModelConfig, *, num_micro: int = 1, lr: float = 3e-4,
         for i in range(num_micro):
             micro = batch if num_micro == 1 else {k: v[i * mb:(i + 1) * mb]
                                                   for k, v in batch.items()}
+            if micro_shardings is not None and num_micro > 1:
+                micro = {k: v.redistribute(v.device_mesh, micro_shardings[k])
+                         for k, v in micro.items()}
             loss, m = loss_fn(cfg, params, micro)
-            loss.backward()
+            with spmd.on_mesh(loss):
+                loss.backward()
+            if grad_shardings is not None:
+                for n, p in named.items():
+                    if tuple(p.grad.placements) != tuple(grad_shardings[n]):
+                        p.grad = p.grad.redistribute(p.grad.device_mesh, grad_shardings[n])
             if num_micro == 1:
                 grads = {n: p.grad for n, p in named.items()}
             else:
                 if grads is None:
-                    grads = {n: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-                             for n, p in named.items()}
+                    grads = {n: torch.zeros_like(p, dtype=acc_dt) for n, p in named.items()}
                 for n, p in named.items():
                     grads[n] += p.grad.to(acc_dt)
             for p in named.values():

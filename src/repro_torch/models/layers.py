@@ -26,6 +26,7 @@ import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from ..kernels.ref import NEG_INF
+from . import spmd
 from .config import ModelConfig
 
 __all__ = ["rms_norm", "layer_norm_np", "norm", "rope_angles", "apply_rope", "dense", "swiglu",
@@ -83,7 +84,7 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 # ------------------------------------------------------------ dense matmul
 def dense(x: torch.Tensor, w: torch.Tensor):
     """x (..., d) @ w (d, f), in x's dtype."""
-    return torch.matmul(x, w).to(x.dtype)
+    return spmd.matmul(x, w).to(x.dtype)
 
 
 def swiglu(p, x: torch.Tensor):
@@ -127,14 +128,18 @@ def attention_core(q, k, v, *, causal: bool = True, window=None, q_offset: int =
     Anything else goes to `_plain_attention`: decode and prefill past
     position 0, cross attention (Sq != Sk), MLA's expanded form (q and k
     192 wide, v 128) and its absorbed form (an explicit scale, v narrower
-    than k)."""
+    than k).  On a mesh (DTensors), either runs on each rank's local batch
+    and heads (`spmd.attention`)."""
     hd = q.shape[-1]
     if (q.shape[1] == k.shape[1] and q_offset == 0 and scale is None
             and k.shape[-1] == v.shape[-1] == hd):
-        return kops.FlashAttentionFn.apply(q, k, v, causal, window)
-    scale = scale if scale is not None else 1.0 / math.sqrt(hd)
-    return _plain_attention(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                            scale=scale)
+        def fn(q, k, v):
+            return kops.FlashAttentionFn.apply(q, k, v, causal, window)
+    else:
+        fn = functools.partial(_plain_attention, causal=causal, window=window,
+                               q_offset=q_offset,
+                               scale=scale if scale is not None else 1.0 / math.sqrt(hd))
+    return spmd.attention(fn, q, k, v) if spmd.distributed(q) else fn(q, k, v)
 
 
 # --------------------------------------------------------------- GQA layer
@@ -169,15 +174,15 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tens
     Returns (out (B, S, D), cache)."""
     B, S, _D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    q = dense(x, p["wq"]).reshape(B, S, H, hd)
+    q = spmd.heads(dense(x, p["wq"]), (B, S, H, hd))
     if kv_override is not None:
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"])
         k, v = kv_override
         out = attention_core(q, k, v, causal=causal, window=window)
         return dense(out.reshape(B, S, H * hd), p["wo"]), cache
-    k = dense(x, p["wk"]).reshape(B, S, KV, hd)
-    v = dense(x, p["wv"]).reshape(B, S, KV, hd)
+    k = spmd.heads(dense(x, p["wk"]), (B, S, KV, hd))
+    v = spmd.heads(dense(x, p["wv"]), (B, S, KV, hd))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -194,9 +199,10 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tens
                     raise ValueError(f"a write of {S} >= {C} tokens into the ring past position "
                                      f"0 (at {cache_pos})")
                 shift = (S - C) % C
-                cache["k"].copy_(torch.roll(k[:, -C:], shift, 1))
-                cache["v"].copy_(torch.roll(v[:, -C:], shift, 1))
-                cache["pos"].copy_(torch.roll(positions[:, -C:], shift, 1))
+                roll = functools.partial(torch.roll, shifts=shift, dims=1)
+                cache["k"].copy_(spmd.along(roll, k[:, -C:], 1))
+                cache["v"].copy_(spmd.along(roll, v[:, -C:], 1))
+                cache["pos"].copy_(spmd.along(roll, positions[:, -C:], 1))
             else:
                 i = min(cache_pos % C, C - S)
                 cache["k"][:, i:i + S] = k
@@ -226,7 +232,7 @@ def _ring_decode_attend(cfg: ModelConfig, p, q: torch.Tensor, cache: dict,
     B, S, H, hd = q.shape
     KV = cfg.num_kv_heads
     k, v, kpos = cache["k"], cache["v"], cache["pos"]
-    qg = q.reshape(B, S, KV, H // KV, hd)
+    qg = spmd.splittable(q, 2, KV).reshape(B, S, KV, H // KV, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg.float(), k.float()) / math.sqrt(hd)
     qpos = positions.reshape(B, -1)[..., None]
     kp = kpos[:, None, :]
@@ -257,7 +263,7 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tens
     H = cfg.num_heads
     nope, rope, r = m.qk_nope_head_dim, m.qk_rope_head_dim, m.kv_lora_rank
     cq = rms_norm(dense(x, p["q_down"]), p["q_down_norm"])
-    q = dense(cq, p["q_up"]).reshape(B, S, H, nope + rope)
+    q = spmd.heads(dense(cq, p["q_up"]), (B, S, H, nope + rope))
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     kv = dense(x, p["kv_down"])
     c_kv = rms_norm(kv[..., :r], p["kv_down_norm"])
@@ -283,8 +289,8 @@ def mla_attention(cfg: ModelConfig, p, x: torch.Tensor, *, positions: torch.Tens
         out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype)
         return dense(out, p["wo"]), cache
 
-    k_nope = dense(c_kv, p["k_up"]).reshape(B, S, H, nope)
-    v = dense(c_kv, p["v_up"]).reshape(B, S, H, m.v_head_dim)
+    k_nope = spmd.heads(dense(c_kv, p["k_up"]), (B, S, H, nope))
+    v = spmd.heads(dense(c_kv, p["v_up"]), (B, S, H, m.v_head_dim))
     k = torch.cat([k_nope, k_rope.expand(B, S, H, rope)], dim=-1)
     out = attention_core(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True)
     return dense(out.reshape(B, S, H * m.v_head_dim), p["wo"]), None

@@ -37,22 +37,33 @@ family's loss drops the patch positions before the cross-entropy, and the
 encdec family's gradients reach the encoder through each decoder block's
 cross attention.
 
-Not ported yet, each raising NotImplementedError that names ROADMAP.md §1
-item 6 (the launch tooling): `remat="dots"`, the training-side activation
-sharding (`set_activation_spec`), and the all-to-all MoE dispatch
-(`moe_a2a`), which needs a mesh.
+`remat="dots"` is the JAX package's `checkpoint_dots_with_no_batch_dims`
+as selective activation checkpointing: each block saves the outputs of its
+products without batch dims (`aten.mm`) and recomputes the rest.
+
+On a DeviceMesh (parameters made DTensors by
+`launch.sharding.distribute_params`, the batch by `distribute_tree`), the
+same code runs SPMD (`models.spmd`): each block gathers its weights over
+the FSDP axes where it reads them, the residual stream is put at the
+activation spec (`set_activation_spec`, the JAX package's sequence-parallel
+residuals) at every block boundary, the attention kernel runs on each
+rank's local heads, and the MoE layers run `moe_a2a.moe_layer_a2a` where
+`moe_a2a.a2a_available`, else `spmd.moe_layer`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..core.types import resolve_device
 from . import layers as ly
+from . import moe_a2a, spmd
 from .config import ModelConfig
 from .moe import moe_layer
 from .rglru import rglru_layer
@@ -73,18 +84,28 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise ValueError for a family the JAX package does not have.  Every
     family of it serves and trains: GQA (qk-norm, windows and their ring
     cache) or MLA, SwiGLU or sort-based MoE, Mamba-2, RG-LRU with local
-    attention, encoder-decoder, patch prefixes.  What of a config still
-    raises is named where it does: `remat="dots"`, `set_activation_spec`
-    and `moe_a2a` (ROADMAP.md §1, item 6)."""
+    attention, encoder-decoder, patch prefixes, on one device or a
+    DeviceMesh."""
     if cfg.family not in _FAMILIES:
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}, not one of {_FAMILIES}")
 
 
+# The residual stream's spec on a mesh, set by the launcher (the dry run,
+# a sharded train step): a spec over (B, S, D) put on the residual at every
+# block boundary (`spmd.constrain`).  None: DTensor places it freely.
+_ACT_SPEC = {"spec": None}
+
+
 def set_activation_spec(spec) -> None:
-    """The JAX package's sequence-parallel activation sharding: not ported
-    (the launch tooling)."""
-    raise NotImplementedError("activation sharding is not ported (ROADMAP.md §1, item 6: the "
-                              "launch tooling)")
+    """Put the residual stream of a forward on a mesh at `spec` (a tuple
+    over (B, S, D), e.g. (("data",), "model", None): sequence-parallel
+    residuals) at every block boundary where S >= 16 and S % 16 == 0, as
+    the JAX package's `with_sharding_constraint`; None clears it."""
+    _ACT_SPEC["spec"] = None if spec is None else tuple(spec)
+
+
+def _constrain_act(x):
+    return spmd.constrain(x, _ACT_SPEC["spec"])
 
 
 def _dt(cfg: ModelConfig) -> torch.dtype:
@@ -254,43 +275,56 @@ class Block(nn.Module):
         dec block's cross attention reads k and v from `enc_out` (B, Se, D)
         where given, writing them into cache["cross_k"] / ["cross_v"] with a
         cache, else from the cache."""
+        with spmd.on_mesh(x):
+            return self._forward(x, positions, cache, cache_pos, enc_out)
+
+    def _forward(self, x, positions, cache, cache_pos, enc_out):
         cfg, kind = self.cfg, self.kind
+        p = functools.partial(spmd.uses, cfg)
         if kind == "ssm":
-            h, _ = mamba2_layer(cfg, self.ssm, ly.norm(cfg, self.norm, x), cache=cache)
+            h_in = spmd.whole_tokens(ly.norm(cfg, self.norm, x))
+            h, _ = mamba2_layer(cfg, p(self.ssm), h_in, cache=cache)
             return x + h, None
-        h_in = ly.norm(cfg, self.attn_norm, x)
+        h_in = spmd.whole_tokens(ly.norm(cfg, self.attn_norm, x))
         if kind == "rec":
-            h, _ = rglru_layer(cfg, self.rec, h_in, cache=cache)
+            h, _ = rglru_layer(cfg, p(self.rec), h_in, cache=cache)
         elif kind == "mla":
-            h, _ = ly.mla_attention(cfg, self.attn, h_in, positions=positions, cache=cache,
+            h, _ = ly.mla_attention(cfg, p(self.attn), h_in, positions=positions, cache=cache,
                                     cache_pos=cache_pos)
         else:
             window = cfg.rglru.window if kind == "attn_local" else cfg.window
             self_cache = cache["self"] if kind == "dec" and cache is not None else cache
-            h, _ = ly.gqa_attention(cfg, self.attn, h_in, positions=positions, cache=self_cache,
-                                    cache_pos=cache_pos, causal=kind != "enc", window=window)
+            h, _ = ly.gqa_attention(cfg, p(self.attn), h_in, positions=positions,
+                                    cache=self_cache, cache_pos=cache_pos, causal=kind != "enc",
+                                    window=window)
         x = x + h
         if kind == "dec":
             x = x + self._cross(x, cache, enc_out)
         h_in = ly.norm(cfg, self.mlp_norm, x)
         if cfg.moe is None or kind not in ("attn", "mla"):
-            return x + ly.swiglu(self.mlp, h_in), None
-        h, aux = moe_layer(cfg, self.moe, h_in)
+            return x + ly.swiglu(p(self.mlp), spmd.whole_tokens(h_in)), None
+        if moe_a2a.a2a_available(cfg, h_in.shape[1]):
+            h, aux = moe_a2a.moe_layer_a2a(cfg, p(self.moe), h_in)
+        elif spmd.distributed(h_in):
+            h, aux = spmd.moe_layer(cfg, p(self.moe), h_in)
+        else:
+            h, aux = moe_layer(cfg, self.moe, h_in)
         return x + h, aux
 
     def _cross(self, x: torch.Tensor, cache: dict | None, enc_out: torch.Tensor | None):
         cfg = self.cfg
+        cross = spmd.uses(cfg, self.cross)
         if enc_out is None:
             k, v = cache["cross_k"], cache["cross_v"]
         else:
             B, Se, _D = enc_out.shape
             shape = (B, Se, cfg.num_kv_heads, cfg.resolved_head_dim)
-            k = ly.dense(enc_out, self.cross["wk"]).reshape(shape)
-            v = ly.dense(enc_out, self.cross["wv"]).reshape(shape)
+            k = spmd.heads(ly.dense(enc_out, cross["wk"]), shape)
+            v = spmd.heads(ly.dense(enc_out, cross["wv"]), shape)
             if cache is not None:
                 cache["cross_k"].copy_(k)
                 cache["cross_v"].copy_(v)
-        h, _ = ly.gqa_attention(cfg, self.cross, ly.norm(cfg, self.cross_norm, x), positions=None,
+        h, _ = ly.gqa_attention(cfg, cross, ly.norm(cfg, self.cross_norm, x), positions=None,
                                 causal=False, kv_override=(k, v))
         return h
 
@@ -415,14 +449,18 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, dtype: torch.dtype 
 def embed(cfg: ModelConfig, params: LM, tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings times sqrt(d_model), the factor rounded to the
     model's dtype first (JAX's weak-typed scalar; a 0-d host tensor, which
-    a kernel on the card takes as a scalar, without a copy)."""
+    a kernel on the card takes as a scalar, without a copy).  A lookup
+    (on a mesh, a vocab-sharded table is looked up where its rows lie and
+    the rows summed over 'model': `spmd.embedding`)."""
     dt = _dt(cfg)
-    return params.tok_embed[tokens].to(dt) * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
+    w = spmd.use(cfg, params.tok_embed)
+    return spmd.embedding(tokens, w).to(dt) * torch.tensor(math.sqrt(cfg.d_model), dtype=dt)
 
 
 def unembed(cfg: ModelConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
-    w = params.tok_embed.T if cfg.tie_embeddings else params.out_head
-    return torch.matmul(x, w)
+    w = spmd.use(cfg, params.tok_embed).T if cfg.tie_embeddings else spmd.use(cfg,
+                                                                              params.out_head)
+    return spmd.matmul(x, w)
 
 
 def _remat(cfg: ModelConfig, params: LM, cache: dict | None) -> bool:
@@ -431,13 +469,27 @@ def _remat(cfg: ModelConfig, params: LM, cache: dict | None) -> bool:
     `cfg.remat` asks for it."""
     if cache is not None or not torch.is_grad_enabled() or not params.tok_embed.requires_grad:
         return False
-    if cfg.remat == "dots":
-        raise NotImplementedError("remat='dots' (save the matmuls' outputs, recompute the "
-                                  "rest) is not ported yet (ROADMAP.md §1, item 6: the "
-                                  "launch tooling)")
-    if cfg.remat not in ("none", "block", "full"):
+    if cfg.remat not in ("none", "block", "full", "dots"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
     return cfg.remat != "none"
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """`checkpoint_dots_with_no_batch_dims`: save a product without batch
+    dims (`aten.mm`), recompute everything else."""
+    if op == torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint(cfg: ModelConfig, block, *args):
+    """`block(*args)` recomputed in the backward: whole ("block", "full"),
+    or all but its `aten.mm` outputs ("dots")."""
+    if cfg.remat == "dots":
+        return checkpoint(block, *args, use_reentrant=False,
+                          context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                                       _dots_policy))
+    return checkpoint(block, *args, use_reentrant=False)
 
 
 def _layer(cache, i: int):
@@ -452,13 +504,17 @@ def _run_stack(params: LM, blocks, x: torch.Tensor, positions: torch.Tensor,
     """x after each block of `blocks` in turn, layer i reading and writing
     layer i of the stacked `cache`; and the summed aux loss of the MoE
     layers (0-d fp32), or None without MoE."""
-    remat = _remat(params.cfg, params, cache)
+    cfg = params.cfg
+    remat = _remat(cfg, params, cache)
     aux = None
+    if cache is None:
+        x = _constrain_act(x)
     for i, block in enumerate(blocks):
         if remat:
-            x, a = checkpoint(block, x, positions, None, cache_pos, enc_out, use_reentrant=False)
+            x, a = _checkpoint(cfg, block, x, positions, None, cache_pos, enc_out)
         else:
             x, a = block(x, positions, _layer(cache, i), cache_pos, enc_out)
+        x = _constrain_act(x)
         if a is not None:
             aux = a if aux is None else aux + a
     return x, aux
@@ -472,7 +528,7 @@ def _run_hybrid(params: LM, x: torch.Tensor, positions: torch.Tensor, cache: dic
     for j, sup in enumerate(params.super):
         for name, block in sup.items():
             if remat:
-                x, _ = checkpoint(block, x, positions, None, cache_pos, use_reentrant=False)
+                x, _ = _checkpoint(params.cfg, block, x, positions, None, cache_pos)
             else:
                 x, _ = block(x, positions, None if cache is None else _layer(cache["super"][name], j),
                              cache_pos)
@@ -498,15 +554,21 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, cache: dict | None = None
     (B, S (+ P), D), the MoE layers' summed aux loss (0-d fp32; 0.0
     without MoE), cache)."""
     tokens = batch["tokens"]
+    with spmd.on_mesh(tokens):
+        return _forward(cfg, params, batch, cache, cache_pos)
+
+
+def _forward(cfg: ModelConfig, params: LM, batch: dict, cache: dict | None, cache_pos: int):
+    tokens = batch["tokens"]
     B, S = tokens.shape
     dev = tokens.device
     x = embed(cfg, params, tokens)
-    positions = _positions(B, S, cache_pos, dev)
+    positions = spmd.like(_positions(B, S, cache_pos, dev), tokens)
     aux = None
     if cfg.family == "encdec":
         enc_x = batch["frames"].to(_dt(cfg))
-        enc_out, _ = _run_stack(params, params.enc, enc_x, _positions(B, enc_x.shape[1], 0, dev),
-                                None, 0)
+        pe = spmd.like(_positions(B, enc_x.shape[1], 0, dev), tokens)
+        enc_out, _ = _run_stack(params, params.enc, enc_x, pe, None, 0)
         enc_out = ly.norm(cfg, params.enc_norm, enc_out)
         x, aux = _run_stack(params, params.dec, x, positions,
                             None if cache is None else cache["dec"], cache_pos, enc_out)
@@ -515,7 +577,7 @@ def forward(cfg: ModelConfig, params: LM, batch: dict, cache: dict | None = None
     else:
         if cfg.family == "vlm" and "patches" in batch:
             x = torch.cat([batch["patches"].to(_dt(cfg)), x], dim=1)
-            positions = _positions(B, x.shape[1], 0, dev)
+            positions = spmd.like(_positions(B, x.shape[1], 0, dev), tokens)
         x, aux = _run_stack(params, params.layers, x, positions,
                             None if cache is None else cache["layers"], cache_pos)
     x = ly.norm(cfg, params.final_norm, x)
@@ -531,15 +593,17 @@ def decode_step(cfg: ModelConfig, params: LM, cache: dict, tokens: torch.Tensor,
     prefill's cross_k / cross_v).  Returns (logits (B, vocab) fp32,
     cache)."""
     B = tokens.shape[0]
-    x = embed(cfg, params, tokens)
-    positions = torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device)
-    if cfg.family == "hybrid":
-        x = _run_hybrid(params, x, positions, cache, pos)
-    else:
-        root = "dec" if cfg.family == "encdec" else "layers"
-        x, _ = _run_stack(params, getattr(params, root), x, positions, cache[root], pos)
-    x = ly.norm(cfg, params.final_norm, x)
-    return unembed(cfg, params, x[:, 0]).float(), cache
+    with spmd.on_mesh(tokens):
+        x = embed(cfg, params, tokens)
+        positions = spmd.like(torch.full((B, 1), pos, dtype=torch.int32, device=tokens.device),
+                              tokens)
+        if cfg.family == "hybrid":
+            x = _run_hybrid(params, x, positions, cache, pos)
+        else:
+            root = "dec" if cfg.family == "encdec" else "layers"
+            x, _ = _run_stack(params, getattr(params, root), x, positions, cache[root], pos)
+        x = ly.norm(cfg, params.final_norm, x)
+        return unembed(cfg, params, x[:, 0]).float(), cache
 
 
 def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor, targets: torch.Tensor,
@@ -553,14 +617,20 @@ def chunked_ce(cfg: ModelConfig, params: LM, hidden: torch.Tensor, targets: torc
     chunk = min(chunk, S)
     while S % chunk:
         chunk //= 2
+    hidden = spmd.whole_tokens(hidden)       # on a mesh: gathered once, not a chunk at a time
     nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, S, chunk):
         logits = unembed(cfg, params, hidden[:, c0:c0 + chunk]).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[:, c0:c0 + chunk, None].long())[..., 0]
+        t = targets[:, c0:c0 + chunk].long()
+        tok_nll = spmd.vocab_parallel_nll(logits.reshape(-1, logits.shape[-1]), t.reshape(-1))
+        if tok_nll is None:
+            lse = torch.logsumexp(logits, dim=-1)
+            tok_nll = lse - torch.gather(logits, -1, t[..., None])[..., 0]
+        else:
+            tok_nll = tok_nll.view(t.shape)
         m = mask[:, c0:c0 + chunk]
-        nll = nll + ((lse - gold) * m).sum()
+        nll = nll + (tok_nll * m).sum()
         cnt = cnt + m.sum()
     return nll / torch.clamp(cnt, min=1.0)
 
@@ -579,6 +649,11 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     dropped) and `mtp_norm`, each position predicting the token two ahead
     (the last two positions masked).  Returns (loss, {"ce", "aux"} and
     "mtp" with the head), 0-d fp32 tensors."""
+    with spmd.on_mesh(batch["tokens"]):
+        return _loss_fn(cfg, params, batch)
+
+
+def _loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     tokens = batch["tokens"]
     hidden, aux, _ = forward(cfg, params, batch)
     if cfg.family == "vlm" and "patches" in batch:
@@ -586,18 +661,21 @@ def loss_fn(cfg: ModelConfig, params: LM, batch: dict):
     targets = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
     mask = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
     mask[:, -1] = 0.0
+    mask = spmd.like(mask, tokens)
     if "mask" in batch:
         mask = mask * batch["mask"]
     ce = chunked_ce(cfg, params, hidden, targets, mask)
     loss, metrics = ce + 0.01 * aux, {"ce": ce, "aux": aux}
     if cfg.mtp_depth:
         B, S = tokens.shape
-        h = ly.dense(torch.cat([hidden, embed(cfg, params, targets)], dim=-1), params.mtp_proj)
-        h, _ = params.mtp_block(h, _positions(B, S, 0, tokens.device), None, 0)
+        h = ly.dense(torch.cat([hidden, embed(cfg, params, targets)], dim=-1),
+                     spmd.use(cfg, params.mtp_proj))
+        h, _ = params.mtp_block(h, spmd.like(_positions(B, S, 0, tokens.device), tokens), None, 0)
         h = ly.norm(cfg, params.mtp_norm, h)
         t2 = torch.cat([tokens[:, 2:], tokens[:, :2]], dim=1)
-        m2 = mask.clone()
+        m2 = torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
         m2[:, -2:] = 0.0
+        m2 = spmd.like(m2, tokens) * mask
         mtp = chunked_ce(cfg, params, h, t2, m2)
         loss, metrics["mtp"] = loss + 0.3 * mtp, mtp
     return loss, metrics

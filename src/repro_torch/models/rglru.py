@@ -12,9 +12,12 @@ JAX package has none for this block.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
+from . import spmd
 from .config import ModelConfig
 
 __all__ = ["lru_scan", "rglru_layer"]
@@ -49,8 +52,8 @@ def rglru_layer(cfg: ModelConfig, p, x: torch.Tensor, *, cache: dict | None = No
     r = cfg.rglru
     B, S, _D = x.shape
     W = r.lru_width or cfg.d_model
-    xw = torch.matmul(x, p["in_proj"])
-    gate = F.gelu(torch.matmul(x, p["gate_proj"]), approximate="tanh")
+    xw = spmd.matmul(x, p["in_proj"])
+    gate = F.gelu(spmd.matmul(x, p["gate_proj"]), approximate="tanh")
 
     K = r.conv_width
     state = (torch.zeros((B, K - 1, W), dtype=xw.dtype, device=x.device) if cache is None
@@ -58,14 +61,15 @@ def rglru_layer(cfg: ModelConfig, p, x: torch.Tensor, *, cache: dict | None = No
     xp = torch.cat([state, xw], dim=1)
     xc = sum(xp[:, i:i + S] * p["conv_w"][i][None, None] for i in range(K))     # fp32
 
-    rg = torch.sigmoid(torch.matmul(xc, p["w_r"].float()))
-    ig = torch.sigmoid(torch.matmul(xc, p["w_i"].float()))
+    rg = torch.sigmoid(spmd.matmul(xc, p["w_r"].float()))
+    ig = torch.sigmoid(spmd.matmul(xc, p["w_i"].float()))
     a = torch.exp(-_C * F.softplus(p["lam"].float()) * rg)
     bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (ig * xc.float())
     h = lru_scan(a, bx)
     if cache is not None:
-        h = h + torch.cumprod(a, dim=1) * cache["h"][:, None].float()
+        h = h + spmd.along(functools.partial(torch.cumprod, dim=1), a, 1) \
+            * cache["h"][:, None].float()
         cache["conv"].copy_(xp[:, -(K - 1):])
         cache["h"].copy_(h[:, -1])
     y = h.to(x.dtype) * gate
-    return torch.matmul(y, p["out_proj"]).to(x.dtype), cache
+    return spmd.matmul(y, p["out_proj"]).to(x.dtype), cache

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import spmd
 from .config import ModelConfig
 
 __all__ = ["causal_conv", "ssd_chunked", "mamba2_layer"]
@@ -104,29 +105,33 @@ def mamba2_layer(cfg: ModelConfig, p, x: torch.Tensor, *, cache: dict | None = N
     H = din // s.head_dim
     P, N = s.head_dim, s.d_state
 
-    zxbcdt = torch.matmul(x, p["in_proj"])
+    zxbcdt = spmd.matmul(x, p["in_proj"])
     z, xb, Bm, Cm, dt = torch.split(zxbcdt, [din, din, N, N, H], dim=-1)
     conv_out, new_conv = causal_conv(torch.cat([xb, Bm, Cm], dim=-1), p["conv_w"],
                                      None if cache is None else cache["conv"])
     conv_out = F.silu(conv_out)
-    xb = conv_out[..., :din].reshape(B, S, H, P)
+    xb = spmd.heads(conv_out[..., :din], (B, S, H, P))
     Bm = conv_out[..., din:din + N]
     Cm = conv_out[..., din + N:]
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())                    # (H,) negative
 
     if cache is None or S > 1:
-        y, h = ssd_chunked(xb, dt, A, Bm, Cm, min(s.chunk, S),
-                           h0=None if cache is None else cache["state"])
+        chunk = min(s.chunk, S)
+        # on a mesh, each rank scans its own rows (heads whole: A is shared)
+        y, h = spmd.per_batch(lambda *a: ssd_chunked(*a[:5], chunk, a[5]), xb, dt, A, Bm, Cm,
+                              None if cache is None else cache["state"], shared=(2,), n_out=2)
     else:
         # O(1) decode: h = h exp(A dt) + dt B x; y = C . h
         dec = torch.exp(A[None] * dt[:, 0])               # (B, H)
         xdt = xb[:, 0].float() * dt[:, 0, :, None]        # (B, H, P)
         h = cache["state"] * dec[..., None, None] + xdt[..., None] * Bm[:, 0, None, None].float()
-        y = torch.matmul(h, Cm[:, 0, None, :, None].float())[..., 0][:, None]   # (B, 1, H, P)
+        y = spmd.local_op(torch.matmul, h, Cm[:, 0, None, :, None].float())[..., 0][:, None]
+        # (B, 1, H, P); on a mesh a rank's batch and heads alone
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["state"].copy_(h)
     y = y + xb.float() * p["d_skip"].float()[None, None, :, None]
-    y = y.reshape(B, S, din).to(x.dtype) * F.silu(z)
-    return torch.matmul(y, p["out_proj"]).to(x.dtype), cache
+    # z's channels are y's heads: whole where the heads do not split over a mesh dim
+    y = y.reshape(B, S, din).to(x.dtype) * F.silu(spmd.splittable(z, 2, H))
+    return spmd.matmul(y, p["out_proj"]).to(x.dtype), cache

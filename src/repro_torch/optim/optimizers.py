@@ -11,7 +11,9 @@ new trees, the port writes in place where that saves device memory:
 state's tensors (the returned `OptState` holds them, with step + 1), and
 `apply_updates` writes into the parameters, under `torch.no_grad()`.  The
 step counter is a 0-d int32 host tensor, so that the bias corrections and
-the schedule are host scalars a card kernel takes without a copy.
+the schedule are host scalars a card kernel takes without a copy; AdamW
+divides by its bias corrections once they are on the moments' device, so
+that a step on a DeviceMesh rounds as the plain step does.
 
 Stacked layers.  The JAX package stacks the leaves of each of its layer
 stacks on a leading layer axis, where the port keeps one parameter a
@@ -31,6 +33,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 __all__ = ["OptState", "init_opt_state", "adamw_update", "adafactor_update", "apply_updates",
            "global_norm", "clip_by_global_norm", "stack_key"]
@@ -135,6 +138,33 @@ def init_opt_state(params, optimizer: str = "adamw", dtype: str = "float32") -> 
     return OptState(torch.zeros((), dtype=torch.int32), mu, nu)
 
 
+def _split_as(t: torch.Tensor, like: torch.Tensor, skip: int) -> torch.Tensor:
+    """A factor `t` of `like`'s shape but its size-1 dim `skip`, split as
+    `like` is on every other dim (a DTensor; anything else as it is), so
+    that the factored denominator is formed where `like`'s shards lie."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = [Shard(q.dim) if q.is_shard() and q.dim != skip else Replicate()
+          for q in like.placements]
+    return t.redistribute(t.device_mesh, pl)
+
+
+def _stack(ts: list) -> torch.Tensor:
+    """`torch.stack(ts)`; DTensors of one placement are stacked rank by rank
+    (no data moves), each split dim one further, so that the new layer
+    dim 0 stays whole."""
+    t0 = ts[0]
+    if not isinstance(t0, DTensor):
+        return torch.stack(ts)
+    if any(tuple(t.placements) != tuple(t0.placements) for t in ts):
+        raise ValueError(f"a stacked group of several placements: {[t.placements for t in ts]}")
+    pl = [Shard(q.dim + 1) if q.is_shard() else q for q in t0.placements]
+    shape = (len(ts), *t0.shape)
+    return DTensor.from_local(torch.stack([t.to_local() for t in ts]), t0.device_mesh, pl,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, lr, *, b1=0.9, b2=0.95, eps=1e-8,
                  weight_decay=0.1):
@@ -144,12 +174,19 @@ def adamw_update(grads, state: OptState, params, lr, *, b1=0.9, b2=0.95, eps=1e-
     step = state.step + 1
     t = step.to(torch.float32)
     c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+    on = {}
 
     def upd(g, p, m, v):
+        # the bias corrections on the moments' device: a card kernel divides
+        # by a host scalar through its reciprocal, a DTensor's division by
+        # a tensor, so the two would round apart
+        if m.device not in on:
+            on[m.device] = (c1.to(m.device), c2.to(m.device))
+        d1, d2 = on[m.device]
         g32 = g.float()
         m2 = b1 * m.float() + (1 - b1) * g32
         v2 = b2 * v.float() + (1 - b2) * g32 * g32
-        u = (m2 / c1) / (torch.sqrt(v2 / c2) + eps) + weight_decay * p.float()
+        u = (m2 / d1) / (torch.sqrt(v2 / d2) + eps) + weight_decay * p.float()
         m.copy_(m2)
         v.copy_(v2)
         return -lr * u
@@ -181,7 +218,9 @@ def adafactor_update(grads, state: OptState, params, lr, *, decay=0.8, eps=1e-30
             vr2 = beta * vr.float() + (1 - beta) * g2.mean(dim=-1)
             vc2 = beta * vc.float() + (1 - beta) * g2.mean(dim=-2)
             r = vr2 / torch.clamp(vr2.mean(dim=-1, keepdim=True), min=eps)
-            u = g32 / (torch.sqrt(r)[..., None] * torch.sqrt(vc2)[..., None, :])
+            n = g32.dim()
+            u = g32 / (_split_as(torch.sqrt(r)[..., None], g32, n - 1)
+                       * _split_as(torch.sqrt(vc2)[..., None, :], g32, n - 2))
             vc.copy_(vc2)
         else:
             vr2 = beta * vr.float() + (1 - beta) * g2
@@ -198,8 +237,11 @@ def adafactor_update(grads, state: OptState, params, lr, *, decay=0.8, eps=1e-30
     rest = [n for n in params if n not in grouped]
     updates = _map(upd, *({n: tree[n] for n in rest} for tree in (grads, params, state.nu)))
     for key, names in groups.items():
-        p = torch.stack([params[n] for n in names]) if weight_decay else None
-        u = upd(torch.stack([grads[n] for n in names]), p, state.nu[key])
+        p = _stack([params[n] for n in names]) if weight_decay else None
+        g = _stack([grads[n] for n in names])
+        u = upd(g, p, state.nu[key])
+        if isinstance(u, DTensor):          # back to the stacked placements, then split
+            u = u.redistribute(u.device_mesh, g.placements)
         updates.update(zip(names, u.unbind(0)))
     return {n: updates[n] for n in params}, OptState(step, state.mu, state.nu)
 

@@ -1377,3 +1377,100 @@ def test_cuda_family_serving_matches_cpu(arch):
 
     for a, b in zip(leaves(cache_g), leaves(cache_c), strict=True):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_flash_attention_through_a_one_card_mesh(dtype):
+    """Row 12 through a (1, 1) ("data", "model") DeviceMesh over NCCL (a
+    world of one): `attention_core` on DTensors launches the kernel on the
+    local heads (`models.spmd.attention`), once, and equals the unsharded
+    call bit for bit; the plain version never runs."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import layers as ly
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(2, 256, H, 128, generator=g, device=dev).to(dtype)
+               for H in (16, 8, 8))
+    want = ly.attention_core(q, k, v, causal=True)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        pl = [Shard(0), Shard(2)]
+        dq, dk, dv = (distribute_tensor(t, mesh, pl, src_data_rank=None) for t in (q, k, v))
+        kops.reset_launch_counts()
+        kref.reset_call_counts()
+        got = ly.attention_core(dq, dk, dv, causal=True)
+        assert kops.launch_counts["flash_attention"] == 1
+        assert kref.call_counts["flash_attention"] == 0
+        assert list(got.placements) == [Shard(0), Replicate()]     # heads whole: 'model' of 1
+        assert torch.equal(got.redistribute(mesh, [Replicate(), Replicate()]).to_local(), want)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_one_card_mesh_train_steps_equal_the_plain_steps():
+    """qwen3-1.7b at full width and two layers (bf16, AdamW, remat "block",
+    2 micro-batches of 2 x 1024), three `make_train_step` steps plain and
+    through a (1, 1) DeviceMesh over NCCL: every loss, gradient norm,
+    parameter and moment bit for bit after each step.  The schedule's rate
+    is 0 at step 0, so steps 1 and 2 are the first to update; AdamW divides
+    by its bias corrections on the card in both (a card kernel divides by
+    a host scalar through its reciprocal, a DTensor's division by a
+    tensor, and the two rounded apart)."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models import init_params
+    from repro_torch.optim import init_opt_state
+
+    dev = _card()
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), num_layers=2)
+    kw = dict(num_micro=2, lr=3e-4, warmup=2, total_steps=7)
+    g = torch.Generator().manual_seed(3)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 1024), generator=g,
+                                        dtype=torch.int32).to(dev)} for _ in range(3)]
+    full = lambda t: t.full_tensor() if isinstance(t, DTensor) else t      # noqa: E731
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+        ref = init_params(cfg, seed=1, device=dev)
+        s0 = init_opt_state(ref, cfg.optimizer, cfg.opt_state_dtype)
+        params = init_params(cfg, seed=1, device=dev)
+        pspecs = sh.params_pspecs(cfg, mesh, params)
+        sh.distribute_params(cfg, params, mesh, pspecs)
+        s1 = sh.distribute_tree(init_opt_state(params, cfg.optimizer, cfg.opt_state_dtype),
+                                sh.opt_state_pspecs(cfg, mesh, pspecs, params, cfg.optimizer),
+                                mesh)
+        specs = sh.batch_pspecs(mesh, batches[0])
+        micro = {k: sh.to_named(mesh, s) for k, s in
+                 sh.batch_pspecs(mesh, {"tokens": batches[0]["tokens"][:2]}).items()}
+        plain = make_train_step(cfg, **kw)
+        meshed = make_train_step(cfg, **kw, micro_shardings=micro,
+                                 grad_shardings={n: sh.to_named(mesh, s)
+                                                 for n, s in pspecs.items()})
+        for i, batch in enumerate(batches):
+            ref, s0, m0 = plain(ref, s0, batch, i)
+            params, s1, m1 = meshed(params, s1, sh.distribute_tree(batch, specs, mesh), i)
+            assert float(full(m1["loss"])) == float(m0["loss"]), i
+            assert float(full(m1["grad_norm"])) == float(m0["grad_norm"]), i
+            for (n, a), (_, b) in zip(ref.named_parameters(), params.named_parameters()):
+                assert torch.equal(full(b.detach()), a.detach()), (i, n)
+            for n in s0.mu:
+                assert torch.equal(full(s1.mu[n]), s0.mu[n]), (i, n)
+                assert torch.equal(full(s1.nu[n]), s0.nu[n]), (i, n)
+    finally:
+        dist.destroy_process_group()

@@ -364,9 +364,11 @@ def test_unported_configs_and_paths_raise():
     """A window, MLA and a ring cache now run (a dense config given a window
     of 16 makes a ring and decodes over it; one given MLA builds and runs
     a forward), and the moe family trains (`loss_fn`, the
-    multi-token-prediction head included, and `make_train_step`); what
-    still raises names its ROADMAP item (item 6): the all-to-all MoE
-    dispatch, and the activation sharding."""
+    multi-token-prediction head included, and `make_train_step`).  The
+    launch tooling's parts run too: the activation spec is set and cleared
+    (a plain tensor's forward does not read it), and `set_moe_impl` takes a
+    DeviceMesh (of a fake process group of 4), on which `a2a_available`
+    holds for a reduced mixtral whose 4 experts divide the 'model' size."""
     from repro_torch.launch.train import make_train_step
     from repro_torch.models import loss_fn, moe_a2a
 
@@ -382,17 +384,36 @@ def test_unported_configs_and_paths_raise():
         h, _, cache = forward(good, params, {"tokens": tok}, cache=cache)
         logits, _ = decode_step(good, params, cache, tok[:, -1:], 20)
         assert torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    params = init_params(cfg, seed=0, device="cpu")
+    tok = {"tokens": torch.arange(16)[None] % cfg.vocab_size}
+    want, _, _ = forward(cfg, params, tok)
+    set_activation_spec((("data",), "model", None))
+    try:
+        got, _, _ = forward(cfg, params, tok)
+    finally:
         set_activation_spec(None)
+    assert torch.equal(got, want)
     batch = {"tokens": torch.zeros(1, 8, dtype=torch.int64)}
     for arch in ("mixtral-8x7b", "deepseek-v3-671b"):      # the moe family trains now
         c = replace(tconfigs.reduced(tconfigs.get_config(arch)), dtype="float32")
         loss, m = loss_fn(c, init_params(c, device="cpu"), batch)
         assert torch.isfinite(loss) and ("mtp" in m) == bool(c.mtp_depth)
         make_train_step(c)
-    moe_a2a.set_moe_impl(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 6"):
-        moe_a2a.set_moe_impl(mesh=object())
+    from torch.distributed import destroy_process_group
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import init_fake_process_group
+
+    init_fake_process_group(4)
+    try:
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        moe_a2a.set_moe_impl(mesh=mesh, dp_axes=("data",))
+        mix = tconfigs.reduced(tconfigs.get_config("mixtral-8x7b"))
+        assert moe_a2a.a2a_available(mix, 16) and not moe_a2a.a2a_available(mix, 15)
+        assert not moe_a2a.a2a_available(cfg, 16)            # no MoE
+    finally:
+        moe_a2a.set_moe_impl(None)
+        destroy_process_group()
+    assert not moe_a2a.a2a_available(mix, 16)
     p = {n: torch.from_numpy(a) for n, a in _gqa_params(cfg, _rng(5)).items()}
     with pytest.raises(ValueError, match="outside a cache"):
         ly.gqa_attention(cfg, p, torch.zeros(1, 5, cfg.d_model),

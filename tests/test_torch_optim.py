@@ -153,5 +153,19 @@ def test_int8_compression_matches_reference(shape):
     back = topt.decompress_int8(q, scale, pad, shape)
     np.testing.assert_array_equal(back.numpy(),
                                   np.asarray(jopt.decompress_int8(jq, jscale, jpad, shape)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        topt.compressed_psum(torch.from_numpy(x), "pod")
+    # the quantized mean over a group of one rank: the JAX package's over an
+    # axis of one, exactly (residual fed back once)
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        res = None
+        jres = jnp.zeros_like(jnp.asarray(x))
+        for _ in range(2):
+            out, res = topt.compressed_psum(torch.from_numpy(x), dist.group.WORLD, residual=res)
+            jout, jres = jax.vmap(lambda a, r: jopt.compressed_psum(a, "i", residual=r),
+                                  axis_name="i")(jnp.asarray(x)[None], jres[None])
+            jout, jres = jout[0], jres[0]
+            np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+            np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
+    finally:
+        dist.destroy_process_group()

@@ -124,8 +124,8 @@ def _tokens(cfg, seed=3):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_loss_and_grads(arch: str):
-    jcfg = replace(jconfigs.reduced(jconfigs.get_config(arch)), dtype="float32")
+def _jax_loss_and_grads(arch: str, remat: str = "block"):
+    jcfg = replace(jconfigs.reduced(jconfigs.get_config(arch)), dtype="float32", remat=remat)
     params = j_init_params(jcfg, jax.random.PRNGKey(11))
     tokens = _tokens(jcfg)
     (loss, m), grads = jax.value_and_grad(
@@ -174,12 +174,26 @@ def test_remat_none_and_block_give_the_same_gradients(arch):
 
 
 def test_remat_dots_and_unported_losses_raise():
-    cfg = _cfg("qwen3-1.7b", "dots")
-    model = tlm.init_params(cfg, seed=0, device="cpu").requires_grad_()
-    with pytest.raises(NotImplementedError, match="dots"):
-        loss_fn(cfg, model, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
-    with torch.no_grad():       # no graph: remat is not read
-        loss_fn(cfg, model, {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
+    """remat "dots" (selective checkpointing: the blocks' `aten.mm` outputs
+    saved, the rest recomputed) against `jax.grad` under the JAX package's
+    `checkpoint_dots_with_no_batch_dims`, and against remat "block"; the
+    other families' losses run."""
+    _params, jloss, jce, jgrads = _jax_loss_and_grads("qwen3-1.7b", "dots")
+    cfg, dots, loss, m = _port_loss_and_grads("qwen3-1.7b", "dots")
+    assert cfg.remat == "dots"
+    assert abs(loss.item() - jloss) <= TOL * abs(jloss)
+    for name, p in dots.named_parameters():
+        assert _rel(p.grad, convert._ref_leaf(jgrads, name)) <= TOL, name
+    # the attention forward is recomputed (not an mm), the mm outputs are not
+    assert kref.call_counts["flash_attention"] == 2 * cfg.num_layers
+    _cfg_b, block, loss_b, _ = _port_loss_and_grads("qwen3-1.7b", "block")
+    assert torch.equal(loss, loss_b)
+    for (name, a), (_, b) in zip(dots.named_parameters(), block.named_parameters()):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-6, atol=1e-7, msg=name)
+    most = _cfg("qwen3-1.7b", "most")
+    with pytest.raises(ValueError, match="unknown remat"):
+        loss_fn(most, tlm.init_params(most, seed=0, device="cpu").requires_grad_(),
+                {"tokens": torch.zeros((1, 8), dtype=torch.int32)})
     mtp = replace(cfg, mtp_depth=1, remat="block")             # trains now, as the moe family
     loss, m = loss_fn(mtp, tlm.init_params(mtp, seed=0, device="cpu").requires_grad_(),
                       {"tokens": torch.zeros((1, 8), dtype=torch.int64)})

@@ -136,9 +136,19 @@ def test_default_num_micro_matches_the_reference_rule_on_one_device(arch, shape)
     want = j_default(jconfigs.get_config(arch), JShape(name, seq, gb, "train"), OneDevice())
     assert default_num_micro(tconfigs.get_config(arch), ShapeConfig(name, seq, gb, "train")) \
         == want
-    with pytest.raises(NotImplementedError, match="item 6"):
-        default_num_micro(replace(tconfigs.get_config(arch), num_micro_override=None),
-                          ShapeConfig(name, seq, gb, "train"), mesh=OneDevice())
+    # and with a mesh: the data-parallel axes that divide the batch share it
+    from repro_torch.launch.mesh import MeshShape
+
+    class Mesh:
+        shape = {"data": 4, "model": 2}
+        axis_names = ("data", "model")
+
+    free = replace(tconfigs.get_config(arch), num_micro_override=None)
+    jfree = replace(jconfigs.get_config(arch), num_micro_override=None)
+    for ours, theirs in ((MeshShape(("data", "model"), (1, 1)), OneDevice()),
+                         (MeshShape(("data", "model"), (4, 2)), Mesh())):
+        assert default_num_micro(free, ShapeConfig(name, seq, gb, "train"), mesh=ours) == \
+            j_default(jfree, JShape(name, seq, gb, "train"), theirs)
 
 
 def test_qwen3_train_4k_cut_to_batch_8_takes_two_micro_batches():
